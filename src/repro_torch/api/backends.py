@@ -1,0 +1,238 @@
+"""Pluggable Gibbs-sampler backends behind one `Sampler` protocol.
+
+Every consumer of topic-model inference (the `VedaliaService` facade,
+incremental `update`) talks to a `Sampler`; the sweep implementation is
+chosen by name:
+
+  torch   blocked parallel sweep (`core.gibbs`) — the oracle; on the card
+          each block launches the Hopper kernel (⌈N/4096⌉ launches a sweep)
+  cuda    single-launch kernel sweep (`kernels.lda_gibbs.ops.sweep`): one
+          launch over all N tokens a sweep
+
+The reference package's names stay valid as aliases — ``jnp`` is
+``torch`` and ``pallas`` is ``cuda`` — so a reference client's requests
+keep their meaning. Backends the reference routes to but this package
+does not have yet (`alias`, `batched`, `sparse`, `pserver`,
+`distributed`) resolve, as the reference's own fallback does, to the
+oracle.
+
+All backends speak *stored* `LDAState` at the boundary (fixed point when
+``cfg.w_bits`` is set) so a model fit by one can be refined by another.
+Backends run on the device of the corpus they are given; their
+`torch.Generator` must be on that device too.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.core.codec import encode_state
+from repro_torch.core.types import Corpus, LDAConfig, LDAState, init_state
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerCapabilities:
+    """What a backend can do — the routing metadata of the registry.
+
+    warm_start:     accepts a prior `LDAState` and continues the chain.
+    weighted:       honors fractional per-token weights (RLDA's ψ·c).
+    device_kind:    the device class the schedule is designed for:
+                    "gpu" (dense parallel sweeps on the card), "pod"
+                    (sharded multi-host), "phone" (sequential).
+    proposal_based: draws from a stale proposal corrected by MH rather
+                    than the exact conditional.
+    quant_modes:    the `QuantSpec` modes this backend honors in its hot
+                    path; a packed-spec config still fits on the live
+                    f32/fixed representation.
+    """
+
+    warm_start: bool = True
+    weighted: bool = True
+    device_kind: str = "gpu"
+    proposal_based: bool = False
+    quant_modes: tuple = ("f32", "fixed")
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["quant_modes"] = list(self.quant_modes)
+        return d
+
+
+@runtime_checkable
+class Sampler(Protocol):
+    """One full-corpus collapsed-Gibbs sweep engine."""
+
+    def sweep(self, cfg: LDAConfig, state: LDAState, corpus: Corpus,
+              gen: torch.Generator) -> LDAState: ...
+
+    def run(self, cfg: LDAConfig, corpus: Corpus, gen: torch.Generator,
+            num_sweeps: int, state: Optional[LDAState] = None) -> LDAState: ...
+
+
+_REGISTRY: dict[str, type] = {}
+
+#: The reference package's backend names that mean a backend here.
+ALIASES = {"jnp": "torch", "pallas": "cuda"}
+
+#: The oracle: where a routed name this package lacks resolves.
+ORACLE = "torch"
+
+#: Pseudo-backend name resolved per workload by :func:`select_backend`.
+AUTO = "auto"
+
+
+def register_backend(name: str, capabilities: Optional[SamplerCapabilities] = None):
+    """Class decorator: make `get_backend(name)` construct this sampler."""
+
+    def deco(cls):
+        cls.name = name
+        if capabilities is not None:
+            cls.capabilities = capabilities
+        elif not hasattr(cls, "capabilities"):
+            cls.capabilities = SamplerCapabilities()
+        _REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def available_backends() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def canonical(name: str) -> str:
+    """A registered name, or an alias of one, -> the registered name."""
+    return ALIASES.get(name, name)
+
+
+def known_backend(name: str) -> bool:
+    return canonical(name) in _REGISTRY
+
+
+def backend_capabilities(name: Optional[str] = None):
+    """Capabilities of one backend, or `{name: SamplerCapabilities}` for all."""
+    if name is not None:
+        try:
+            return _REGISTRY[canonical(name)].capabilities
+        except KeyError:
+            raise KeyError(
+                f"unknown sampler backend {name!r}; "
+                f"available: {available_backends()}"
+            ) from None
+    return {n: cls.capabilities for n, cls in sorted(_REGISTRY.items())}
+
+
+# Workload-size boundary above which the O(k_d)-per-token proposal sampler
+# (alias) beats the dense parallel sweep's O(k) score tile.
+_LARGE_CORPUS_TOKENS = 100_000
+
+
+def select_backend(
+    *,
+    num_tokens: int = 0,
+    task: str = "fit",
+    device_kind: Optional[str] = None,
+    available: Optional[list[str]] = None,
+    num_models: int = 1,
+) -> str:
+    """Resolve the `"auto"` pseudo-backend for a workload.
+
+    The reference's routing order (first match wins):
+      1. multi-model work goes to the stacked `batched` sweep when one is
+         built for the requested device class;
+      2. an explicit `device_kind` picks the backend built for that device
+         class ("phone" -> sparse, "pod" -> pserver, "gpu" -> torch);
+      3. updates go to the oracle sweep;
+      4. large fits go to the proposal sampler (`alias`);
+      5. everything else gets the oracle.
+    A candidate that is not available falls through to the oracle.
+    """
+    names = set(available if available is not None else available_backends())
+
+    def pick(*candidates: str) -> str:
+        for c in candidates:
+            if c in names:
+                return c
+        return ORACLE
+
+    if device_kind is not None:
+        if num_models > 1:
+            batched = _REGISTRY.get("batched")
+            if ("batched" in names and batched is not None
+                    and batched.capabilities.device_kind == device_kind):
+                return "batched"
+        preferred = {"phone": "sparse", "pod": "pserver", "gpu": ORACLE}
+        want = preferred.get(device_kind)
+        if want in names:
+            return want
+        for n in sorted(names):  # any backend built for that device class
+            cls = _REGISTRY.get(n)  # `available` may list remote-only names
+            if cls is not None and cls.capabilities.device_kind == device_kind:
+                return n
+        return pick(ORACLE)
+    if num_models > 1:
+        return pick("batched", ORACLE)
+    if task == "update":
+        return pick(ORACLE)
+    if num_tokens >= _LARGE_CORPUS_TOKENS:
+        return pick("alias", ORACLE)
+    return pick(ORACLE)
+
+
+def get_backend(name: str = ORACLE, **opts) -> Sampler:
+    """Construct a registered sampler backend by name (or alias)."""
+    try:
+        cls = _REGISTRY[canonical(name)]
+    except KeyError:
+        raise KeyError(
+            f"unknown sampler backend {name!r}; "
+            f"available: {available_backends()}"
+        ) from None
+    return cls(**opts)
+
+
+class _BaseSampler:
+    """Default multi-sweep loop with `gibbs.run`'s discipline (init from
+    the generator, then one sweep at a time on the same generator)."""
+
+    def run(self, cfg, corpus, gen, num_sweeps, state=None):
+        if state is None:
+            state = encode_state(cfg, init_state(cfg, corpus, gen))
+        for _ in range(num_sweeps):
+            state = self.sweep(cfg, state, corpus, gen)
+        return state
+
+    def __repr__(self):
+        return f"{type(self).__name__}(name={getattr(self, 'name', '?')!r})"
+
+
+@register_backend("torch", SamplerCapabilities(device_kind="gpu"))
+class TorchSampler(_BaseSampler):
+    """The blocked parallel sweep — system path and parity oracle."""
+
+    def __init__(self, block: int = 4096):
+        self.block = block
+
+    def sweep(self, cfg, state, corpus, gen):
+        from repro_torch.core import gibbs
+
+        return gibbs.sweep(cfg, state, corpus, gen, self.block)
+
+    def run(self, cfg, corpus, gen, num_sweeps, state=None):
+        from repro_torch.core import gibbs
+
+        return gibbs.run(cfg, corpus, gen, num_sweeps, state=state, block=self.block)
+
+
+@register_backend("cuda", SamplerCapabilities(device_kind="gpu"))
+class CudaSampler(_BaseSampler):
+    """One kernel launch over all tokens a sweep (the plain version on
+    CPU tensors)."""
+
+    def sweep(self, cfg, state, corpus, gen):
+        from repro_torch.kernels.lda_gibbs import ops as kops
+
+        return kops.sweep(cfg, state, corpus, gen)
