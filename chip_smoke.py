@@ -8,16 +8,28 @@ Phases:
                  versions; builds every kernel from `src/repro_torch/**/csrc`
                  (one nvcc per source, all started together)
   1. kernels     each kernel against its plain PyTorch version on the card,
-                 over a grid of shapes and count formats
+                 over a grid of shapes and count formats (and, for alias_mh,
+                 MH round counts); near-ties are exempt and counted
   2. main path   the §5 case study (`examples/quickstart.py`'s config) over the
                  wire through an in-process `VedaliaClient(device="cuda")`:
-                 fit 30, refine 70, two view syncs, top reviews, perplexity;
-                 kernel launch counters are zeroed just before and read just
-                 after, and the perplexity must land within 5% of the same
-                 run of the port on the CPU
+                 fit 30, refine 70, two view syncs, top reviews, perplexity,
+                 once on the exact `torch` backend and once on `alias`;
+                 kernel launch counters are zeroed just before each run and
+                 read just after, and each perplexity must land within 5% of
+                 the same run of the port on the CPU; after each run, that
+                 path's kernel against its plain version at the path's own
+                 shape (one 4096-token block; all tokens with one sweep's
+                 alias tables and draws)
   3. scale       a popular product (10,000 reviews, V = 10,000) fit with the
                  single-launch `cuda` backend: sweep time, tokens/s, the
                  kernel's time against its byte bound and its plain version
+  4. large_fit   the same popular product over the wire with `backend="auto"`,
+                 which must route to `alias` (>= 100k tokens): fit 100 sweeps
+                 (one alias_mh launch each), a view sync, the count
+                 invariants, perplexity within 0.3 in log of phase 3's exact
+                 fit; then sweep time, a per-stage breakdown, the profiler's
+                 top device ops and the kernel against its bound and plain
+                 version
 
 Prints one JSON line per phase, then the kernels line, then
 `{"ok": true, "device": {...}}` as the last line. Any failure raises and
@@ -43,8 +55,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # tensor cores; the kernel's bound is the larger of bytes/rate and ops/rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-NEAR_TIE = 1e-5  # top-2 margin below which an ulp of `log` may flip the argmax
+NEAR_TIE = 1e-5  # margin below which an ulp of `log` may flip a decision
 PPX_BAND = 0.05
+LOG_PPX_BAND = 0.3  # alias at 100 sweeps vs the exact sweep at 30 (the reference's band)
 
 
 def emit(obj) -> None:
@@ -77,12 +90,14 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 def phase_setup():
     import torch
 
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.alias_mh import kernel as alias_kernel
     from repro_torch.kernels.lda_gibbs import kernel as lda_kernel
 
     smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"]).splitlines()[0]
     print(smi, flush=True)
-    builds = {"lda_gibbs.resample": lda_kernel.build}
+    builds = {"lda_gibbs.resample": lda_kernel.build, "alias_mh.resample": alias_kernel.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = {name: pool.submit(b) for name, b in builds.items()}
@@ -97,7 +112,7 @@ def phase_setup():
                             "--format=csv,noheader"]).splitlines()[0],
         "torch": torch.__version__,
         "torch_cuda": torch.version.cuda,
-        "nvcc": run_text([lda_kernel._nvcc(), "--version"]).splitlines()[-1],
+        "nvcc": run_text([_build.nvcc(), "--version"]).splitlines()[-1],
         "python": sys.version.split()[0],
         "build_s": round(build_s, 3),
         "ptxas": ptxas,
@@ -184,12 +199,93 @@ def phase_kernels():
     return out
 
 
+def _alias_inputs(n, k, w_bits, mh_steps, d=2000, v=10000, seed=0):
+    """The alias_mh kernel's arguments on the card: token ids, assignments,
+    weights (10% zero), stored count tables (float32, or int32 fixed point
+    with real counts on its grid), the stale alias tables built from the
+    real counts, and one sweep's (S, N) draws."""
+    import torch
+
+    from repro_torch.core import alias, codec
+    from repro_torch.core.types import LDAConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    cfg = LDAConfig(num_topics=k, vocab_size=v, num_docs=d, w_bits=w_bits)
+    sc = codec.codec_for(cfg)
+    docs = torch.randint(0, d, (n,), generator=gen, device=dev, dtype=torch.int32)
+    words = torch.randint(0, v, (n,), generator=gen, device=dev, dtype=torch.int32)
+    z = torch.randint(0, k, (n,), generator=gen, device=dev, dtype=torch.int32)
+    weights = torch.rand(n, generator=gen, device=dev)
+    weights = torch.where(torch.rand(n, generator=gen, device=dev) < 0.1, 0.0, weights)
+    n_dt = sc.decode_array(sc.encode_array(torch.rand(d, k, generator=gen, device=dev) * 6.0))
+    n_wt = sc.decode_array(sc.encode_array(torch.rand(v, k, generator=gen, device=dev) * 3.0))
+    tables = alias.sweep_tables(cfg, n_dt, n_wt)
+    counts = tuple(sc.encode_array(x) for x in (n_dt, n_wt, n_wt.sum(0)))
+    draws = alias.sweep_draws(gen, n, k, mh_steps, dev)
+    return (docs, words, z, weights, *counts, *tables, *draws)
+
+
+def compare_alias(args, *, alpha, beta, beta_bar, w_bits):
+    """alias_mh kernel vs plain on identical inputs: (mismatches outside
+    near-ties plus frozen tokens that moved, near-tie mismatches, tokens with
+    a near-tie in some round, the largest smallest-margin among mismatched
+    tokens — 0 when the two agree everywhere, tokens the kernel moved)."""
+    import torch
+
+    from repro_torch.kernels.alias_mh import ops
+
+    hp = dict(alpha=alpha, beta=beta, beta_bar=beta_bar, w_bits=w_bits)
+    z_k = ops.mh_resample(*args, **hp)
+    torch.cuda.synchronize()
+    z_p = ops.mh_resample_plain(*args, **hp)
+    acc, prop = ops.margins(*args, **hp)
+    live = args[3] > 0
+    near = live & ((acc < NEAR_TIE) | (prop < NEAR_TIE))
+    differ = z_k != z_p
+    bad = differ & ~near
+    frozen_bad = (~live) & (z_k != args[2])
+    gap = torch.where(differ & live, torch.minimum(acc, prop), 0.0)
+    return (int(bad.sum()) + int(frozen_bad.sum()), int((differ & near).sum()),
+            int(near.sum()), float(gap.max()), int((z_k != args[2]).sum()))
+
+
+def phase_alias_kernel():
+    hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * 10000)
+    cases = []
+    for k in (12, 128, 1000):
+        for n in (65536, 40009):
+            for w_bits in (None, 8):
+                for mh_steps in (2, 4):
+                    args = _alias_inputs(n, k, w_bits, mh_steps, seed=k * 7 + n + mh_steps)
+                    bad, near_flip, near, gap, moved = compare_alias(args, w_bits=w_bits, **hp)
+                    cases.append({"k": k, "n": n, "w_bits": w_bits, "mh_steps": mh_steps,
+                                  "mismatch": bad, "near_tie_flips": near_flip,
+                                  "near_ties": near, "max_abs_err": gap, "moved": moved})
+    out = {
+        "phase": "kernels",
+        "kernels": ["alias_mh.resample"],
+        "mismatches": sum(c["mismatch"] for c in cases),
+        "near_tie_flips": sum(c["near_tie_flips"] for c in cases),
+        "near_ties": sum(c["near_ties"] for c in cases),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "cases": cases,
+    }
+    emit(out)
+    if out["mismatches"]:
+        raise SystemExit(f"alias_mh kernel disagrees with its plain version: "
+                         f"{out['mismatches']} tokens")
+    if any(c["moved"] == 0 for c in cases):
+        raise SystemExit("alias_mh kernel moved no token in some case")
+    return out
+
+
 # -- phase 2 ---------------------------------------------------------------
 
 QUICKSTART = dict(num_reviews=487, vocab_size=800, num_topics=8, mean_tokens=60, seed=42)
 
 
-def _quickstart_run(device, corp_reviews):
+def _quickstart_run(device, corp_reviews, backend):
     import torch
 
     from repro_torch.api import VedaliaClient
@@ -198,7 +294,7 @@ def _quickstart_run(device, corp_reviews):
         # One thread: the CPU reference runs small (4096, 12) blocks, where
         # a thread pool costs more than it gains.
         torch.set_num_threads(1)
-    client = VedaliaClient(device=device, backend="jnp")  # the reference's name: an alias
+    client = VedaliaClient(device=device, backend=backend)
     t0 = time.perf_counter()
     fit = client.fit(corp_reviews, num_topics=12, base_vocab=QUICKSTART["vocab_size"],
                      w_bits=8, num_sweeps=30, seed=0)
@@ -236,32 +332,44 @@ def _check_invariants(service, handle_id):
         raise SystemExit("served state is not on the card")
 
 
-def phase_main_path():
+def phase_main_path(backend):
+    """The case study on `backend`: "jnp" (the reference's name for the
+    exact blocked `torch` sweep, ⌈N/4096⌉ lda_gibbs launches a sweep) or
+    "alias" (one alias_mh launch a sweep)."""
     import torch
 
     from repro_torch.data import reviews
+    from repro_torch.kernels.alias_mh import ops as alias_ops
     from repro_torch.kernels.lda_gibbs import ops
 
     corp = reviews.generate(reviews.SyntheticSpec(**QUICKSTART))
     ops.resample.launches = 0
-    client, fit, sync, resync, tops, ppx, fit_s, total_s = _quickstart_run("cuda", corp.reviews)
+    alias_ops.mh_resample.launches = 0
+    client, fit, sync, resync, tops, ppx, fit_s, total_s = _quickstart_run(
+        "cuda", corp.reviews, backend)
     torch.cuda.synchronize()
-    launches = {"lda_gibbs.resample": ops.resample.launches}
+    launches = {"lda_gibbs.resample": ops.resample.launches,
+                "alias_mh.resample": alias_ops.mh_resample.launches}
     service = client.server.service
     _check_invariants(service, fit.handle_id)
     handle = service.handles[fit.handle_id]
     n = handle.model.corpus.num_tokens
-    if launches["lda_gibbs.resample"] == 0:
+    expected = {"jnp": {"lda_gibbs.resample": 100 * math.ceil(n / 4096), "alias_mh.resample": 0},
+                "alias": {"lda_gibbs.resample": 0, "alias_mh.resample": 100}}[backend]
+    if backend == "jnp" and launches["lda_gibbs.resample"] == 0:
         raise SystemExit("the main path launched no lda_gibbs kernel")
+    if backend == "alias" and launches != expected:
+        raise SystemExit(f"the alias main path launched {launches}, expected {expected}")
     if not sync.valid or len(resync.topics) != 0 or not resync.delta:
         raise SystemExit(f"view sync failed: valid={sync.valid}, re-sent {len(resync.topics)}")
-    cpu = _quickstart_run("cpu", corp.reviews)
+    cpu = _quickstart_run("cpu", corp.reviews, backend)
     ppx_cpu = cpu[5]
     rel = abs(ppx - ppx_cpu) / ppx_cpu
     out = {
-        "phase": "main_path", "tokens": n, "num_topics": fit.num_topics,
+        "phase": "main_path" if backend == "jnp" else f"main_path_{backend}",
+        "tokens": n, "num_topics": fit.num_topics,
         "vocab": handle.cfg.vocab_size, "backend": fit.backend,
-        "launches": launches, "expected_launches": 100 * math.ceil(n / 4096),
+        "launches": launches, "expected_launches": expected,
         "fit_30_s": round(fit_s, 4), "fit_plus_refine_100_s": round(total_s, 4),
         "core_topics": sync.topic_ids, "view_bytes": sync.payload_bytes,
         "delta_bytes": resync.payload_bytes, "top_reviews": {str(k): v for k, v in tops.items()},
@@ -410,6 +518,159 @@ def phase_scale():
     return out
 
 
+# -- phase 4 ---------------------------------------------------------------
+
+
+def alias_kernel_timing(cfg, corpus, state, mh_steps, reps=50):
+    """The alias_mh wrapper vs its plain version on one sweep's inputs:
+    agreement, mean ms of each, and the kernel's bound from these inputs."""
+    import torch
+
+    from repro_torch.core import alias, codec
+    from repro_torch.kernels.alias_mh import kernel, ops
+
+    n, k = corpus.num_tokens, cfg.num_topics
+    sc = codec.codec_for(cfg)
+    tables = alias.sweep_tables(cfg, sc.decode_array(state.n_dt), sc.decode_array(state.n_wt))
+    draws = alias.sweep_draws(torch.Generator(device="cuda").manual_seed(123), n, k,
+                              mh_steps, "cuda")
+    args = (corpus.docs, corpus.words, state.z, corpus.weights,
+            state.n_dt, state.n_wt, state.n_t, *tables, *draws)
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=sc.spec.w_bits)
+    bad, near_flip, near, gap, moved = compare_alias(args, **hp)
+    # The kernel alone: launches on validated inputs into one output, so the
+    # wrapper's host work (checks, allocation) does not pace the card; the
+    # wrapper's own time per call is what a sweep pays.
+    z_out = torch.empty_like(state.z)
+    scale = 1.0 if hp["w_bits"] is None else 2.0 ** -(hp["w_bits"] + 1)
+    ms = cuda_ms(lambda: kernel.launch(*args, z_out, alpha=cfg.alpha, beta=cfg.beta,
+                                       beta_bar=cfg.beta_bar, scale=scale), reps * 4)
+    wrapper_ms = cuda_ms(lambda: ops.mh_resample(*args, **hp), reps)
+    plain_ms = cuda_ms(lambda: ops.mh_resample_plain(*args, **hp), max(3, reps // 10))
+    table_bytes = sum(t.numel() * t.element_size()
+                      for t in (state.n_dt, state.n_wt, state.n_t, *tables))
+    # ids/z/weight 16 B + three draws a round + the output, per token; every
+    # count and alias table read once
+    moved_bytes = n * (4 * 4 + 12 * mh_steps + 4) + table_bytes
+    ops_count = n * mh_steps * (9 * 4 + 20)  # 9 logs (~4 ops each) + ~20 others a round
+    bound_ms = max(moved_bytes / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S) * 1e3
+    return {
+        "n": n, "k": k, "d": state.n_dt.shape[0], "v": state.n_wt.shape[0],
+        "w_bits": hp["w_bits"], "mh_steps": mh_steps, "mismatch": bad,
+        "near_tie_flips": near_flip, "near_ties": near, "max_abs_err": gap, "moved": moved,
+        "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bytes": moved_bytes,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if moved_bytes / HBM_BYTES_PER_S >= ops_count / F32_OPS_PER_S
+        else "operations",
+    }
+
+
+def alias_sweep_breakdown(cfg, corpus, state, mh_steps, reps=20):
+    """Mean ms of each stage of one `alias`-backend sweep, by CUDA events:
+    the table build, the draws, the kernel, and the count rebuild."""
+    import torch
+
+    from repro_torch.core import alias, codec
+    from repro_torch.kernels.alias_mh import ops
+
+    n, k = corpus.num_tokens, cfg.num_topics
+    sc = codec.codec_for(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def tables():
+        return alias.sweep_tables(cfg, sc.decode_array(state.n_dt), sc.decode_array(state.n_wt))
+
+    tabs = tables()
+    draws = alias.sweep_draws(gen, n, k, mh_steps, "cuda")
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=sc.spec.w_bits)
+
+    def resample():
+        return ops.mh_resample(corpus.docs, corpus.words, state.z, corpus.weights, state.n_dt,
+                               state.n_wt, state.n_t, *tabs, *draws, **hp)
+
+    z_new = resample()
+    return {
+        "tables": cuda_ms(tables, reps),
+        "draws": cuda_ms(lambda: alias.sweep_draws(gen, n, k, mh_steps, "cuda"), reps),
+        "kernel": cuda_ms(resample, reps),
+        "rebuild": cuda_ms(lambda: codec.rebuild_state(cfg, corpus, z_new), reps),
+    }
+
+
+def phase_large_fit(exact_ppx):
+    """The popular product over the wire with `backend="auto"`: it must
+    resolve to `alias` and launch the alias_mh kernel once a sweep."""
+    import torch
+
+    from repro_torch.api import VedaliaClient
+    from repro_torch.data import reviews
+    from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.lda_gibbs import ops
+
+    corp = reviews.generate(reviews.SyntheticSpec(**POPULAR))
+    torch.cuda.reset_peak_memory_stats()
+    client = VedaliaClient(device="cuda", backend="auto")
+    ops.resample.launches = 0
+    alias_ops.mh_resample.launches = 0
+    t0 = time.perf_counter()
+    fit = client.fit(corp.reviews, num_topics=12, base_vocab=POPULAR["vocab_size"],
+                     w_bits=8, num_sweeps=100, seed=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"lda_gibbs.resample": ops.resample.launches,
+                "alias_mh.resample": alias_ops.mh_resample.launches}
+    sync = client.sync_view(fit.handle_id, top_n=8, mass_coverage=0.9, max_topics=6)
+    resync = client.sync_view(fit.handle_id, top_n=8, mass_coverage=0.9, max_topics=6)
+    service = client.server.service
+    _check_invariants(service, fit.handle_id)
+    handle = service.handles[fit.handle_id]
+    cfg, corpus = handle.cfg, handle.model.corpus
+    n = corpus.num_tokens
+    sampler = service.sampler("alias")
+    mh_steps = sampler.mh_steps
+    log_gap = abs(math.log(fit.perplexity) - math.log(exact_ppx))
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    state = handle.model.state
+    sweep_ms = []
+    for _ in range(30):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = sampler.sweep(cfg, state, corpus, gen)
+        torch.cuda.synchronize()
+        sweep_ms.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(sweep_ms)
+    timing = alias_kernel_timing(cfg, corpus, state, mh_steps)
+    out = {
+        "phase": "large_fit", "tokens": n, "docs": cfg.num_docs, "vocab": cfg.vocab_size,
+        "num_topics": cfg.num_topics, "mh_steps": mh_steps, "backend": fit.backend,
+        "fit_100_s": round(fit_s, 4), "launches": launches,
+        "perplexity": fit.perplexity, "perplexity_exact_cuda_30": exact_ppx,
+        "log_perplexity_gap": log_gap, "core_topics": sync.topic_ids,
+        "view_bytes": sync.payload_bytes, "delta_bytes": resync.payload_bytes,
+        "sweep_ms_median": med, "sweep_ms_min": min(sweep_ms), "sweep_ms_max": max(sweep_ms),
+        "tokens_per_s": n / (med / 1e3),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "kernel": timing,
+        "sweep_breakdown_ms": alias_sweep_breakdown(cfg, corpus, state, mh_steps),
+        "profile_top_device_ms": profile_sweeps(sampler, cfg, corpus, state),
+    }
+    emit(out)
+    want = {"lda_gibbs.resample": 0, "alias_mh.resample": 100}
+    if fit.backend != "alias" or launches != want:
+        raise SystemExit(f"auto resolved to {fit.backend!r} with launches {launches}; "
+                         f"expected 'alias' with {want}")
+    if not sync.valid or len(resync.topics) != 0 or not resync.delta:
+        raise SystemExit(f"view sync failed: valid={sync.valid}, re-sent {len(resync.topics)}")
+    if not math.isfinite(fit.perplexity) or log_gap > LOG_PPX_BAND:
+        raise SystemExit(f"alias perplexity {fit.perplexity} vs exact {exact_ppx}: "
+                         f"log gap {log_gap:.3f} > {LOG_PPX_BAND}")
+    if timing["mismatch"]:
+        raise SystemExit(f"alias_mh kernel disagrees with its plain version at the "
+                         f"large-fit shape: {timing['mismatch']} tokens")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -420,7 +681,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_setup()
     kern = phase_kernels()
-    main_out, handle = phase_main_path()
+    alias_kern = phase_alias_kernel()
+    main_out, handle = phase_main_path("jnp")
     # The main path's own shape: one 4096-token block against its tables.
     # The torch backend hands the kernel real-unit (decoded) float32 tables.
     from repro_torch.core import codec
@@ -432,11 +694,25 @@ def main() -> int:
     block_timing = kernel_timing(dataclasses.replace(cfg, w_bits=None), block, block_state,
                                  reps=200)
     emit({"phase": "main_path_kernel", "kernel": block_timing})
+    _, alias_handle = phase_main_path("alias")
+    # The alias path's own shape: all of the case study's tokens, one sweep's
+    # tables and draws from its fitted state.
+    from repro_torch.api.backends import get_backend
+
+    ah = alias_handle
+    alias_block = alias_kernel_timing(ah.cfg, ah.model.corpus, ah.model.state,
+                                      get_backend("alias").mh_steps, reps=200)
+    emit({"phase": "main_path_alias_kernel", "kernel": alias_block})
+    if alias_block["mismatch"]:
+        raise SystemExit(f"alias_mh kernel disagrees with its plain version at the alias "
+                         f"main-path shape: {alias_block['mismatch']} tokens")
     scale = phase_scale()
+    large = phase_large_fit(scale["perplexity"])
     t = scale["kernel"]
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"]]
     if block_timing["mismatch"]:
         raise SystemExit("kernel disagrees with its plain version at the main-path shape")
+    a = large["kernel"]
     emit({"kernels": [{
         "name": "lda_gibbs.resample",
         "route": "cuda",
@@ -450,6 +726,21 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,
         "shape": f"N={t['n']} K={t['k']} D={t['d']} V={t['v']} w_bits={t['w_bits']}",
+    }, {
+        "name": "alias_mh.resample",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/alias_mh/csrc/alias_mh.cu",
+        "replaces": "src/repro/kernels/alias_mh/kernel.py:206",
+        "launches": large["launches"]["alias_mh.resample"],
+        "max_abs_err": max(alias_kern["max_abs_err"], alias_block["max_abs_err"],
+                           a["max_abs_err"]),
+        "ms": a["ms"],
+        "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"],
+        "bound_by": a["bound_by"],
+        "library_ms": None,
+        "shape": f"N={a['n']} K={a['k']} D={a['d']} V={a['v']} w_bits={a['w_bits']} "
+                 f"S={a['mh_steps']}",
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,13 +8,15 @@ chosen by name:
           each block launches the Hopper kernel (⌈N/4096⌉ launches a sweep)
   cuda    single-launch kernel sweep (`kernels.lda_gibbs.ops.sweep`): one
           launch over all N tokens a sweep
+  alias   AliasLDA (Li et al., 2014a) stale alias-table proposals + parallel
+          Metropolis–Hastings (`kernels.alias_mh.ops.mh_sweep`): one launch
+          a sweep — the route of large fits
 
 The reference package's names stay valid as aliases — ``jnp`` is
 ``torch`` and ``pallas`` is ``cuda`` — so a reference client's requests
 keep their meaning. Backends the reference routes to but this package
-does not have yet (`alias`, `batched`, `sparse`, `pserver`,
-`distributed`) resolve, as the reference's own fallback does, to the
-oracle.
+does not have yet (`batched`, `sparse`, `pserver`, `distributed`)
+resolve, as the reference's own fallback does, to the oracle.
 
 All backends speak *stored* `LDAState` at the boundary (fixed point when
 ``cfg.w_bits`` is set) so a model fit by one can be refined by another.
@@ -236,3 +238,26 @@ class CudaSampler(_BaseSampler):
         from repro_torch.kernels.lda_gibbs import ops as kops
 
         return kops.sweep(cfg, state, corpus, gen)
+
+
+@register_backend(
+    "alias",
+    SamplerCapabilities(device_kind="gpu", proposal_based=True,
+                        quant_modes=("f32", "fixed")),
+)
+class AliasSampler(_BaseSampler):
+    """AliasLDA sweep-parallel MH: stale per-word and per-doc alias
+    proposals (Li et al.'s word/doc cycle), corrected by `mh_steps` MH
+    rounds a sweep. Per-token cost is O(1) a round, independent of K, so
+    this is the large-corpus fit path. Counts cross the boundary in stored
+    units. Each sweep is `kernels.alias_mh.ops.mh_sweep`: one Hopper kernel
+    launch on a CUDA corpus, its plain version on a CPU one.
+    """
+
+    def __init__(self, mh_steps: int = 4):
+        self.mh_steps = mh_steps
+
+    def sweep(self, cfg, state, corpus, gen):
+        from repro_torch.kernels.alias_mh import ops as kops
+
+        return kops.mh_sweep(cfg, state, corpus, gen, self.mh_steps)

@@ -1,0 +1,55 @@
+"""Load and launch the Hopper AliasLDA MH kernel (`csrc/alias_mh.cu`).
+
+The source is built at first use by `repro_torch.kernels._build` (nvcc for
+``sm_90a`` into ``build/repro_torch/``, a plain C interface loaded with
+`ctypes`). Nothing here runs at import: this module is imported on hosts
+without `nvcc` or a card, where only the plain version in `ops` is
+reachable.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "alias_mh.cu"
+NAME = "alias_mh"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the library if it is not built yet; returns (path, the
+    compiler's report — ptxas registers/spills — or "" when cached)."""
+    return _build.build(SOURCE, NAME)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE, NAME)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.alias_mh_resample.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p,
+                                      i, i, i, f, f, f, f, p]
+    lib.alias_mh_resample.restype = ctypes.c_int
+    return lib
+
+
+def launch(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w, thresh_d,
+           alias_d, j_prop, u_prop, u_acc, z_out, *, alpha: float, beta: float,
+           beta_bar: float, scale: float) -> None:
+    """Launch on PyTorch's current stream. Arguments are validated by the
+    caller (`ops.mh_resample`); raises if the launch is refused."""
+    s, n = j_prop.shape
+    err = _lib().alias_mh_resample(
+        docs.data_ptr(), words.data_ptr(), z.data_ptr(), weights.data_ptr(),
+        n_dt.data_ptr(), n_wt.data_ptr(), n_t.data_ptr(),
+        int(n_dt.dtype == torch.int32), thresh_w.data_ptr(), alias_w.data_ptr(),
+        thresh_d.data_ptr(), alias_d.data_ptr(), j_prop.data_ptr(),
+        u_prop.data_ptr(), u_acc.data_ptr(), z_out.data_ptr(),
+        n, n_dt.shape[1], s, alpha, beta, beta_bar, scale,
+        torch.cuda.current_stream(z.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"alias_mh_resample launch failed: CUDA error {err}")

@@ -40,8 +40,9 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 def test_port_package_has_no_top_level_init():
     # A namespace package, like src/repro.
     assert not (REPO / "src" / "repro_torch" / "__init__.py").exists()
-    assert (REPO / "src" / "repro_torch" / "kernels" / "lda_gibbs" / "csrc"
-            / "lda_gibbs.cu").exists()
+    for name in ("lda_gibbs", "alias_mh"):
+        assert (REPO / "src" / "repro_torch" / "kernels" / name / "csrc"
+                / f"{name}.cu").exists()
 
 
 def test_importing_the_port_loads_no_jax():
@@ -51,6 +52,8 @@ def test_importing_the_port_loads_no_jax():
         "from repro_torch.api import VedaliaClient, VedaliaServer, codec\n"
         "import repro_torch.core.gibbs, repro_torch.core.perplexity\n"
         "import repro_torch.kernels.lda_gibbs.ops, repro_torch.kernels.lda_gibbs.kernel\n"
+        "import repro_torch.kernels.alias_mh.ops, repro_torch.kernels.alias_mh.kernel\n"
+        "import repro_torch.core.alias, repro_torch.kernels._build\n"
         "import repro_torch.data.reviews, repro_torch.obs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

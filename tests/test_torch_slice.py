@@ -14,7 +14,12 @@ RLDA fit → refine → view over the wire (client → server), as
     chains cannot be tighter; that the chains are the same chain given
     the same noise is `test_torch_gibbs`'s replay test;
   * a reference client drives a port server over the string transport,
-    and a port client drives a reference server.
+    and a port client drives a reference server, on the exact sweep and on
+    `backend="alias"`;
+  * `backend="auto"` routes a fit of >= 100k tokens to `alias`, as the
+    reference's router does, and AliasLDA at 100 sweeps lands within 0.3
+    in log perplexity of the exact sweep at 30 (the reference's
+    mixing-matched budgets and band).
 """
 
 import numpy as np
@@ -63,7 +68,7 @@ def _invariants(server, handle_id):
 def test_port_client_server_main_path(corpus):
     client = VedaliaClient(device="cpu", backend="jnp")  # the reference's name, an alias
     info = client.hello()
-    assert info.backends == ["cuda", "torch"]
+    assert info.backends == ["alias", "cuda", "torch"]
     fit = client.fit(corpus.reviews[:130], num_sweeps=10, seed=0, **FIT)
     assert fit.backend == "torch" and fit.sweeps_run == 10
     fit = client.refine(fit.handle_id, num_sweeps=10, seed=1)
@@ -198,20 +203,96 @@ def test_server_answers_every_verb():
 
 
 def test_backend_registry_aliases_and_routing():
-    assert backends.available_backends() == ["cuda", "torch"]
+    assert backends.available_backends() == ["alias", "cuda", "torch"]
     assert backends.canonical("jnp") == "torch" and backends.canonical("pallas") == "cuda"
     assert type(backends.get_backend("pallas")).__name__ == "CudaSampler"
+    assert type(backends.get_backend("alias")).__name__ == "AliasSampler"
     with pytest.raises(KeyError):
-        backends.get_backend("alias")
+        backends.get_backend("sparse")
+    caps = backends.backend_capabilities("alias")
+    assert caps.proposal_based and caps.device_kind == "gpu"
+    assert caps.quant_modes == ("f32", "fixed")
     # The reference's routing order; names the port lacks fall to the oracle.
     assert backends.select_backend(num_tokens=10) == "torch"
-    assert backends.select_backend(num_tokens=200_000) == "torch"
+    assert backends.select_backend(num_tokens=200_000) == "alias"
+    assert backends.select_backend(num_tokens=600_193) == "alias"
+    assert ref_api.select_backend(num_tokens=600_193) == "alias"
+    assert backends.select_backend(num_tokens=200_000, task="update") == "torch"
     assert backends.select_backend(num_models=3) == "torch"
     assert backends.select_backend(device_kind="phone") == "torch"
     assert backends.select_backend(device_kind="tpu") == "torch"
     assert backends.select_backend(num_tokens=200_000, available=["alias", "torch"]) == "alias"
+    assert backends.select_backend(num_tokens=200_000, available=["cuda", "torch"]) == "torch"
     assert backends.select_backend(task="update", available=["alias", "torch"]) == "torch"
     server = VedaliaServer(device="cpu")
     with pytest.raises(ValueError):
         server._backend_arg({"backend": "nope"})
     assert server._backend_arg({"backend": "pallas"}) == "pallas"
+    assert server._backend_arg({"backend": "alias"}) == "alias"
+
+
+def test_alias_quality_matches_the_exact_sweep():
+    """The reference's mixing-matched budgets and band
+    (`tests/test_api.py::test_fast_sampler_perplexity_parity_with_oracle`):
+    AliasLDA's MH chain at 100 sweeps lands within 0.3 in log perplexity of
+    the exact sweep at 30 on a small RLDA corpus. Log perplexity is averaged
+    over six seeds on each side: at this size the exact sweep's 30-sweep
+    chains alone spread from 87 to 119 across seeds."""
+    from repro_torch.api.backends import get_backend
+    from repro_torch.core import perplexity, rlda
+
+    revs = reviews.generate(reviews.SyntheticSpec(
+        num_reviews=60, vocab_size=120, num_topics=4, mean_tokens=30, seed=0)).reviews
+    prep = rlda.prepare(revs, base_vocab=120, num_topics=8, w_bits=8, device="cpu")
+    log_ppx = {}
+    for name, sweeps in {"torch": 30, "alias": 100}.items():
+        log_ppx[name] = np.mean([np.log(perplexity.perplexity(
+            prep.cfg, get_backend(name).run(prep.cfg, prep.corpus,
+                                            torch.Generator().manual_seed(seed), sweeps),
+            prep.corpus)) for seed in range(6)])
+    assert abs(log_ppx["alias"] - log_ppx["torch"]) < 0.3, log_ppx
+
+
+def test_alias_round_trips_across_frameworks(corpus):
+    """A reference client fits on a port server with `backend="alias"`, and
+    a port client on a reference server; either handle refines on alias."""
+    server = VedaliaServer(device="cpu")
+    ref_client = ref_api.VedaliaClient(transport=server.handle_raw)
+    ref_revs = ref_reviews.generate(ref_reviews.SyntheticSpec(**SPEC)).reviews
+    fit = ref_client.fit(ref_revs, num_sweeps=5, seed=0, backend="alias", **FIT)
+    assert fit.backend == "alias" and np.isfinite(fit.perplexity)
+    fit = ref_client.refine(fit.handle_id, num_sweeps=3, seed=1)
+    assert fit.backend == "alias" and fit.sweeps_run == 8
+    _invariants(server, fit.handle_id)
+    sync = ref_client.sync_view(fit.handle_id, top_n=5)
+    assert sync.valid and sync.topics
+    exported = ref_client.export_model(fit.handle_id)
+    assert np.asarray(exported.state.n_wt).dtype == np.int32
+    assert ref_client.spot_check(fit.handle_id, exported.state).valid
+
+    ref_server = ref_api.VedaliaServer()
+    client = VedaliaClient(transport=ref_server.handle_raw)
+    fit = client.fit(corpus.reviews, num_sweeps=5, seed=0, backend="alias", **FIT)
+    assert fit.backend == "alias" and np.isfinite(fit.perplexity)
+    fit = client.refine(fit.handle_id, num_sweeps=3, seed=1)
+    assert fit.backend == "alias" and fit.sweeps_run == 8
+    sync = client.sync_view(fit.handle_id, top_n=5)
+    assert sync.valid and sync.topics
+
+
+def test_auto_routes_a_large_fit_to_alias_and_refines_there():
+    """`backend="auto"` on a fit of >= 100k tokens resolves to `alias`, as
+    the reference's router does; the handle keeps refining on alias."""
+    from repro_torch.api.service import VedaliaService
+
+    big = reviews.generate(reviews.SyntheticSpec(
+        num_reviews=1700, vocab_size=300, num_topics=6, mean_tokens=60, seed=3)).reviews
+    service = VedaliaService(device="cpu", backend="auto")
+    prep = service.prepare(big, base_vocab=300, num_topics=6, w_bits=8)
+    assert prep.corpus.num_tokens >= 100_000
+    handle = service.fit_prepared(prep, num_sweeps=1, seed=0)
+    assert handle.backend == "alias"
+    service.refine(handle, 1, seed=1)
+    assert handle.backend == "alias" and handle.sweeps_run == 2
+    small = service.fit(big[:50], base_vocab=300, num_topics=6, num_sweeps=1, seed=2)
+    assert small.backend == "torch"
