@@ -17,7 +17,8 @@ Servers run on CUDA unless given ``device="cpu"``.
 Submodules:
   codec     stored-state codec + wire array codec
   backends  `Sampler` protocol + capability-aware registry
-            (torch / cuda, `auto` selector, `jnp` / `pallas` aliases)
+            (torch / cuda / alias / batched, `auto` selector, `jnp` /
+            `pallas` aliases)
   service   `VedaliaService` facade + typed request/response dataclasses
   protocol  versioned JSON envelopes (requests, responses, tensor codec)
   server    `VedaliaServer`: sessions, view cursors, wire dispatch
@@ -41,6 +42,7 @@ _EXPORTS = {
     "register_backend": "repro_torch.api.backends",
     "select_backend": "repro_torch.api.backends",
     # service
+    "FitRequest": "repro_torch.api.service",
     "ModelHandle": "repro_torch.api.service",
     "SpotCheckResponse": "repro_torch.api.service",
     "TopReviewsResponse": "repro_torch.api.service",

@@ -10,13 +10,23 @@ chosen by name:
           launch over all N tokens a sweep
   alias   AliasLDA (Li et al., 2014a) stale alias-table proposals + parallel
           Metropolis–Hastings (`kernels.alias_mh.ops.mh_sweep`): one launch
-          a sweep — the route of large fits
+          a sweep — the route of large fits; its `run_many` runs M stacked
+          models with one batched MH launch a sweep
+  batched M compatible product models stacked into one run (`core.batch`):
+          one batched Gibbs launch a sweep for all M
+          (`kernels.lda_gibbs.ops.sweep_many`) — the route of multi-model
+          fits and refits
 
 The reference package's names stay valid as aliases — ``jnp`` is
 ``torch`` and ``pallas`` is ``cuda`` — so a reference client's requests
 keep their meaning. Backends the reference routes to but this package
-does not have yet (`batched`, `sparse`, `pserver`, `distributed`)
-resolve, as the reference's own fallback does, to the oracle.
+does not have yet (`sparse`, `pserver`, `distributed`) resolve, as the
+reference's own fallback does, to the oracle.
+
+A backend with the stacked surface (`run_many(cfg, corpora, gens,
+num_sweeps, states=None, lengths=None)`: a leading (M,) axis on every
+`Corpus`/`LDAState` tensor, one generator per model, each model's real
+token count) is what `serving.batch_engine` drives.
 
 All backends speak *stored* `LDAState` at the boundary (fixed point when
 ``cfg.w_bits`` is set) so a model fit by one can be refined by another.
@@ -261,3 +271,59 @@ class AliasSampler(_BaseSampler):
         from repro_torch.kernels.alias_mh import ops as kops
 
         return kops.mh_sweep(cfg, state, corpus, gen, self.mh_steps)
+
+    def run_many(self, cfg, corpora, gens, num_sweeps, states=None, lengths=None):
+        """Stacked multi-sweep alias fit/refit (cold when `states` is None)
+        over M models, one batched MH launch a sweep
+        (`core.alias.run_many`); each model consumes its own generator as
+        its single-model run would, so a batched run is comparable to M
+        sequential `alias` runs from the same generators."""
+        from repro_torch.core import alias, batch
+
+        if states is None:
+            states = batch.init_many(cfg, corpora, gens, lengths)
+        return alias.run_many(cfg, states, corpora, gens, num_sweeps, self.mh_steps,
+                              lengths)
+
+
+def _stack1(x):
+    """A corpus or state as an M = 1 stack."""
+    return type(x)(*(getattr(x, f.name)[None] for f in dataclasses.fields(x)))
+
+
+def _unstack1(x):
+    return type(x)(*(getattr(x, f.name)[0] for f in dataclasses.fields(x)))
+
+
+@register_backend("batched", SamplerCapabilities(device_kind="gpu"))
+class BatchedSampler(_BaseSampler):
+    """Multi-model batched sweep (`core.batch`): M compatible product
+    models stacked into one run, one launch of the batched Gibbs kernel a
+    sweep (its plain version on CPU tensors).
+
+    The stacked surface is `run_many`/`sweep_batch` (a leading (M,) axis on
+    every `Corpus`/`LDAState` tensor, one generator per model;
+    `serving.batch_engine` does the bucketing and padding). The
+    single-model `Sampler` protocol works too (an M = 1 stack), so
+    `backend="batched"` is valid anywhere a backend name is accepted.
+    """
+
+    def sweep_batch(self, cfg, states, corpora, gens, lengths=None):
+        """One sweep over stacked models (one generator per model)."""
+        from repro_torch.core import batch
+
+        return batch.sweep_batch(cfg, states, corpora, gens, lengths)
+
+    def run_many(self, cfg, corpora, gens, num_sweeps, states=None, lengths=None):
+        """Batched multi-sweep fit/refit: cold when `states` is None."""
+        from repro_torch.core import batch
+
+        return batch.fit_many(cfg, corpora, gens, num_sweeps, states=states,
+                              lengths=lengths)
+
+    def sweep(self, cfg, state, corpus, gen):
+        return _unstack1(self.sweep_batch(cfg, _stack1(state), _stack1(corpus), [gen]))
+
+    def run(self, cfg, corpus, gen, num_sweeps, state=None):
+        return _unstack1(self.run_many(cfg, _stack1(corpus), [gen], num_sweeps,
+                                       states=None if state is None else _stack1(state)))

@@ -27,7 +27,8 @@ exceptions — they come back as `ok=false` envelopes with a wire code.
 
 Served models live on the server's device: CUDA unless constructed with
 ``device="cpu"``. The multi-model verbs `fit_batch` and `refine_batch`
-answer with a `bad_request` error envelope until they are ported.
+reach `VedaliaService.fit_batch` / `refine_many`, which stack compatible
+models into one batched launch a sweep.
 """
 
 from __future__ import annotations
@@ -307,13 +308,40 @@ class VedaliaServer:
         return self._fit_payload(handle)
 
     def _handle_fit_batch(self, payload: dict) -> dict:
-        """The batched multi-model fit is not ported yet: a typed error."""
-        raise protocol.ProtocolError("fit_batch is not ported yet")
+        """Fit one model per review set through the batched multi-model
+        engine (`VedaliaService.fit_batch`); one fit payload per set, in
+        request order."""
+        sets = [protocol.decode_reviews(s) for s in payload["review_sets"]]
+        handles = self.service.fit_batch(
+            sets,
+            num_topics=int(payload.get("num_topics", 12)),
+            base_vocab=payload.get("base_vocab"),
+            alpha=float(payload.get("alpha", 0.1)),
+            beta=float(payload.get("beta", 0.01)),
+            w_bits=payload.get("w_bits", 8),
+            backend=self._backend_arg(payload),
+            num_sweeps=payload.get("num_sweeps"),
+            seed=payload.get("seed"),
+            device_kind=payload.get("device_kind"),
+        )
+        return {"fits": [self._fit_payload(h) for h in handles]}
 
     def _handle_refine_batch(self, payload: dict) -> dict:
-        """The coalesced multi-handle refit is not ported yet: a typed
-        error."""
-        raise protocol.ProtocolError("refine_batch is not ported yet")
+        """Warm-refit several handles in one coalesced run
+        (`VedaliaService.refine_many`); one fit payload per handle."""
+        handles = [
+            self._resolve_handle({"handle_id": hid})
+            for hid in payload["handle_ids"]
+        ]
+        if not handles:
+            raise ValueError("refine_batch needs at least one handle_id")
+        self.service.refine_many(
+            handles,
+            int(payload["num_sweeps"]),
+            backend=self._backend_arg(payload),
+            seed=payload.get("seed"),
+        )
+        return {"fits": [self._fit_payload(h) for h in handles]}
 
     def _handle_fit_prepared(self, payload: dict) -> dict:
         cid = int(payload["corpus_id"])

@@ -7,6 +7,8 @@ bandwidth-frugal model views stream out:
                  -> coreset.select_core_set -> views.build_view
 
     fit(reviews)            -> ModelHandle
+    fit_batch(review_sets)  -> [ModelHandle]    (one model per product)
+    refine_many(handles, n) -> [ModelHandle]    (coalesced warm refits)
     update(handle, reviews) -> UpdateResponse   (incremental, §3.2)
     view(handle)            -> ViewResponse     (streamed payload, §4.2)
     top_reviews(handle, t)  -> TopReviewsResponse (ViewPager order, §3.4)
@@ -15,7 +17,9 @@ Every served model lives on the service's device: CUDA unless the caller
 asks for ``device="cpu"``. Randomness comes from a `torch.Generator` on
 that device, seeded with the integer the reference would turn into a key
 (`seed`, or ``seed*1_000_003 + op`` per operation). The multi-model verbs
-(`fit_batch`, `refine_many`) are not ported yet.
+give model i of a batch its own generator, seeded ``seed + i`` when a seed
+is given (the reference's own sequential-fallback seeds), so a batched fit
+and M sequential fits from those seeds are the same chains.
 """
 
 from __future__ import annotations
@@ -46,6 +50,22 @@ _VIEW_BYTES = metrics.histogram(
     "vedalia_service_view_bytes",
     "Serialized view payload size (what a device downloads).",
     labels=(), buckets=metrics.BYTE_BUCKETS)
+
+
+@dataclasses.dataclass(frozen=True)
+class FitRequest:
+    """A fit task (the queue item of `serving.TopicEngine`)."""
+
+    uid: int
+    reviews: Sequence[Review]
+    num_topics: int = 12
+    base_vocab: Optional[int] = None  # None => inferred from the reviews
+    alpha: float = 0.1
+    beta: float = 0.01
+    w_bits: Optional[int] = 8
+    backend: Optional[str] = None  # None => the service default
+    num_sweeps: Optional[int] = None
+    top_n: int = 10  # used by TopicEngine's fit+view serving
 
 
 @dataclasses.dataclass
@@ -191,6 +211,14 @@ class VedaliaService:
             seed = self._seed * 1_000_003 + self._op
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
+    def _generators(self, m: int, seed: Optional[int] = None) -> list[torch.Generator]:
+        """One independent generator per model of a batch: seeded
+        ``seed + i`` when a seed is given, else each a fresh
+        `_generator()`."""
+        if seed is not None:
+            return [self._generator(seed + i) for i in range(m)]
+        return [self._generator() for _ in range(m)]
+
     def _register(self, handle: ModelHandle) -> ModelHandle:
         self.handles[handle.handle_id] = handle
         return handle
@@ -258,6 +286,92 @@ class VedaliaService:
             handle_id=self._new_id(), prep=prep, model=model,
             backend=backend, sweeps_run=sweeps))
 
+    def fit_batch(
+        self,
+        review_sets: Sequence[Sequence[Review]],
+        *,
+        num_topics: int = 12,
+        base_vocab: Optional[int] = None,
+        alpha: float = 0.1,
+        beta: float = 0.01,
+        w_bits: Optional[int] = 8,
+        backend: Optional[str] = None,
+        num_sweeps: Optional[int] = None,
+        seed: Optional[int] = None,
+        device_kind: Optional[str] = None,
+    ) -> list[ModelHandle]:
+        """Fit one model per review set — batched into as few sampler
+        launches as bucketing allows (`serving.batch_engine`).
+
+        All sets share the fit parameters, so the prepared models are
+        stack-compatible by construction; a `base_vocab` of None is
+        inferred over *all* sets jointly (per-set inference would make the
+        models vocabulary-incompatible).
+        """
+        if not len(review_sets):
+            raise ValueError("fit_batch() needs at least one review set")
+        for i, rs in enumerate(review_sets):
+            if not len(rs):
+                raise ValueError(f"fit_batch() review set {i} is empty")
+        if base_vocab is None:
+            base_vocab = max(_infer_base_vocab(rs) for rs in review_sets)
+        preps = [
+            self.prepare(rs, base_vocab=base_vocab, num_topics=num_topics,
+                         alpha=alpha, beta=beta, w_bits=w_bits)
+            for rs in review_sets
+        ]
+        return self.fit_batch_prepared(
+            preps, backend=backend, num_sweeps=num_sweeps, seed=seed,
+            device_kind=device_kind)
+
+    def fit_batch_prepared(
+        self,
+        preps: Sequence[RLDACorpus],
+        *,
+        backend: Optional[str] = None,
+        num_sweeps: Optional[int] = None,
+        seed: Optional[int] = None,
+        device_kind: Optional[str] = None,
+    ) -> list[ModelHandle]:
+        """Batched fit of already-prepared corpora (one handle each).
+
+        The `auto` route resolves multi-model fits to the `batched`
+        backend. Any resolved backend whose sampler carries the stacked
+        `run_many` surface (`batched`, `alias`) runs through
+        `serving.batch_engine`; other backends (or a single model) fall
+        back to sequential `fit_prepared` calls with seeds ``seed + i``.
+        """
+        if not len(preps):
+            raise ValueError("fit_batch_prepared() needs at least one corpus")
+        preps = [self._on_device(p) for p in preps]
+        total_tokens = sum(p.corpus.num_tokens for p in preps)
+        backend = self._resolve(
+            backend, num_tokens=total_tokens, task="fit",
+            device_kind=device_kind, num_models=len(preps))
+        sampler = self.sampler(backend)
+        if len(preps) == 1 or not hasattr(sampler, "run_many"):
+            return [
+                self.fit_prepared(p, backend=backend, num_sweeps=num_sweeps,
+                                  seed=seed if seed is None else seed + i)
+                for i, p in enumerate(preps)
+            ]
+        from repro_torch.serving import batch_engine
+
+        sweeps = num_sweeps if num_sweeps is not None else self.num_sweeps
+        timer = timers.DeviceTimer(_OP_SECONDS, op="fit_batch", backend=backend)
+        timer.start()
+        states, _ = batch_engine.run_batched(
+            sampler, [p.cfg for p in preps], [p.corpus for p in preps],
+            self._generators(len(preps), seed), sweeps)
+        timer.sync(states[-1].n_wt)
+        return [
+            self._register(ModelHandle(
+                handle_id=self._new_id(), prep=p,
+                model=update.UpdatableModel(cfg=p.cfg, corpus=p.corpus, state=st),
+                backend=backend, sweeps_run=sweeps))
+            for p, st in zip(preps, states)
+        ]
+
     def _on_device(self, prep: RLDACorpus) -> RLDACorpus:
         if prep.corpus.device == self.device:
             return prep
@@ -302,6 +416,55 @@ class VedaliaService:
         handle.sweeps_run += num_sweeps
         handle.backend = backend
         return handle
+
+    def refine_many(
+        self,
+        handles: Sequence[ModelHandle],
+        num_sweeps: int,
+        *,
+        backend: Optional[str] = None,
+        seed: Optional[int] = None,
+    ) -> list[ModelHandle]:
+        """Warm-refit several served models at once.
+
+        `backend=None` takes the service default, not each handle's own
+        (as the reference does): the `auto` route resolves multi-model
+        refits to `batched`. A resolved backend with the stacked `run_many`
+        surface (`batched`, `alias`) continues the handles' chains in
+        bucketed stacked runs (`serving.batch_engine`) instead of N
+        sequential `refine` calls; a backend without it, or a single
+        handle, falls back to per-handle `refine` with seeds ``seed + i``.
+        """
+        handles = list(handles)
+        if not handles:
+            return handles
+        # Dedup repeated handles (same served model named twice): each model
+        # runs its sweeps once, not one stacked slot per mention.
+        unique = list({h.handle_id: h for h in handles}.values())
+        backend = self._resolve(
+            backend,
+            num_tokens=max(h.model.corpus.num_tokens for h in unique),
+            task="update", num_models=len(unique))
+        sampler = self.sampler(backend)
+        if len(unique) == 1 or not hasattr(sampler, "run_many"):
+            for i, h in enumerate(unique):
+                self.refine(h, num_sweeps, backend=backend,
+                            seed=seed if seed is None else seed + i)
+            return handles
+        from repro_torch.serving import batch_engine
+
+        timer = timers.DeviceTimer(_OP_SECONDS, op="refine_many", backend=backend)
+        timer.start()
+        states, _ = batch_engine.run_batched(
+            sampler, [h.cfg for h in unique], [h.model.corpus for h in unique],
+            self._generators(len(unique), seed), num_sweeps,
+            states=[h.model.state for h in unique])
+        timer.sync(states[-1].n_wt)
+        for h, st in zip(unique, states):
+            h.model.state = st
+            h.sweeps_run += num_sweeps
+            h.backend = backend
+        return handles
 
     # -- update (§3.2) -----------------------------------------------------
 

@@ -6,6 +6,8 @@ Layout (each module mirrors `repro.core` of the same name):
   fractional.py  w_bits fixed-point fractional counts (paper §4.3)
   codec.py       stored <-> real count conversions (`StateCodec`)
   gibbs.py       blocked parallel collapsed Gibbs (Gumbel-max)
+  alias.py       AliasLDA stale alias tables + parallel MH
+  batch.py       M compatible models stacked into one batched sweep
   rlda.py        RLDA model: tiers, bias correction, token augmentation
   quality.py     ψ_d logistic review-quality model
   perplexity.py  evaluation

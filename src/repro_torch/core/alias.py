@@ -20,12 +20,14 @@ which is what the tests hold them to.
 `mh_rounds` is the MH arithmetic in eager PyTorch: the plain version of
 the `alias_mh` kernel (`repro_torch.kernels.alias_mh.ops`) and the body of
 `mh_sweep`, the real-unit oracle the tests replay the reference's sweep
-with. The `alias` backend runs `repro_torch.kernels.alias_mh.ops.mh_sweep`.
+with. The `alias` backend runs `repro_torch.kernels.alias_mh.ops.mh_sweep`,
+and `run_many` over M stacked models (`core.batch`'s layout) for the batch
+engine.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -119,6 +121,9 @@ def mh_rounds(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w,
     (real units, or int32 fixed point scaled by 2^-(w_bits+1) when `w_bits`
     is set): (new z, each token's smallest |log u_acc - log a| and smallest
     |u_prop - thresh[j]| over the rounds; +inf on weight-0 tokens).
+    Stacked inputs — a leading (M,) axis on ids, z, weights, tables and
+    totals, draws (M, S, N) — run all M models at once, each on its own
+    tables, and give (M, N).
 
     Even rounds propose from the stale word table (q ∝ n_tw + β), odd
     rounds from the stale doc table (q ∝ n_td + α); the move s -> t is
@@ -130,15 +135,19 @@ def mh_rounds(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w,
     d, w, z0 = docs.long(), words.long(), z.long()
     live = weights > 0.0
     tot = n_t.to(torch.float32) * scale
+    model = ()  # one model: tables index by (row, topic)
+    if z.dim() == 2:  # M stacked models: by (model, row, topic); draws (S, M, N)
+        model = (torch.arange(z.shape[0], device=z.device)[:, None],)
+        j_prop, u_prop, u_acc = (x.transpose(0, 1) for x in (j_prop, u_prop, u_acc))
 
     def count(table, rows, t):
-        return table[rows, t].to(torch.float32) * scale
+        return table[(*model, rows, t)].to(torch.float32) * scale
 
     def log_p(t):  # stale target, own weight excluded at the sweep-start topic
         sub = torch.where((t == z0) & live, weights, 0.0)
         ndt = torch.clamp_min(count(n_dt, d, t) - sub, 0.0)
         nwt = torch.clamp_min(count(n_wt, w, t) - sub, 0.0)
-        nt = torch.clamp_min(tot[t] - sub, 1e-9)
+        nt = torch.clamp_min(tot[(*model, t)] - sub, 1e-9)
         return (torch.log(ndt + alpha) + torch.log(nwt + beta)) - torch.log(nt + beta_bar)
 
     def log_q_w(t):  # stale proposal densities (un-normalized: ratios)
@@ -156,8 +165,8 @@ def mh_rounds(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w,
             rows, thresh, alias_t, log_q = w, thresh_w, alias_w, log_q_w
         else:  # doc-proposal round
             rows, thresh, alias_t, log_q = d, thresh_d, alias_d, log_q_d
-        th = thresh[rows, j]
-        prop = torch.where(u_prop[s] < th, j, alias_t[rows, j].long())
+        th = thresh[(*model, rows, j)]
+        prop = torch.where(u_prop[s] < th, j, alias_t[(*model, rows, j)].long())
         log_a = (log_p(prop) + log_q(z_cur)) - (log_p(z_cur) + log_q(prop))
         log_u = torch.log(u_acc[s])
         z_cur = torch.where((log_u < log_a) & live, prop, z_cur)
@@ -192,3 +201,36 @@ def mh_sweep(
                       state.n_wt, state.n_t, *tables, *draws, alpha=cfg.alpha,
                       beta=cfg.beta, beta_bar=cfg.beta_bar)[0]
     return build_counts(cfg, corpus, z_new)
+
+
+# -- batched multi-model sweeps (the `serving.batch_engine` layout) ---------
+
+
+def run_many(cfg: LDAConfig, states: LDAState, corpora: Corpus,
+             gens: Sequence[torch.Generator], num_sweeps: int, mh_steps: int = 4,
+             lengths: Optional[Sequence[int]] = None) -> LDAState:
+    """`num_sweeps` AliasLDA sweeps over M stacked models (stored units in
+    and out), one `kernels.alias_mh.ops.mh_sweep_many` launch each.
+
+    Model i has `lengths[i]` real tokens (default: every slot) and draws
+    from `gens[i]` exactly as `_BaseSampler.run`'s `alias` sweeps draw
+    for it alone: `sweep_draws` at its own length, never at the padded one,
+    copied into its rows of (M, S, N) buffers allocated once for the run
+    (the padding keeps j = 0, u_prop = 0, u_acc = 1 and weight 0). So a
+    batched run is M sequential `alias` runs from the same generators.
+    """
+    from repro_torch.kernels.alias_mh import ops as kops
+
+    m, n = corpora.docs.shape
+    lengths = [n] * m if lengths is None else list(lengths)
+    dev = corpora.device
+    j_prop = torch.zeros((m, mh_steps, n), dtype=torch.int32, device=dev)
+    u_prop = torch.zeros((m, mh_steps, n), dtype=torch.float32, device=dev)
+    u_acc = torch.ones((m, mh_steps, n), dtype=torch.float32, device=dev)
+    for _ in range(num_sweeps):
+        for i, (gen, n_i) in enumerate(zip(gens, lengths, strict=True)):
+            for buf, draw in zip((j_prop, u_prop, u_acc),
+                                 sweep_draws(gen, n_i, cfg.num_topics, mh_steps, dev)):
+                buf[i, :, :n_i] = draw
+        states = kops.mh_sweep_many(cfg, states, corpora, (j_prop, u_prop, u_acc))
+    return states

@@ -104,23 +104,33 @@ class LDAState:
 def _scatter_rows(rows: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
                   num_rows: int, k: int) -> torch.Tensor:
     """(num_rows, K) table of Σ w over tokens with (row, z) — a scatter-add
-    on the flat index row*K + z. On the CPU `index_add_` adds in token
-    order, as the reference's scatter does; on CUDA it adds with atomics,
-    in an order that varies from run to run."""
+    on the flat index row*K + z. A stack of M models, (M, N) ids, gives an
+    (M, num_rows, K) table from ONE scatter on ((m*num_rows + row)*K + z),
+    taken model-major. On the CPU `index_add_` adds in token order, as the
+    reference's scatter does, so each model's sums come out as its own
+    rebuild's; on CUDA it adds with atomics, in an order that varies from
+    run to run."""
     flat = rows.to(torch.int64) * k + z.to(torch.int64)
-    out = torch.zeros(num_rows * k, dtype=w.dtype, device=w.device)
-    out.index_add_(0, flat, w)
-    return out.view(num_rows, k)
+    if rows.dim() == 2:
+        first = torch.arange(rows.shape[0], device=rows.device) * (num_rows * k)
+        flat = flat + first[:, None]
+    out = torch.zeros(rows.shape[:-1].numel() * num_rows * k, dtype=w.dtype,
+                      device=w.device)
+    out.index_add_(0, flat.reshape(-1), w.reshape(-1))
+    return out.view(*rows.shape[:-1], num_rows, k)
 
 
 def build_counts(cfg: LDAConfig, corpus: Corpus, z: torch.Tensor,
                  dtype: torch.dtype = torch.float32) -> LDAState:
-    """Rebuild all count tensors from assignments by scatter-add."""
+    """Rebuild all count tensors from assignments by scatter-add. A corpus
+    and z with a leading (M,) model axis (a stack, `core.batch`) rebuild
+    all M models at once, with `cfg.num_docs` the padded per-model
+    document capacity."""
     w = corpus.weights.to(dtype)
     k = cfg.num_topics
     n_dt = _scatter_rows(corpus.docs, z, w, cfg.num_docs, k)
     n_wt = _scatter_rows(corpus.words, z, w, cfg.vocab_size, k)
-    n_t = n_wt.sum(dim=0)
+    n_t = n_wt.sum(dim=-2)
     return LDAState(z=z, n_dt=n_dt, n_wt=n_wt, n_t=n_t)
 
 

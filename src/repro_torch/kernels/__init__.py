@@ -6,3 +6,5 @@
 #
 #   lda_gibbs    fused collapsed-Gibbs score + Gumbel-max resample
 #   alias_mh     AliasLDA stale alias-table proposals + S Metropolis-Hastings rounds
+#
+# each with a single-model entry and a batched one over M stacked models.

@@ -1,7 +1,9 @@
 // AliasLDA stale-proposal + Metropolis-Hastings resample for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `alias_mh_blocked`
-// (src/repro/kernels/alias_mh/kernel.py, `_alias_mh_kernel` / `_mh_tile`).
+// Replaces the TPU kernels `alias_mh_blocked` (entry `alias_mh_resample`)
+// and `alias_mh_blocked_batched` (entry `alias_mh_resample_batched`) in
+// src/repro/kernels/alias_mh/kernel.py (`_alias_mh_kernel`,
+// `_alias_mh_kernel_batched`, `_mh_tile`).
 // For every token i with doc d, word w, sweep-start topic z0 and weight wt,
 // over S rounds r (even rounds: word tables, odd rounds: doc tables):
 //
@@ -35,6 +37,14 @@
 // its parity picks the word or doc tables. No padding: the ragged edge is the
 // loop bound.
 //
+// Batched: M stacked models of the same K and hyperparameters, each with N
+// (padded) token slots, D (padded) doc rows and V word rows. Model m's count
+// tables start at n_dt + m*D*K, n_wt + m*V*K, n_t + m*K, its alias tables
+// likewise, its tokens at m*N and its (S, N) draws at m*S*N (64-bit offsets
+// throughout). The grid is (blocks per model, M): blockIdx.y picks the model
+// and the block strides over that model's N slots. The single-model entry is
+// the same kernel with M = 1. Weight-0 tokens (the stack's padding) keep z.
+//
 // Build without fast math and with -fmad=false: `logf` (not `__logf`) and the
 // reference's operation order keep log_a within an ulp of the plain version.
 
@@ -62,8 +72,27 @@ alias_mh_kernel(const int32_t* __restrict__ docs,
                 const float* __restrict__ u_prop,
                 const float* __restrict__ u_acc,
                 int32_t* __restrict__ z_out,
-                int n, int k, int s, float alpha, float beta, float beta_bar,
-                float scale) {
+                int n, int d, int v, int k, int s, float alpha, float beta,
+                float beta_bar, float scale) {
+  // This block's model: its tables, tokens and draws.
+  const long long model = blockIdx.y;
+  const long long tok0 = model * n;
+  docs += tok0;
+  words += tok0;
+  z += tok0;
+  weights += tok0;
+  z_out += tok0;
+  j_prop += tok0 * s;
+  u_prop += tok0 * s;
+  u_acc += tok0 * s;
+  n_dt += model * d * k;
+  thresh_d += model * d * k;
+  alias_d += model * d * k;
+  n_wt += model * v * k;
+  thresh_w += model * v * k;
+  alias_w += model * v * k;
+  n_t += model * k;
+
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
@@ -116,27 +145,54 @@ cudaError_t launch(const int32_t* docs, const int32_t* words, const int32_t* z,
                    const int32_t* alias_w, const float* thresh_d,
                    const int32_t* alias_d, const int32_t* j_prop,
                    const float* u_prop, const float* u_acc, int32_t* z_out,
-                   int n, int k, int s, float alpha, float beta, float beta_bar,
-                   float scale, cudaStream_t stream) {
+                   int m, int n, int d, int v, int k, int s, float alpha,
+                   float beta, float beta_bar, float scale,
+                   cudaStream_t stream) {
   long long blocks = (static_cast<long long>(n) + kThreads - 1) / kThreads;
-  // Enough blocks to fill the card several times over; the grid-stride loop
-  // covers the rest.
-  if (blocks > 132 * 16) blocks = 132 * 16;
+  // Enough blocks in all to fill the card several times over; the
+  // grid-stride loop covers the rest of each model.
+  const long long cap = (132 * 16) / m;
+  if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  alias_mh_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(m));
+  alias_mh_kernel<T><<<grid, kThreads, 0, stream>>>(
       docs, words, z, weights, static_cast<const T*>(n_dt),
       static_cast<const T*>(n_wt), static_cast<const T*>(n_t), thresh_w,
-      alias_w, thresh_d, alias_d, j_prop, u_prop, u_acc, z_out, n, k, s, alpha,
-      beta, beta_bar, scale);
+      alias_w, thresh_d, alias_d, j_prop, u_prop, u_acc, z_out, n, d, v, k, s,
+      alpha, beta, beta_bar, scale);
   return cudaGetLastError();
+}
+
+cudaError_t run(const int32_t* docs, const int32_t* words, const int32_t* z,
+                const float* weights, const void* n_dt, const void* n_wt,
+                const void* n_t, int counts_int, const float* thresh_w,
+                const int32_t* alias_w, const float* thresh_d,
+                const int32_t* alias_d, const int32_t* j_prop,
+                const float* u_prop, const float* u_acc, int32_t* z_out, int m,
+                int n, int d, int v, int k, int s, float alpha, float beta,
+                float beta_bar, float scale, void* stream) {
+  if (m <= 0 || n <= 0) return cudaSuccess;
+  if (k <= 0 || s <= 0 || m > 65535 || d < 0 || v < 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return counts_int
+             ? launch<int32_t>(docs, words, z, weights, n_dt, n_wt, n_t,
+                               thresh_w, alias_w, thresh_d, alias_d, j_prop,
+                               u_prop, u_acc, z_out, m, n, d, v, k, s, alpha,
+                               beta, beta_bar, scale, st)
+             : launch<float>(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w,
+                             alias_w, thresh_d, alias_d, j_prop, u_prop, u_acc,
+                             z_out, m, n, d, v, k, s, alpha, beta, beta_bar,
+                             scale, st);
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). `counts_int` selects int32
+// Plain C entry points (loaded with ctypes). `counts_int` selects int32
 // fixed-point count tables (scaled by `scale` in-kernel) over float32 ones.
-// The draws are (s, n) row-major. Launches on `stream`, allocates nothing,
-// returns cudaGetLastError().
+// Each launches on `stream`, allocates nothing, returns cudaGetLastError().
+//
+// One model: ids/z/weights (n,), count and alias tables (D, k) / (V, k),
+// n_t (k,), draws (s, n), all row-major.
 extern "C" int alias_mh_resample(const int32_t* docs, const int32_t* words,
                                  const int32_t* z, const float* weights,
                                  const void* n_dt, const void* n_wt,
@@ -147,16 +203,24 @@ extern "C" int alias_mh_resample(const int32_t* docs, const int32_t* words,
                                  const float* u_acc, int32_t* z_out, int n,
                                  int k, int s, float alpha, float beta,
                                  float beta_bar, float scale, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (k <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      counts_int
-          ? launch<int32_t>(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w,
-                            alias_w, thresh_d, alias_d, j_prop, u_prop, u_acc,
-                            z_out, n, k, s, alpha, beta, beta_bar, scale, st)
-          : launch<float>(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w,
-                          alias_w, thresh_d, alias_d, j_prop, u_prop, u_acc,
-                          z_out, n, k, s, alpha, beta, beta_bar, scale, st);
-  return static_cast<int>(err);
+  return static_cast<int>(run(docs, words, z, weights, n_dt, n_wt, n_t,
+                              counts_int, thresh_w, alias_w, thresh_d, alias_d,
+                              j_prop, u_prop, u_acc, z_out, 1, n, 0, 0, k, s,
+                              alpha, beta, beta_bar, scale, stream));
+}
+
+// M stacked models: ids/z/weights (m, n), count and alias tables
+// (m, d, k) / (m, v, k), n_t (m, k), draws (m, s, n), all row-major.
+extern "C" int alias_mh_resample_batched(
+    const int32_t* docs, const int32_t* words, const int32_t* z,
+    const float* weights, const void* n_dt, const void* n_wt, const void* n_t,
+    int counts_int, const float* thresh_w, const int32_t* alias_w,
+    const float* thresh_d, const int32_t* alias_d, const int32_t* j_prop,
+    const float* u_prop, const float* u_acc, int32_t* z_out, int m, int n,
+    int d, int v, int k, int s, float alpha, float beta, float beta_bar,
+    float scale, void* stream) {
+  return static_cast<int>(run(docs, words, z, weights, n_dt, n_wt, n_t,
+                              counts_int, thresh_w, alias_w, thresh_d, alias_d,
+                              j_prop, u_prop, u_acc, z_out, m, n, d, v, k, s,
+                              alpha, beta, beta_bar, scale, stream));
 }

@@ -1,4 +1,5 @@
-"""Load and launch the Hopper AliasLDA MH kernel (`csrc/alias_mh.cu`).
+"""Load and launch the Hopper AliasLDA MH kernel (`csrc/alias_mh.cu`):
+`launch` for one model, `launch_many` for M stacked models.
 
 The source is built at first use by `repro_torch.kernels._build` (nvcc for
 ``sm_90a`` into ``build/repro_torch/``, a plain C interface loaded with
@@ -34,6 +35,9 @@ def _lib() -> ctypes.CDLL:
     lib.alias_mh_resample.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p,
                                       i, i, i, f, f, f, f, p]
     lib.alias_mh_resample.restype = ctypes.c_int
+    lib.alias_mh_resample_batched.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p, p, p,
+                                              p, i, i, i, i, i, i, f, f, f, f, p]
+    lib.alias_mh_resample_batched.restype = ctypes.c_int
     return lib
 
 
@@ -53,3 +57,23 @@ def launch(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w, thresh_d
         torch.cuda.current_stream(z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"alias_mh_resample launch failed: CUDA error {err}")
+
+
+def launch_many(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w, thresh_d,
+                alias_d, j_prop, u_prop, u_acc, z_out, *, alpha: float, beta: float,
+                beta_bar: float, scale: float) -> None:
+    """Launch over M stacked models — ids (M, N), count and alias tables
+    (M, D, K) / (M, V, K), totals (M, K), draws (M, S, N) — on PyTorch's
+    current stream. Arguments are validated by the caller
+    (`ops.mh_resample_many`); raises if the launch is refused."""
+    m, s, n = j_prop.shape
+    err = _lib().alias_mh_resample_batched(
+        docs.data_ptr(), words.data_ptr(), z.data_ptr(), weights.data_ptr(),
+        n_dt.data_ptr(), n_wt.data_ptr(), n_t.data_ptr(),
+        int(n_dt.dtype == torch.int32), thresh_w.data_ptr(), alias_w.data_ptr(),
+        thresh_d.data_ptr(), alias_d.data_ptr(), j_prop.data_ptr(),
+        u_prop.data_ptr(), u_acc.data_ptr(), z_out.data_ptr(),
+        m, n, n_dt.shape[1], n_wt.shape[1], n_dt.shape[2], s, alpha, beta, beta_bar,
+        scale, torch.cuda.current_stream(z.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"alias_mh_resample_batched launch failed: CUDA error {err}")

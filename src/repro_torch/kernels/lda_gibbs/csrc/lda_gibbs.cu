@@ -1,7 +1,9 @@
 // Fused collapsed-Gibbs score + Gumbel-max resample for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `gibbs_resample_blocked`
-// (src/repro/kernels/lda_gibbs/kernel.py, `_gibbs_kernel` / `_resample_tile`).
+// Replaces the TPU kernels `gibbs_resample_blocked` (entry
+// `lda_gibbs_resample`) and `gibbs_resample_blocked_batched` (entry
+// `lda_gibbs_resample_batched`) in src/repro/kernels/lda_gibbs/kernel.py
+// (`_gibbs_kernel`, `_gibbs_kernel_batched`, `_resample_tile`).
 // For every token i with doc d, word w, topic z and weight wt, over K topics:
 //
 //   own_t   = wt * [t == z]
@@ -23,6 +25,19 @@
 // memory. No K or N padding: lanes stride over K and the ragged token edge
 // is masked.
 //
+// Batched: M stacked models of the same K and hyperparameters, each with
+// N (padded) token slots, D (padded) doc rows and V word rows. Model m's
+// tables start at n_dt + m*D*K, n_wt + m*V*K, n_t + m*K, its tokens at
+// m*N and its noise at m*N*K (64-bit offsets throughout). The grid is
+// (blocks per model, M): blockIdx.y picks the model, whose n_t the block
+// stages, and the block's warps stride over that model's N slots. The TPU
+// kernel took (M, N, K) pre-gathered rows; here rows are gathered by id as
+// above. Weight-0 slots (the stack's padding) skip the score loop. Both
+// entries share one body: the batched instantiation (kBatched) adds the
+// model offsets and the skip; the single-model one compiles without either,
+// which on the H100 kept it at its earlier time (with them it ran ~10%
+// slower).
+//
 // Shape: a group of G lanes (G = 8, 16 or 32, the least that covers K, capped
 // at a warp) owns one token; each lane scans topics lane, lane+G, ... keeping
 // its first maximum, then a butterfly shuffle within the group picks the
@@ -41,7 +56,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, int G>
+template <typename T, int G, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 gibbs_resample_kernel(const int32_t* __restrict__ docs,
                       const int32_t* __restrict__ words,
@@ -52,8 +67,22 @@ gibbs_resample_kernel(const int32_t* __restrict__ docs,
                       const T* __restrict__ n_t,
                       const float* __restrict__ noise,
                       int32_t* __restrict__ z_out,
-                      int n, int k, float alpha, float beta, float beta_bar,
-                      float scale) {
+                      int n, int d, int v, int k, float alpha, float beta,
+                      float beta_bar, float scale) {
+  if (kBatched) {  // this block's model: its tables, totals, tokens, noise
+    const long long model = blockIdx.y;
+    const long long tok0 = model * n;
+    docs += tok0;
+    words += tok0;
+    z += tok0;
+    weights += tok0;
+    z_out += tok0;
+    noise += tok0 * k;
+    n_dt += model * d * k;
+    n_wt += model * v * k;
+    n_t += model * k;
+  }
+
   extern __shared__ float tot[];  // (K,) topic totals in real units
   for (int t = threadIdx.x; t < k; t += blockDim.x) {
     tot[t] = static_cast<float>(n_t[t]) * scale;
@@ -74,12 +103,19 @@ gibbs_resample_kernel(const int32_t* __restrict__ docs,
     float best = -CUDART_INF_F;
     int best_t = 0x7fffffff;
     int zi = 0;
+    int di = 0;
+    int wd = 0;
     float wi = 0.0f;
-    if (valid) {
+    if (valid) {  // all four loads in flight together, ahead of the branch below
       zi = z[i];
       wi = weights[i];
-      const T* row_d = n_dt + static_cast<long long>(docs[i]) * k;
-      const T* row_w = n_wt + static_cast<long long>(words[i]) * k;
+      di = docs[i];
+      wd = words[i];
+    }
+    // Invalid slots have wi = 0; weight-0 tokens keep z either way.
+    if (kBatched ? wi > 0.0f : valid) {
+      const T* row_d = n_dt + static_cast<long long>(di) * k;
+      const T* row_w = n_wt + static_cast<long long>(wd) * k;
       const float* g = noise + i * k;
       for (int t = sub; t < k; t += G) {
         const float own = (t == zi) ? wi : 0.0f;
@@ -87,9 +123,9 @@ gibbs_resample_kernel(const int32_t* __restrict__ docs,
         const float rw = fmaxf(static_cast<float>(row_w[t]) * scale - own, 0.0f);
         const float tt = fmaxf(tot[t] - own, 1e-9f);
         const float logit = (logf(rd + alpha) + logf(rw + beta)) - logf(tt + beta_bar);
-        const float v = logit + g[t];
-        if (v > best) {  // strict: the first maximum of this lane's topics
-          best = v;
+        const float val = logit + g[t];
+        if (val > best) {  // strict: the first maximum of this lane's topics
+          best = val;
           best_t = t;
         }
       }
@@ -109,48 +145,73 @@ gibbs_resample_kernel(const int32_t* __restrict__ docs,
   }
 }
 
-template <typename T, int G>
+template <typename T, int G, bool kBatched>
 cudaError_t launch(const int32_t* docs, const int32_t* words, const int32_t* z,
                    const float* weights, const void* n_dt, const void* n_wt,
-                   const void* n_t, const float* noise, int32_t* z_out, int n,
-                   int k, float alpha, float beta, float beta_bar, float scale,
-                   cudaStream_t stream) {
+                   const void* n_t, const float* noise, int32_t* z_out, int m,
+                   int n, int d, int v, int k, float alpha, float beta,
+                   float beta_bar, float scale, cudaStream_t stream) {
   constexpr int kTokensPerBlock = (kThreads / 32) * (32 / G);
   long long blocks = (static_cast<long long>(n) + kTokensPerBlock - 1) / kTokensPerBlock;
-  // Enough blocks to fill the card several times over; the grid-stride loop
-  // covers the rest and amortizes the n_t staging.
-  if (blocks > 132 * 16) blocks = 132 * 16;
+  // Enough blocks in all to fill the card several times over; the
+  // grid-stride loop covers the rest of each model and amortizes the n_t
+  // staging.
+  const long long cap = (132 * 16) / m;
+  if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(m));
   const size_t smem = static_cast<size_t>(k) * sizeof(float);
-  gibbs_resample_kernel<T, G><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  gibbs_resample_kernel<T, G, kBatched><<<grid, kThreads, smem, stream>>>(
       docs, words, z, weights, static_cast<const T*>(n_dt),
       static_cast<const T*>(n_wt), static_cast<const T*>(n_t), noise, z_out, n,
-      k, alpha, beta, beta_bar, scale);
+      d, v, k, alpha, beta, beta_bar, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kBatched>
 cudaError_t dispatch_width(const int32_t* docs, const int32_t* words,
                            const int32_t* z, const float* weights,
                            const void* n_dt, const void* n_wt, const void* n_t,
-                           const float* noise, int32_t* z_out, int n, int k,
-                           float alpha, float beta, float beta_bar, float scale,
-                           cudaStream_t stream) {
+                           const float* noise, int32_t* z_out, int m, int n,
+                           int d, int v, int k, float alpha, float beta,
+                           float beta_bar, float scale, cudaStream_t stream) {
   if (k <= 8)
-    return launch<T, 8>(docs, words, z, weights, n_dt, n_wt, n_t, noise, z_out,
-                        n, k, alpha, beta, beta_bar, scale, stream);
+    return launch<T, 8, kBatched>(docs, words, z, weights, n_dt, n_wt, n_t, noise, z_out,
+                        m, n, d, v, k, alpha, beta, beta_bar, scale, stream);
   if (k <= 16)
-    return launch<T, 16>(docs, words, z, weights, n_dt, n_wt, n_t, noise,
-                         z_out, n, k, alpha, beta, beta_bar, scale, stream);
-  return launch<T, 32>(docs, words, z, weights, n_dt, n_wt, n_t, noise, z_out,
-                       n, k, alpha, beta, beta_bar, scale, stream);
+    return launch<T, 16, kBatched>(docs, words, z, weights, n_dt, n_wt, n_t, noise,
+                         z_out, m, n, d, v, k, alpha, beta, beta_bar, scale,
+                         stream);
+  return launch<T, 32, kBatched>(docs, words, z, weights, n_dt, n_wt, n_t, noise, z_out,
+                       m, n, d, v, k, alpha, beta, beta_bar, scale, stream);
+}
+
+template <bool kBatched>
+cudaError_t run(const int32_t* docs, const int32_t* words, const int32_t* z,
+                const float* weights, const void* n_dt, const void* n_wt,
+                const void* n_t, int counts_int, const float* noise,
+                int32_t* z_out, int m, int n, int d, int v, int k, float alpha,
+                float beta, float beta_bar, float scale, void* stream) {
+  if (m <= 0 || n <= 0) return cudaSuccess;
+  if (k <= 0 || k > 8192 || m > 65535 || d < 0 || v < 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return counts_int
+             ? dispatch_width<int32_t, kBatched>(docs, words, z, weights, n_dt, n_wt, n_t,
+                                       noise, z_out, m, n, d, v, k, alpha, beta,
+                                       beta_bar, scale, s)
+             : dispatch_width<float, kBatched>(docs, words, z, weights, n_dt, n_wt, n_t,
+                                     noise, z_out, m, n, d, v, k, alpha, beta,
+                                     beta_bar, scale, s);
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). `counts_int` selects int32
+// Plain C entry points (loaded with ctypes). `counts_int` selects int32
 // fixed-point tables (scaled by `scale` in-kernel) over float32 tables.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// Each launches on `stream`, allocates nothing, returns cudaGetLastError().
+//
+// One model: ids/z/weights (n,), n_dt (D, k), n_wt (V, k), n_t (k,),
+// noise (n, k).
 extern "C" int lda_gibbs_resample(const int32_t* docs, const int32_t* words,
                                   const int32_t* z, const float* weights,
                                   const void* n_dt, const void* n_wt,
@@ -158,16 +219,20 @@ extern "C" int lda_gibbs_resample(const int32_t* docs, const int32_t* words,
                                   const float* noise, int32_t* z_out, int n,
                                   int k, float alpha, float beta,
                                   float beta_bar, float scale, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (k <= 0 || k > 8192) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      counts_int
-          ? dispatch_width<int32_t>(docs, words, z, weights, n_dt, n_wt, n_t,
-                                    noise, z_out, n, k, alpha, beta, beta_bar,
-                                    scale, s)
-          : dispatch_width<float>(docs, words, z, weights, n_dt, n_wt, n_t,
-                                  noise, z_out, n, k, alpha, beta, beta_bar,
-                                  scale, s);
-  return static_cast<int>(err);
+  return static_cast<int>(run<false>(docs, words, z, weights, n_dt, n_wt, n_t,
+                              counts_int, noise, z_out, 1, n, 0, 0, k, alpha,
+                              beta, beta_bar, scale, stream));
+}
+
+// M stacked models: ids/z/weights (m, n), n_dt (m, d, k), n_wt (m, v, k),
+// n_t (m, k), noise (m, n, k), all row-major.
+extern "C" int lda_gibbs_resample_batched(
+    const int32_t* docs, const int32_t* words, const int32_t* z,
+    const float* weights, const void* n_dt, const void* n_wt, const void* n_t,
+    int counts_int, const float* noise, int32_t* z_out, int m, int n, int d,
+    int v, int k, float alpha, float beta, float beta_bar, float scale,
+    void* stream) {
+  return static_cast<int>(run<true>(docs, words, z, weights, n_dt, n_wt, n_t,
+                              counts_int, noise, z_out, m, n, d, v, k, alpha,
+                              beta, beta_bar, scale, stream));
 }

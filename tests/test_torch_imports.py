@@ -55,6 +55,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.alias_mh.ops, repro_torch.kernels.alias_mh.kernel\n"
         "import repro_torch.core.alias, repro_torch.kernels._build\n"
         "import repro_torch.data.reviews, repro_torch.obs\n"
+        "import repro_torch.core.batch, repro_torch.serving\n"
+        "from repro_torch.serving import batch_engine, scheduler, topic_engine\n"
+        "from repro_torch.serving import TopicEngine, WaveScheduler\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

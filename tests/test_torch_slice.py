@@ -15,7 +15,8 @@ RLDA fit → refine → view over the wire (client → server), as
     the same noise is `test_torch_gibbs`'s replay test;
   * a reference client drives a port server over the string transport,
     and a port client drives a reference server, on the exact sweep and on
-    `backend="alias"`;
+    `backend="alias"`, including the multi-model `fit_batch` /
+    `refine_batch` verbs (`auto` resolves them to `batched`);
   * `backend="auto"` routes a fit of >= 100k tokens to `alias`, as the
     reference's router does, and AliasLDA at 100 sweeps lands within 0.3
     in log perplexity of the exact sweep at 30 (the reference's
@@ -68,7 +69,7 @@ def _invariants(server, handle_id):
 def test_port_client_server_main_path(corpus):
     client = VedaliaClient(device="cpu", backend="jnp")  # the reference's name, an alias
     info = client.hello()
-    assert info.backends == ["alias", "cuda", "torch"]
+    assert info.backends == ["alias", "batched", "cuda", "torch"]
     fit = client.fit(corpus.reviews[:130], num_sweeps=10, seed=0, **FIT)
     assert fit.backend == "torch" and fit.sweeps_run == 10
     fit = client.refine(fit.handle_id, num_sweeps=10, seed=1)
@@ -167,8 +168,20 @@ def test_reference_client_drives_port_server(corpus):
     exported = client.export_model(fit.handle_id)
     assert np.asarray(exported.state.n_wt).dtype == np.int32
     assert client.spot_check(fit.handle_id, exported.state).valid
-    with pytest.raises(ref_api.RemoteError, match="not ported yet"):
-        client.fit_batch([ref_revs[:20], ref_revs[20:40]], num_sweeps=2)
+    # The multi-model verbs: one fit per set, in order, on `auto` (which
+    # resolves to `batched`) and on `alias`; then a coalesced refit.
+    sets = [ref_revs[:20], ref_revs[20:45], ref_revs[45:60]]
+    for backend, resolved in (("auto", "batched"), ("alias", "alias")):
+        fits = client.fit_batch(sets, num_sweeps=2, seed=3, backend=backend, **FIT)
+        assert [f.backend for f in fits] == [resolved] * 3
+        assert [f.num_reviews for f in fits] == [len(rs) for rs in sets]
+        assert all(f.sweeps_run == 2 and np.isfinite(f.perplexity) for f in fits)
+        refined = client.refine_batch([f.handle_id for f in fits], 3, backend=backend)
+        assert [r.handle_id for r in refined] == [f.handle_id for f in fits]
+        assert all(r.sweeps_run == 5 and r.backend == resolved for r in refined)
+        for f in fits:
+            _invariants(server, f.handle_id)
+        assert client.sync_view(fits[1].handle_id, top_n=5).valid
 
 
 def test_port_client_drives_reference_server(corpus):
@@ -183,6 +196,12 @@ def test_port_client_drives_reference_server(corpus):
     assert exported.state.z.dtype == torch.int32 and exported.corpus.docs.device.type == "cpu"
     res = client.adopt_state(fit.handle_id, exported.state)
     assert res.handle_id == fit.handle_id
+    sets = [corpus.reviews[:20], corpus.reviews[20:50]]
+    fits = client.fit_batch(sets, num_sweeps=2, seed=1, backend="auto", **FIT)
+    assert [f.backend for f in fits] == ["batched", "batched"]
+    assert [f.num_reviews for f in fits] == [20, 30]
+    refined = client.refine_batch([f.handle_id for f in fits], 2)
+    assert [r.sweeps_run for r in refined] == [4, 4]
 
 
 def test_server_answers_every_verb():
@@ -196,14 +215,21 @@ def test_server_answers_every_verb():
     for verb in ("fit_batch", "refine_batch"):
         out = protocol.parse_request(protocol.make_request(verb, {}))
         assert out[0] == verb
-        raw = server.handle_raw(protocol.make_request(verb, {"handle_ids": [0]}))
+    # The multi-model verbs answer: malformed requests are typed errors.
+    for verb, payload, code in (("fit_batch", {}, "bad_request"),
+                                ("fit_batch", {"review_sets": []}, "invalid_argument"),
+                                ("refine_batch", {"handle_ids": [], "num_sweeps": 1},
+                                 "invalid_argument"),
+                                ("refine_batch", {"handle_ids": [7], "num_sweeps": 1},
+                                 "not_found")):
+        raw = server.handle_raw(protocol.make_request(verb, payload))
         with pytest.raises(protocol.RemoteError) as e:
             protocol.parse_response(raw, expect_kind=verb)
-        assert e.value.code == "bad_request" and "not ported yet" in str(e.value)
+        assert e.value.code == code, (verb, payload, str(e.value))
 
 
 def test_backend_registry_aliases_and_routing():
-    assert backends.available_backends() == ["alias", "cuda", "torch"]
+    assert backends.available_backends() == ["alias", "batched", "cuda", "torch"]
     assert backends.canonical("jnp") == "torch" and backends.canonical("pallas") == "cuda"
     assert type(backends.get_backend("pallas")).__name__ == "CudaSampler"
     assert type(backends.get_backend("alias")).__name__ == "AliasSampler"
@@ -218,7 +244,14 @@ def test_backend_registry_aliases_and_routing():
     assert backends.select_backend(num_tokens=600_193) == "alias"
     assert ref_api.select_backend(num_tokens=600_193) == "alias"
     assert backends.select_backend(num_tokens=200_000, task="update") == "torch"
-    assert backends.select_backend(num_models=3) == "torch"
+    assert backends.select_backend(num_models=3) == "batched"
+    assert backends.select_backend(num_models=2) == ref_api.select_backend(num_models=2) \
+        == "batched"
+    assert backends.select_backend(num_models=2, task="update") == "batched"
+    assert backends.select_backend(num_models=2, device_kind="gpu") == "batched"
+    assert backends.select_backend(num_models=2, available=["torch"]) == "torch"
+    assert type(backends.get_backend("batched")).__name__ == "BatchedSampler"
+    assert backends.backend_capabilities("batched").device_kind == "gpu"
     assert backends.select_backend(device_kind="phone") == "torch"
     assert backends.select_backend(device_kind="tpu") == "torch"
     assert backends.select_backend(num_tokens=200_000, available=["alias", "torch"]) == "alias"
