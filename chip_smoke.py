@@ -47,9 +47,28 @@ Phases:
                  50 sweeps: 100 batched alias_mh launches, invariants, four
                  sequential `alias` fits within 5%, the kernel at the larger
                  bucket against its plain version, bound and time
+  7. packed      the packed-table path at the popular product, uncut: 30
+                 sweeps on `cuda` with `QuantSpec.int8(w_bits=8)` and with
+                 `int4` (30 lda_gibbs.resample_quant launches each, no exact
+                 launch), 100 on `alias` with int8 (100 alias_mh launches),
+                 each training perplexity beside the exact run from the same
+                 seed (int8 within 5%; int4 reported); sweep times, stages
+                 (noise, table quantization, kernel, rebuild) and the quant
+                 kernel against its bound and plain version
+  8. packed_case_study
+                 the case study fit 100 sweeps on `cuda` with int8 and int4
+                 tables, on the card and on the CPU: perplexity within 5%
+  9. stream      the streaming tier: a 600 s burst stream with a concept
+                 shift (16 products, about 5,850 reviews) routed onto 2
+                 in-process servers on the card, micro-batched drain-updates,
+                 drift refits coalesced into `refine_batch`; shard 0 killed
+                 at 300 s and restored from its JSON snapshot; every acked
+                 review must be applied; staleness, reviews/s, launches and
+                 the device's share of a profiled 40 s window
 Phase 1 also holds both batched kernels against their plain versions over
 M in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 (x S
-in {2, 4} for alias_mh).
+in {2, 4} for alias_mh), and the packed-table entry over K in {12, 128,
+1000} x int8/int4 x stored n_dt f32/`w_bits` 8 at N = 65,536.
 
 Prints one JSON line per phase, then the kernels line, then
 `{"ok": true, "device": {...}}` as the last line. Any failure raises and
@@ -59,6 +78,7 @@ exits non-zero; without CUDA it exits 2 before doing anything.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -167,9 +187,10 @@ def _random_inputs(n, k, w_bits, d=2000, v=10000, seed=0):
     return (docs, words, z, weights, n_dt, n_wt, n_t, noise)
 
 
-def compare(args, *, alpha, beta, beta_bar, w_bits, many=False):
-    """Kernel vs plain on identical inputs — one model, or with `many` a
-    stack of M models through the batched kernel: (mismatches outside
+def compare(args, *, alpha, beta, beta_bar, w_bits, many=False, bits=None):
+    """Kernel vs plain on identical inputs — one model, with `many` a stack
+    of M models through the batched kernel, or with `bits` one model with a
+    packed word table through the quant entry: (mismatches outside
     near-ties, near-tie mismatches, tokens with a near-tie top-2, max score
     gap)."""
     import torch
@@ -177,12 +198,18 @@ def compare(args, *, alpha, beta, beta_bar, w_bits, many=False):
     from repro_torch.kernels.lda_gibbs import ops
 
     hp = dict(alpha=alpha, beta=beta, beta_bar=beta_bar, w_bits=w_bits)
-    kernel, plain = ((ops.resample_many, ops.resample_many_plain) if many
-                     else (ops.resample, ops.resample_plain))
+    if bits is not None:
+        hp["bits"] = bits
+        kernel, plain = ops.resample_quant, ops.resample_quant_plain
+        scores_fn = ops.perturbed_scores_quant
+    else:
+        kernel, plain = ((ops.resample_many, ops.resample_many_plain) if many
+                         else (ops.resample, ops.resample_plain))
+        scores_fn = ops.perturbed_scores
     z_k = kernel(*args, **hp).flatten()
     torch.cuda.synchronize()
     z_p = plain(*args, **hp).flatten()
-    scores = ops.perturbed_scores(*args, **hp)
+    scores = scores_fn(*args, **hp)
     scores = scores.reshape(-1, scores.shape[-1])
     live = args[3].flatten() > 0
     top2 = torch.topk(scores, min(2, scores.shape[1]), dim=1).values
@@ -431,12 +458,16 @@ def _quickstart_run(device, corp_reviews, backend):
 
 def _check_invariants(service, handle_id):
     """n_t sums to the total weight; the counts rebuild from z."""
+    h = service.handles[handle_id]
+    _check_state(h.cfg, h.model.corpus, h.model.state)
+
+
+def _check_state(cfg, corpus, state):
+    """`_check_invariants` of one model's config, corpus and stored state."""
     import torch
 
     from repro_torch.core import codec
 
-    h = service.handles[handle_id]
-    cfg, corpus, state = h.cfg, h.model.corpus, h.model.state
     n_t = codec.decode_array(cfg, state.n_t)
     total_w = float(corpus.weights.double().sum())
     # fixed point rounds each of the K totals by at most half a unit
@@ -444,10 +475,21 @@ def _check_invariants(service, handle_id):
     if abs(float(n_t.double().sum()) - total_w) > tol:
         raise SystemExit(f"n_t sums to {float(n_t.sum())}, weights to {total_w}")
     rebuilt = codec.rebuild_state(cfg, corpus, state.z)
+    w_bits = codec.codec_for(cfg).spec.w_bits
+    per_real = 1.0 if w_bits is None else float(1 << (w_bits + 1))  # stored units
     for name in ("n_dt", "n_wt", "n_t"):
-        dev = float((getattr(rebuilt, name).double() - getattr(state, name).double()).abs().max())
-        if dev > 2.0:  # float scatter-add order on the card may move a rounding
-            raise SystemExit(f"{name} does not rebuild from z (max deviation {dev})")
+        stored = getattr(state, name).double()
+        dev = (getattr(rebuilt, name).double() - stored).abs()
+        # Float scatter-add order on the card moves a sum by a few float32
+        # ulps of its magnitude, and its encoding may then round the other
+        # way: allow 2 stored units plus 4 ulps of each entry (an n_t of the
+        # popular product, ~33k real counts, has ulps of 2 stored units).
+        real = (stored / per_real).float().abs()
+        ulp = torch.nextafter(real, torch.full_like(real, math.inf)) - real
+        excess = dev - (2.0 + 4.0 * ulp.double() * per_real)
+        if float(excess.max()) > 0:
+            raise SystemExit(f"{name} does not rebuild from z (max deviation "
+                             f"{float(dev.max())}, {float(excess.max())} past its bound)")
     tensors = (state.z, state.n_dt, state.n_wt, state.n_t, corpus.docs)
     if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors):
         raise SystemExit("served state is not on the card")
@@ -571,6 +613,12 @@ def profile_device(step, reps=5, top=8):
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
+    return device_summary(prof, reps, top)
+
+
+def device_summary(prof, reps=1, top=8, unit="sweep"):
+    """A finished `torch.profiler` run's top ops and kernels by device time,
+    per rep (one `unit`), and the device's busy ms per rep."""
     rows, busy_us = [], 0.0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -581,7 +629,7 @@ def profile_device(step, reps=5, top=8):
             if str(ev.device_type).endswith("CUDA"):
                 busy_us += dev_us
     rows.sort(reverse=True)
-    return ([{"name": k[:80], "ms_per_sweep": us / 1e3 / reps, "calls": c}
+    return ([{"name": k[:80], f"ms_per_{unit}": us / 1e3 / reps, "calls": c}
              for us, k, c in rows[:top]], busy_us / 1e3 / reps)
 
 
@@ -598,17 +646,25 @@ def profile_sweeps(sampler, cfg, corpus, state, sweeps=5):
     return profile_device(step, sweeps)
 
 
+@functools.lru_cache(maxsize=None)
+def popular_reviews():
+    """The popular product's reviews (generated once, on the host) and the
+    seconds the generation took."""
+    from repro_torch.data import reviews
+
+    t0 = time.perf_counter()
+    corp = reviews.generate(reviews.SyntheticSpec(**POPULAR))
+    return corp, time.perf_counter() - t0
+
+
 def phase_scale():
     import torch
 
     from repro_torch.api import VedaliaClient
     from repro_torch.api.backends import get_backend
-    from repro_torch.data import reviews
     from repro_torch.kernels.lda_gibbs import ops
 
-    t0 = time.perf_counter()
-    corp = reviews.generate(reviews.SyntheticSpec(**POPULAR))
-    gen_s = time.perf_counter() - t0
+    corp, gen_s = popular_reviews()
     torch.cuda.reset_peak_memory_stats()
     ops.resample.launches = 0
     client = VedaliaClient(device="cuda", backend="cuda")
@@ -741,11 +797,10 @@ def phase_large_fit(exact_ppx):
     import torch
 
     from repro_torch.api import VedaliaClient
-    from repro_torch.data import reviews
     from repro_torch.kernels.alias_mh import ops as alias_ops
     from repro_torch.kernels.lda_gibbs import ops
 
-    corp = reviews.generate(reviews.SyntheticSpec(**POPULAR))
+    corp, _ = popular_reviews()
     torch.cuda.reset_peak_memory_stats()
     client = VedaliaClient(device="cuda", backend="auto")
     ops.resample.launches = 0
@@ -1210,6 +1265,419 @@ def phase_zoo_alias(sets):
     return out
 
 
+# -- phases 7-9: packed-table sweeps -------------------------------------------
+
+
+def _quant_inputs(n, k, w_bits, bits, seed):
+    """`_random_inputs` with its word table packed: the real-unit (V, K)
+    counts row-quantized to `bits` (nibble-packed for 4) with their scales.
+    Returns the quant entry's arguments (n_dt and n_t stay stored)."""
+    import torch
+
+    from repro_torch.core import quant
+
+    docs, words, z, weights, n_dt, n_wt, n_t, noise = _random_inputs(n, k, w_bits, seed=seed)
+    real = n_wt.to(torch.float32)
+    if w_bits is not None:
+        real = real * 2.0 ** -(w_bits + 1)
+    codes, scales = quant.quantize_rows_torch(real, bits)
+    if bits == 4:
+        codes = quant.pack_nibbles_torch(codes).contiguous()
+    return (docs, words, z, weights, n_dt, codes, scales, n_t, noise)
+
+
+def phase_quant_kernel():
+    """The packed-table entry against its plain version: K in {12, 128,
+    1000} x int8/int4 x stored n_dt f32/`w_bits` 8, N = 65,536."""
+    hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * 10000)
+    cases = []
+    for k in (12, 128, 1000):
+        for bits in (8, 4):
+            for w_bits in (None, 8):
+                args = _quant_inputs(65536, k, w_bits, bits, seed=k * 13 + bits)
+                bad, near_flip, near, gap = compare(args, w_bits=w_bits, bits=bits, **hp)
+                cases.append({"k": k, "bits": bits, "n": 65536, "w_bits": w_bits,
+                              "mismatch": bad, "near_tie_flips": near_flip,
+                              "near_ties": near, "max_abs_err": gap})
+    out = {
+        "phase": "kernels",
+        "kernels": ["lda_gibbs.resample_quant"],
+        "mismatches": sum(c["mismatch"] for c in cases),
+        "near_tie_flips": sum(c["near_tie_flips"] for c in cases),
+        "near_ties": sum(c["near_ties"] for c in cases),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "cases": cases,
+    }
+    emit(out)
+    if out["mismatches"]:
+        raise SystemExit(f"lda_gibbs.resample_quant disagrees with its plain version: "
+                         f"{out['mismatches']} tokens")
+    return out
+
+
+def quant_kernel_timing(cfg, corpus, state, reps=50):
+    """The packed-table entry at a sweep's inputs: agreement with its plain
+    version, the raw kernel's mean ms (CUDA events over launches on
+    validated inputs), the wrapper's, the plain version's, and the byte
+    bound of these inputs."""
+    import torch
+
+    from repro_torch.core import codec
+    from repro_torch.kernels.lda_gibbs import kernel, ops
+
+    n, k = corpus.num_tokens, cfg.num_topics
+    bits = cfg.quant_spec.bits
+    w_bits = codec.codec_for(cfg).spec.w_bits
+    noise = ops.gumbel((n, k), torch.Generator(device="cuda").manual_seed(123), "cuda")
+    codes, scales = ops.pack_word_table(cfg, state.n_wt)
+    args = (corpus.docs, corpus.words, state.z, corpus.weights, state.n_dt, codes, scales,
+            state.n_t, noise)
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
+    bad, near_flip, near, gap = compare(args, bits=bits, **hp)
+    z_out = torch.empty_like(state.z)
+    scale = 1.0 if w_bits is None else 2.0 ** -(w_bits + 1)
+    ms = cuda_ms(lambda: kernel.launch_quant(*args, z_out, bits=bits, alpha=cfg.alpha,
+                                             beta=cfg.beta, beta_bar=cfg.beta_bar,
+                                             scale=scale), reps * 4)
+    wrapper_ms = cuda_ms(lambda: ops.resample_quant(*args, bits=bits, **hp), reps)
+    plain_ms = cuda_ms(lambda: ops.resample_quant_plain(*args, bits=bits, **hp),
+                       max(3, reps // 10))
+    table_bytes = sum(t.numel() * t.element_size()
+                      for t in (codes, scales, state.n_dt, state.n_t))
+    moved = n * (4 * 4 + 4 * k + 4) + table_bytes  # ids/z/weight + noise + out; tables once
+    ops_count = n * k * 12  # 3 logs (~4 ops each) per token-topic
+    bound_ms = max(moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S) * 1e3
+    return {
+        "n": n, "k": k, "d": state.n_dt.shape[0], "v": codes.shape[0], "bits": bits,
+        "w_bits": w_bits, "mismatch": bad, "near_tie_flips": near_flip, "near_ties": near,
+        "max_abs_err": gap, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "bytes": moved, "table_bytes": table_bytes, "bound_ms": bound_ms,
+        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops_count / F32_OPS_PER_S
+        else "operations",
+        "shape": f"N={n} K={k} D={state.n_dt.shape[0]} V={codes.shape[0]} bits={bits} "
+                 f"w_bits={w_bits}",
+    }
+
+
+def packed_sweep_breakdown(cfg, corpus, state, reps=20):
+    """Mean ms of each stage of one packed `cuda` sweep, by CUDA events: the
+    noise draw, the per-sweep table quantization, the kernel, the rebuild."""
+    import torch
+
+    from repro_torch.core import codec
+    from repro_torch.kernels.lda_gibbs import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shape = (corpus.num_tokens, cfg.num_topics)
+    noise = ops.gumbel(shape, gen, "cuda")
+    codes, scales = ops.pack_word_table(cfg, state.n_wt)
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
+              bits=cfg.quant_spec.bits, w_bits=codec.codec_for(cfg).spec.w_bits)
+
+    def resample():
+        return ops.resample_quant(corpus.docs, corpus.words, state.z, corpus.weights,
+                                  state.n_dt, codes, scales, state.n_t, noise, **hp)
+
+    z_new = resample()
+    return {
+        "noise": cuda_ms(lambda: ops.gumbel(shape, gen, "cuda"), reps),
+        "quantize_table": cuda_ms(lambda: ops.pack_word_table(cfg, state.n_wt), reps),
+        "kernel": cuda_ms(resample, reps),
+        "rebuild": cuda_ms(lambda: codec.rebuild_state(cfg, corpus, z_new), reps),
+    }
+
+
+def _timed_run(sampler, cfg, corpus, seed, sweeps):
+    """`sampler.run` from a seeded generator on the card: (state, seconds)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = sampler.run(cfg, corpus, gen, sweeps)
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
+
+
+def phase_packed():
+    """The packed-table path at the popular product (uncut widths): 30
+    sweeps on `cuda` with int8 and with int4 tables (one quant launch a
+    sweep, no exact launch), 100 on `alias` with int8 (one alias_mh launch
+    a sweep), each fit's training perplexity beside the exact fit from the
+    same seed; then the quant kernel at this shape and the packed sweep's
+    stages."""
+    import torch
+
+    from repro_torch.api import VedaliaService
+    from repro_torch.api.backends import get_backend
+    from repro_torch.core import perplexity
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.lda_gibbs import ops
+
+    corp, _ = popular_reviews()
+    prep = VedaliaService(device="cuda").prepare(
+        corp.reviews, base_vocab=POPULAR["vocab_size"], num_topics=12, w_bits=8)
+    cfg, corpus = prep.cfg, prep.corpus
+    specs = {"int8": QuantSpec.int8(w_bits=8), "int4": QuantSpec.int4(w_bits=8)}
+    runs = {}
+    for backend, sweeps, modes in (("cuda", 30, ("exact", "int8", "int4")),
+                                   ("alias", 100, ("exact", "int8"))):
+        sampler = get_backend(backend)
+        for mode in modes:
+            run_cfg = cfg if mode == "exact" else dataclasses.replace(cfg, quant=specs[mode])
+            ops.resample.launches = ops.resample_quant.launches = 0
+            alias_ops.mh_resample.launches = 0
+            state, secs = _timed_run(sampler, run_cfg, corpus, seed=0, sweeps=sweeps)
+            runs[f"{backend}_{mode}"] = {
+                "sweeps": sweeps, "s": round(secs, 4), "state": state, "cfg": run_cfg,
+                "launches": {"lda_gibbs.resample": ops.resample.launches,
+                             "lda_gibbs.resample_quant": ops.resample_quant.launches,
+                             "alias_mh.resample": alias_ops.mh_resample.launches},
+                "perplexity": perplexity.perplexity(run_cfg, state, corpus),
+            }
+    for name, r in runs.items():
+        exact = runs[name.split("_")[0] + "_exact"]["perplexity"]
+        r["rel_gap_to_exact"] = abs(r["perplexity"] - exact) / exact
+    want = {"cuda_exact": {"lda_gibbs.resample": 30, "lda_gibbs.resample_quant": 0,
+                           "alias_mh.resample": 0},
+            "cuda_int8": {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 30,
+                          "alias_mh.resample": 0},
+            "cuda_int4": {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 30,
+                          "alias_mh.resample": 0},
+            "alias_exact": {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 0,
+                            "alias_mh.resample": 100},
+            "alias_int8": {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 0,
+                           "alias_mh.resample": 100}}
+    for name in ("cuda_int8", "cuda_int4", "alias_int8"):
+        _check_state(runs[name]["cfg"], corpus, runs[name]["state"])
+
+    # Sweep times (exact vs packed, same corpus), stages, the kernel.
+    sampler = get_backend("cuda")
+    sweep_ms = {}
+    for name in ("cuda_exact", "cuda_int8", "cuda_int4"):
+        r = runs[name]
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        state = r["state"]
+        times = []
+        for _ in range(30):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state = sampler.sweep(r["cfg"], state, corpus, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        sweep_ms[name] = statistics.median(times)
+    timing = {m: quant_kernel_timing(runs[f"cuda_{m}"]["cfg"], corpus, runs[f"cuda_{m}"]["state"])
+              for m in ("int8", "int4")}
+    r8 = runs["cuda_int8"]
+    out = {
+        "phase": "packed", "tokens": corpus.num_tokens, "docs": cfg.num_docs,
+        "vocab": cfg.vocab_size, "num_topics": cfg.num_topics, "w_bits": 8,
+        "runs": {name: {k: v for k, v in r.items() if k not in ("state", "cfg")}
+                 for name, r in runs.items()},
+        "expected_launches": want,
+        "sweep_ms_median": sweep_ms,
+        "kernel": timing,
+        "sweep_breakdown_ms": packed_sweep_breakdown(r8["cfg"], corpus, r8["state"]),
+    }
+    out["profile_top_device_ms"], out["device_busy_ms_per_sweep"] = profile_sweeps(
+        sampler, r8["cfg"], corpus, r8["state"])
+    emit(out)
+    for name, r in runs.items():
+        if r["launches"] != want[name]:
+            raise SystemExit(f"packed phase: {name} launched {r['launches']}, "
+                             f"expected {want[name]}")
+        if not math.isfinite(r["perplexity"]):
+            raise SystemExit(f"packed phase: {name} perplexity {r['perplexity']}")
+    for name in ("cuda_int8", "alias_int8"):
+        if runs[name]["rel_gap_to_exact"] > PPX_BAND:
+            raise SystemExit(f"{name} perplexity {runs[name]['perplexity']} is "
+                             f"{runs[name]['rel_gap_to_exact']:.2%} from the exact fit")
+    for m, t in timing.items():
+        if t["mismatch"]:
+            raise SystemExit(f"lda_gibbs.resample_quant ({m}) disagrees with its plain "
+                             f"version at the popular product: {t['mismatch']} tokens")
+    return out, runs["cuda_int8"]["launches"]["lda_gibbs.resample_quant"] \
+        + runs["cuda_int4"]["launches"]["lda_gibbs.resample_quant"]
+
+
+def phase_packed_case_study():
+    """The quickstart case study (29,232 tokens) fit 100 sweeps on `cuda`
+    with int8 and with int4 tables, on the card and on the CPU (the plain
+    version, one thread): training perplexity within 5%."""
+    import torch
+
+    from repro_torch.api import VedaliaService
+    from repro_torch.api.backends import get_backend
+    from repro_torch.core import perplexity
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.data import reviews
+    from repro_torch.kernels.lda_gibbs import ops
+
+    corp = reviews.generate(reviews.SyntheticSpec(**QUICKSTART))
+    torch.set_num_threads(1)
+    out = {"phase": "packed_case_study", "sweeps": 100, "runs": {}}
+    for mode, spec in (("int8", QuantSpec.int8(w_bits=8)), ("int4", QuantSpec.int4(w_bits=8))):
+        res = {}
+        for device in ("cuda", "cpu"):
+            prep = VedaliaService(device=device).prepare(
+                corp.reviews, base_vocab=QUICKSTART["vocab_size"], num_topics=12, w_bits=8)
+            cfg = dataclasses.replace(prep.cfg, quant=spec)
+            ops.resample_quant.launches = 0
+            gen = torch.Generator(device=device).manual_seed(0)
+            t0 = time.perf_counter()
+            state = get_backend("cuda").run(cfg, prep.corpus, gen, 100)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            res[device] = {"s": round(time.perf_counter() - t0, 4),
+                           "launches": ops.resample_quant.launches,
+                           "perplexity": perplexity.perplexity(cfg, state, prep.corpus)}
+        res["tokens"] = prep.corpus.num_tokens
+        res["rel_diff"] = abs(res["cuda"]["perplexity"] - res["cpu"]["perplexity"]) \
+            / res["cpu"]["perplexity"]
+        out["runs"][mode] = res
+    emit(out)
+    for mode, res in out["runs"].items():
+        if res["cuda"]["launches"] != 100 or res["cpu"]["launches"] != 0:
+            raise SystemExit(f"packed case study ({mode}) launched {res['cuda']['launches']} "
+                             f"on the card and {res['cpu']['launches']} on the CPU")
+        if not math.isfinite(res["cuda"]["perplexity"]) or res["rel_diff"] > PPX_BAND:
+            raise SystemExit(f"packed case study ({mode}): card {res['cuda']['perplexity']} "
+                             f"vs CPU {res['cpu']['perplexity']}")
+    return out
+
+
+# -- phase 10: the streaming tier ----------------------------------------------
+
+STREAM = dict(num_products=16, duration=600.0, rate=8.0, shape="burst", shift_at=300.0,
+              vocab_size=800, num_topics=12, mean_tokens=60, seed=0)
+STREAM_KILL_AT = 300.0  # event seconds: shard 0 is killed and restored here
+STREAM_PROFILE = (420.0, 460.0)  # event seconds: the window traced by torch.profiler
+
+
+def phase_stream():
+    """The streaming tier at the service's widths: a burst stream with a
+    concept shift, routed by consistent hash onto 2 in-process servers on
+    the card, micro-batched into drain-updates, drift-triggered refits
+    coalesced into `refine_batch`; shard 0 killed mid-run and restored from
+    its JSON snapshot. Every acked review must be applied."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import VedaliaClient, VedaliaServer
+    from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.lda_gibbs import ops
+    from repro_torch.stream import (IncrementalScheduler, StreamRouter, StreamSpec, pump,
+                                    restore_from_json, snapshot_to_json, synthetic_events)
+
+    class Client(VedaliaClient):
+        """Counts the reviews its server acknowledged by a fit (ingest
+        acknowledgements are the server's ack cursors)."""
+
+        fit_acked = 0
+
+        def fit(self, reviews, **kwargs):
+            result = super().fit(reviews, **kwargs)
+            self.fit_acked += len(reviews)
+            return result
+
+    t0 = time.perf_counter()
+    events = synthetic_events(StreamSpec(**STREAM))
+    gen_s = time.perf_counter() - t0
+    servers = {s: VedaliaServer(device="cuda", backend="auto") for s in (0, 1)}
+    clients = {s: Client(server=servers[s]) for s in (0, 1)}
+    router = StreamRouter([0, 1], capacity=128, policy="block")
+    sched = IncrementalScheduler(
+        clients, router, refit_policy="drift", refit_sweeps=10,
+        fit_kwargs=dict(num_topics=12, base_vocab=STREAM["vocab_size"], w_bits=8,
+                        num_sweeps=30))
+    kill, window = {}, {}
+
+    def on_step(t):
+        if t == STREAM_PROFILE[0]:  # a steady window: the device's share of it
+            torch.cuda.synchronize()
+            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["t0"] = time.perf_counter()
+        elif t == STREAM_PROFILE[1]:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            window["prof"].__exit__(None, None, None)
+            window["top"], window["busy_ms"] = device_summary(window.pop("prof"), unit="window")
+            # The traced window and the trace's processing, left out of reviews/s.
+            window["traced_s"] = time.perf_counter() - window.pop("t0")
+        if kill or t < STREAM_KILL_AT:
+            return
+        k0 = time.perf_counter()
+        raw = snapshot_to_json(servers[0])
+        restored = restore_from_json(raw, device="cuda")
+        servers[0] = restored  # the old shard is dropped: its state lives on in `raw`
+        clients[0].rebind(server=restored)
+        sched.rebind_shard(0, clients[0])
+        kill.update(at=t, snapshot_bytes=len(raw), handles=len(restored.service.handles),
+                    restore_s=round(time.perf_counter() - k0, 4))
+
+    names = ("lda_gibbs.resample", "lda_gibbs.resample_many", "lda_gibbs.resample_quant",
+             "alias_mh.resample", "alias_mh.resample_many")
+    counters = (ops.resample, ops.resample_many, ops.resample_quant, alias_ops.mh_resample,
+                alias_ops.mh_resample_many)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pump(events, router, sched, step_interval=2.0, on_step=on_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in zip(names, counters)}
+
+    st = sched.stats
+    ingest_acked = sum(sum(s.ingest_acked.values()) for s in servers.values())
+    client_acked = sum(p.acked for p in sched.products.values())
+    acked = ingest_acked + sum(c.fit_acked for c in clients.values())
+    queued = sum(sum(len(q) for q in s.ingest_queues.values()) for s in servers.values())
+    served_docs = sum(h.cfg.num_docs for s in servers.values()
+                      for h in s.service.handles.values())
+    tokens = sum(h.model.corpus.num_tokens for s in servers.values()
+                 for h in s.service.handles.values())
+    largest = max(sched.products.values(), key=lambda p: p.tokens_ingested)
+    traced = sum(1 for e in events if STREAM_PROFILE[0] < e.t <= STREAM_PROFILE[1])
+    out = {
+        "phase": "stream", "events": len(events), "products": len(sched.products),
+        "generate_s": round(gen_s, 3), "wall_s": round(wall_s, 3),
+        "traced_s": round(window["traced_s"], 3), "traced_events": traced,
+        # reviews/s outside the traced window (the tracer slows what it sees)
+        "reviews_per_s": (len(events) - traced) / (wall_s - window["traced_s"]),
+        "events_applied": st.events_applied, "events_held_out": st.events_held_out,
+        "acked": acked, "ingest_acked": ingest_acked,
+        "ingest_acked_by_clients": client_acked, "ingest_queued_at_end": queued,
+        "served_reviews": served_docs, "served_tokens": tokens,
+        "largest_product_tokens": largest.tokens_ingested,
+        "fits": st.fits, "updates": st.updates, "refits": st.refits,
+        "refit_launches": st.refit_launches, "coalesced_refits": st.coalesced_refits,
+        "drift_triggers": st.drift_triggers, "ppx_triggers": st.ppx_triggers,
+        "forced_by_staleness": st.forced_by_staleness,
+        "staleness_p50_s": st.staleness_p(50), "staleness_p99_s": st.staleness_p(99),
+        "staleness_budget_s": sched.staleness_budget, "router": dataclasses.asdict(
+            router.stats()), "kill": kill, "launches": launches,
+        "profile_window_s": list(STREAM_PROFILE), "profile_wall_ms": window["wall_ms"],
+        "profile_top_device_ms": window["top"], "device_busy_ms": window["busy_ms"],
+        "device_idle_share": 1.0 - window["busy_ms"] / window["wall_ms"],
+    }
+    emit(out)
+    if not kill:
+        raise SystemExit("stream phase: shard 0 was never killed and restored")
+    if not st.events_applied == acked == served_docs or queued \
+            or ingest_acked != client_acked \
+            or st.events_applied + st.events_held_out != len(events):
+        raise SystemExit(f"stream phase: {st.events_applied} applied, {acked} acked, "
+                         f"{served_docs} served, {queued} still queued, {ingest_acked} "
+                         f"ingest acks ({client_acked} seen by the clients), "
+                         f"{st.events_held_out} held out of {len(events)} events")
+    if sum(launches.values()) == 0 or st.fits == 0 or st.updates == 0:
+        raise SystemExit(f"stream phase ran no device work: {launches}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1222,6 +1690,7 @@ def main() -> int:
     kern = phase_kernels()
     alias_kern = phase_alias_kernel()
     batched_kern = phase_batched_kernels()
+    quant_kern = phase_quant_kernel()
     main_out, handle = phase_main_path("jnp")
     # The main path's own shape: one 4096-token block against its tables.
     # The torch backend hands the kernel real-unit (decoded) float32 tables.
@@ -1254,6 +1723,9 @@ def main() -> int:
           "reviews": sum(len(rs) for rs in sets), "generate_s": round(time.perf_counter() - t0, 3)})
     zoo = phase_zoo(sets)
     zoo_alias = phase_zoo_alias(sets)
+    packed, quant_launches = phase_packed()
+    phase_packed_case_study()
+    phase_stream()
     t = scale["kernel"]
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"]]
     if block_timing["mismatch"]:
@@ -1304,7 +1776,21 @@ def main() -> int:
         ("lda_gibbs.resample_many", "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu",
          "src/repro/kernels/lda_gibbs/kernel.py:276", zoo),
         ("alias_mh.resample_many", "src/repro_torch/kernels/alias_mh/csrc/alias_mh.cu",
-         "src/repro/kernels/alias_mh/kernel.py:269", zoo_alias))]})
+         "src/repro/kernels/alias_mh/kernel.py:269", zoo_alias))] + [{
+        "name": "lda_gibbs.resample_quant",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu",
+        "replaces": "src/repro/kernels/lda_gibbs/kernel.py:183",
+        "launches": quant_launches,
+        "max_abs_err": max(quant_kern["max_abs_err"],
+                           *(t["max_abs_err"] for t in packed["kernel"].values())),
+        "ms": q["ms"],
+        "plain_ms": q["plain_ms"],
+        "bound_ms": q["bound_ms"],
+        "bound_by": q["bound_by"],
+        "library_ms": None,
+        "shape": q["shape"],
+    } for q in (packed["kernel"]["int8"],)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -239,10 +239,17 @@ class TorchSampler(_BaseSampler):
         return gibbs.run(cfg, corpus, gen, num_sweeps, state=state, block=self.block)
 
 
-@register_backend("cuda", SamplerCapabilities(device_kind="gpu"))
+#: The `QuantSpec` modes a packed-table sweep honors (`cuda`, `alias`).
+PACKED_QUANT_MODES = ("f32", "fixed", "int8", "int4_packed")
+
+
+@register_backend("cuda", SamplerCapabilities(device_kind="gpu",
+                                              quant_modes=PACKED_QUANT_MODES))
 class CudaSampler(_BaseSampler):
     """One kernel launch over all tokens a sweep (the plain version on
-    CPU tensors)."""
+    CPU tensors). A packed `cfg.quant` (int8/int4_packed) takes the
+    packed-table kernel, scoring against the word-topic table quantized
+    once a sweep."""
 
     def sweep(self, cfg, state, corpus, gen):
         from repro_torch.kernels.lda_gibbs import ops as kops
@@ -253,7 +260,7 @@ class CudaSampler(_BaseSampler):
 @register_backend(
     "alias",
     SamplerCapabilities(device_kind="gpu", proposal_based=True,
-                        quant_modes=("f32", "fixed")),
+                        quant_modes=PACKED_QUANT_MODES),
 )
 class AliasSampler(_BaseSampler):
     """AliasLDA sweep-parallel MH: stale per-word and per-doc alias
@@ -261,7 +268,10 @@ class AliasSampler(_BaseSampler):
     rounds a sweep. Per-token cost is O(1) a round, independent of K, so
     this is the large-corpus fit path. Counts cross the boundary in stored
     units. Each sweep is `kernels.alias_mh.ops.mh_sweep`: one Hopper kernel
-    launch on a CUDA corpus, its plain version on a CPU one.
+    launch on a CUDA corpus, its plain version on a CPU one; a packed
+    `cfg.quant` builds the word proposals from, and scores against, the
+    fake-quantized word-topic table. The stacked `run_many` keeps the exact
+    path, as the reference's batched alias sweep does.
     """
 
     def __init__(self, mh_steps: int = 4):

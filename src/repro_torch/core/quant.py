@@ -17,7 +17,10 @@ representation decision is made:
                         16-level table at a quarter of the f32 footprint.
 
 The packed modes describe *tables at rest*: wire payloads (`view`,
-`export_model`, `adopt_state`) and snapshots. The *live*
+`export_model`, `adopt_state`), snapshots, and the sweep-stale word-topic
+table the packed sweeps score against (counts are read-only within a
+sweep, so one lossy snapshot per sweep shrinks the table the kernel
+reads). The *live*
 mutable state a sampler scatter-adds into stays ``f32`` or ``fixed`` —
 ``live_mode`` says which — so every existing sampler keeps speaking stored
 `LDAState` at the boundary and ``fixed``-mode fits stay bit-exact with the
@@ -42,6 +45,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 #: Valid `QuantSpec.mode` values, in increasing compression order.
 MODES = ("f32", "fixed", "int8", "int4_packed")
@@ -206,3 +210,62 @@ def dequantize_rows(
         raise ValueError(
             f"packed table has {codes.shape[-1]} columns, expected {k}")
     return codes * np.asarray(scales, np.float32)[..., None]
+
+
+def fake_quantize_rows(x, bits: int):
+    """Quantize-dequantize in one step (the accuracy model of a packed
+    table without changing the array's dtype/layout): a numpy array takes
+    the numpy codec above, a tensor the tensor twins below; the result is
+    of the input's kind."""
+    if isinstance(x, np.ndarray):
+        codes, scales = quantize_rows(x, bits)
+        return dequantize_rows(codes, scales, bits, x.shape[-1])
+    xx = torch.clamp_min(torch.as_tensor(x).to(torch.float32), 0.0)
+    levels, scales = _row_scales(xx, bits, keepdim=True)
+    safe = torch.where(scales > 0, scales, 1.0)
+    codes = torch.clamp(torch.round(xx / safe), 0, levels)
+    return codes * scales
+
+
+# -- row packing (tensors: the kernel-feed path) -------------------------------
+
+
+def _row_scales(xx: torch.Tensor, bits: int, keepdim: bool = False):
+    """(levels, max(row) / levels) in float32, by true division on every
+    device: PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal, which can round a scale an ulp away from the CPU's (and the
+    reference's) quotient, so the divisor is a 0-d tensor on `xx`'s device."""
+    levels = _levels(bits)
+    divisor = torch.tensor(float(levels), dtype=torch.float32, device=xx.device)
+    return levels, xx.amax(dim=-1, keepdim=keepdim) / divisor
+
+
+def quantize_rows_torch(x: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tensor twin of `quantize_rows`: (..., K) -> (uint8 codes (..., K),
+    float32 scales (...,)). Codes stay *unpacked* for bits=4 — nibble
+    packing happens at the kernel boundary (`pack_nibbles_torch`).
+    `torch.round` rounds half to even, as the reference's kernel feed does."""
+    xx = torch.clamp_min(x.to(torch.float32), 0.0)
+    levels, scales = _row_scales(xx, bits)
+    safe = torch.where(scales > 0, scales, 1.0)[..., None]
+    codes = torch.clamp(torch.round(xx / safe), 0, levels).to(torch.uint8)
+    return codes, scales
+
+
+def pack_nibbles_torch(codes: torch.Tensor) -> torch.Tensor:
+    """Tensor twin of `pack_nibbles`: (..., K) uint8 codes in [0, 15] ->
+    (..., ceil(K/2)) bytes, low nibble first; odd K pads one zero nibble."""
+    if codes.shape[-1] % 2:
+        codes = torch.nn.functional.pad(codes, (0, 1))
+    low = codes[..., 0::2]
+    high = codes[..., 1::2]
+    return (low | (high << 4)).to(torch.uint8)
+
+
+def unpack_nibbles_torch(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """Tensor twin of `unpack_nibbles`: (..., ceil(K/2)) bytes -> (..., K)
+    uint8 codes in [0, 15]."""
+    low = packed & 0x0F
+    high = packed >> 4
+    out = torch.stack([low, high], dim=-1).reshape(*packed.shape[:-1], -1)
+    return out[..., :k]

@@ -15,7 +15,8 @@ look up one entry per token and round.
 `mh_sweep` is the `alias` backend's sweep: the stale tables (built in
 PyTorch from the decoded counts, as the reference builds them outside its
 kernel), the (S, N) draws, one `mh_resample`, then the count rebuild.
-Stored units go in and out.
+Stored units go in and out. A packed `cfg.quant` spec scores and builds
+the word tables against the fake-quantized word-topic table.
 
 `mh_resample_many` / `mh_sweep_many` are the same for M stacked models (the
 `core.batch` layout: a leading (M,) axis on every token, count, table and
@@ -29,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import codec
+from repro_torch.core import codec, quant
 from repro_torch.core.alias import mh_rounds, sweep_draws, sweep_tables
 from repro_torch.core.types import Corpus, LDAConfig, LDAState
 
@@ -152,16 +153,30 @@ def mh_sweep(cfg: LDAConfig, state: LDAState, corpus: Corpus,
              tables: Optional[tuple] = None) -> LDAState:
     """Full kernel-path AliasLDA sweep (one launch + count rebuild), stored
     units in and out. `draws` and `tables` replace the draw from `gen` and
-    the table build (see `core.alias.mh_sweep`)."""
+    the table build (see `core.alias.mh_sweep`).
+
+    With a packed `cfg.quant` (int8/int4_packed) the stale word-topic table
+    is fake-quantized to the spec's width (`core.quant.fake_quantize_rows`:
+    the accuracy model of the packed table), the word alias tables are
+    built from it, and the kernel runs its float mode (``w_bits=None``) on
+    the decoded n_dt, that table and the decoded n_t, as the reference's
+    packed sweep does; doc rows and totals stay exact."""
     sc = codec.codec_for(cfg)
+    spec = cfg.quant_spec
+    n_dt, n_wt = sc.decode_array(state.n_dt), sc.decode_array(state.n_wt)
+    if spec.packed:
+        n_wt = quant.fake_quantize_rows(n_wt, spec.bits)
+        counts, w_bits = (n_dt, n_wt, sc.decode_array(state.n_t)), None
+    else:
+        counts, w_bits = (state.n_dt, state.n_wt, state.n_t), sc.spec.w_bits
     if tables is None:
-        tables = sweep_tables(cfg, sc.decode_array(state.n_dt), sc.decode_array(state.n_wt))
+        tables = sweep_tables(cfg, n_dt, n_wt)
     if draws is None:
         draws = sweep_draws(gen, corpus.num_tokens, cfg.num_topics, mh_steps, corpus.device)
     z_new = mh_resample(corpus.docs, corpus.words, state.z, corpus.weights,
-                        state.n_dt, state.n_wt, state.n_t, *tables, *draws,
+                        *counts, *tables, *draws,
                         alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
-                        w_bits=sc.spec.w_bits)
+                        w_bits=w_bits)
     return codec.rebuild_state(cfg, corpus, z_new)
 
 

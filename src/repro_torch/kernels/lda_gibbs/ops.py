@@ -19,6 +19,13 @@ over all N tokens, then the count rebuild.
 one launch of the batched kernel for all M; their plain version is the
 same arithmetic over the model axis (each model reads only its own rows
 and totals), so on the CPU model m's row equals a single-model call.
+
+`resample_quant` is the packed-table variant (a `cfg.quant` of mode int8
+or int4_packed): the word-topic table arrives as uint8 codes (nibble-packed
+for int4) with one float32 scale per row, which the kernel gathers by word
+id and dequantizes; doc-topic counts and totals stay exact. `sweep_resample`
+takes it for a packed spec, quantizing the stale (V, K) table once a sweep
+(`core.quant.quantize_rows_torch`), as the reference's packed sweep does.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import codec
+from repro_torch.core import codec, quant
 from repro_torch.core.types import Corpus, LDAConfig, LDAState
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -58,10 +65,22 @@ def perturbed_scores(docs, words, z, weights, n_dt, n_wt, n_t, noise, *,
     """(N, K) self-excluded collapsed-Gibbs log scores (paper Eq. 5) plus
     the Gumbel noise — the quantity both versions take the argmax of.
     Stacked inputs (a leading (M,) axis) give (M, N, K)."""
-    scale = 1.0 if w_bits is None else 2.0 ** -(w_bits + 1)
-    rows_d = _rows(n_dt, docs).to(torch.float32) * scale
-    rows_w = _rows(n_wt, words).to(torch.float32) * scale
-    tot = n_t.to(torch.float32) * scale
+    scale = _scale(w_bits)
+    return _tile_scores(_rows(n_dt, docs).to(torch.float32) * scale,
+                        _rows(n_wt, words).to(torch.float32) * scale,
+                        n_t.to(torch.float32) * scale, z, weights, noise,
+                        alpha=alpha, beta=beta, beta_bar=beta_bar)
+
+
+def _scale(w_bits: Optional[int]) -> float:
+    """Stored units -> real units: 2^-(w_bits+1) for fixed point, else 1."""
+    return 1.0 if w_bits is None else 2.0 ** -(w_bits + 1)
+
+
+def _tile_scores(rows_d, rows_w, tot, z, weights, noise, *, alpha: float, beta: float,
+                 beta_bar: float) -> torch.Tensor:
+    """Score + noise from real-unit gathered rows (the reference's
+    `_resample_tile` before its argmax)."""
     topic = torch.arange(noise.shape[-1], device=noise.device)
     own = torch.where(topic == z[..., None], weights[..., None], 0.0)
     rd = torch.clamp_min(rows_d - own, 0.0)
@@ -142,7 +161,7 @@ def resample(docs, words, z, weights, n_dt, n_wt, n_t, noise, *,
     z_out = torch.empty_like(z)
     kernel.launch(docs, words, z, weights, n_dt, n_wt, n_t, noise, z_out,
                   alpha=float(alpha), beta=float(beta), beta_bar=float(beta_bar),
-                  scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
+                  scale=_scale(w_bits))
     resample.launches += 1
     return z_out
 
@@ -151,20 +170,129 @@ def resample(docs, words, z, weights, n_dt, n_wt, n_t, noise, *,
 resample.launches = 0
 
 
+def perturbed_scores_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, *,
+                           alpha: float, beta: float, beta_bar: float, bits: int,
+                           w_bits: Optional[int] = None) -> torch.Tensor:
+    """(N, K) scores plus noise with a packed word table: the gathered code
+    rows dequantize to ``float(code) * scale`` (the reference's
+    ``codes.astype(f32) * scales``), then score as `perturbed_scores` does
+    with ``w_bits=None`` on the decoded n_dt / n_t."""
+    k = noise.shape[-1]
+    rows_c = codes[words]
+    if bits == 4:
+        rows_c = quant.unpack_nibbles_torch(rows_c, k)
+    rows_w = rows_c.to(torch.float32) * scales[words][:, None]
+    scale = _scale(w_bits)
+    return _tile_scores(n_dt[docs].to(torch.float32) * scale, rows_w,
+                        n_t.to(torch.float32) * scale, z, weights, noise,
+                        alpha=alpha, beta=beta, beta_bar=beta_bar)
+
+
+def resample_quant_plain(docs, words, z, weights, n_dt, codes, scales, n_t, noise, *,
+                         alpha: float, beta: float, beta_bar: float, bits: int,
+                         w_bits: Optional[int] = None) -> torch.Tensor:
+    """Eager-PyTorch packed-table resample: Gumbel-max over
+    `perturbed_scores_quant` (ties to the lowest topic); weight-0 tokens
+    keep their topic."""
+    scores = perturbed_scores_quant(docs, words, z, weights, n_dt, codes, scales, n_t,
+                                    noise, alpha=alpha, beta=beta, beta_bar=beta_bar,
+                                    bits=bits, w_bits=w_bits)
+    z_new = torch.argmax(scores, dim=-1).to(z.dtype)
+    return torch.where(weights > 0.0, z_new, z)
+
+
+def _check_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, bits,
+                 w_bits) -> None:
+    """What the packed-table entry takes: `_check`'s arguments with the
+    word table replaced by (V, Kc) uint8 codes and (V,) float32 scales."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if noise.dim() != 2:
+        raise ValueError("noise must be (N, K)")
+    if codes.dim() != 2 or codes.dtype != torch.uint8:
+        raise ValueError("codes must be a (V, Kc) uint8 table")
+    k = noise.shape[-1]
+    kc = k if bits == 8 else (k + 1) // 2
+    if codes.shape[1] != kc:
+        raise ValueError(f"codes must have {kc} columns for K={k} at {bits} bits")
+    if scales.dtype != torch.float32 or scales.shape != (codes.shape[0],):
+        raise ValueError(f"scales must be float32 of shape ({codes.shape[0]},)")
+    for name, t in (("codes", codes), ("scales", scales)):
+        if t.device != noise.device:
+            raise ValueError(f"{name} is on {t.device}, noise on {noise.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    # The exact arguments as `_check` sees them, with a word table of the
+    # counts' own type standing in for the codes (it is not read).
+    stand_in = torch.empty((0, k), dtype=n_dt.dtype, device=n_dt.device)
+    _check(docs, words, z, weights, n_dt, stand_in, n_t, noise, w_bits)
+
+
+def resample_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, *,
+                   alpha: float, beta: float, beta_bar: float, bits: int,
+                   w_bits: Optional[int] = None) -> torch.Tensor:
+    """New topic per token (N,) int32 from ids (N,), the stored doc-topic
+    table (D, K) and totals (K,) — int32 fixed point when `w_bits` is set,
+    else float32 — the packed word table (`codes` (V, K) uint8 for bits 8,
+    (V, ceil(K/2)) nibble-packed for bits 4, `scales` (V,) float32) and
+    Gumbel noise (N, K). CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    hp = dict(alpha=alpha, beta=beta, beta_bar=beta_bar, bits=bits, w_bits=w_bits)
+    if noise.device.type == "cpu":
+        return resample_quant_plain(docs, words, z, weights, n_dt, codes, scales, n_t,
+                                    noise, **hp)
+    if noise.device.type != "cuda":
+        raise ValueError(f"no lda_gibbs kernel for device {noise.device}")
+    _check_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, bits, w_bits)
+    from repro_torch.kernels.lda_gibbs import kernel
+
+    z_out = torch.empty_like(z)
+    kernel.launch_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, z_out,
+                        bits=bits, alpha=float(alpha), beta=float(beta),
+                        beta_bar=float(beta_bar), scale=_scale(w_bits))
+    resample_quant.launches += 1
+    return z_out
+
+
+#: Packed-table kernel launches so far (CUDA tensors only).
+resample_quant.launches = 0
+
+
+def pack_word_table(cfg: LDAConfig, n_wt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A packed sweep's stale word table: the stored (V, K) counts decoded
+    and row-quantized to the spec's width (codes nibble-packed for int4),
+    with their (V,) scales."""
+    bits = cfg.quant_spec.bits
+    codes, scales = quant.quantize_rows_torch(codec.decode_array(cfg, n_wt), bits)
+    if bits == 4:
+        codes = quant.pack_nibbles_torch(codes)
+    return codes, scales
+
+
 def sweep_resample(cfg: LDAConfig, state: LDAState, corpus: Corpus,
                    gen: torch.Generator,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One full resampling pass in a single `resample` call; returns the new
-    z (counts rebuilt by the caller). Stored tables go in as they are
-    (fixed-point int32 is rescaled inside the kernel). `noise` (N, K)
-    replaces the draw from `gen`, so a test can replay the reference's."""
+    """One full resampling pass in a single kernel call; returns the new z
+    (counts rebuilt by the caller). Stored tables go in as they are
+    (fixed-point int32 is rescaled inside the kernel). With a packed
+    `cfg.quant` (int8/int4_packed) the word-topic table is quantized once
+    for the sweep (`pack_word_table`) and `resample_quant` scores against
+    it; n_dt and n_t stay exact. `noise` (N, K) replaces the draw from
+    `gen`, so a test can replay the reference's; it has the same K columns
+    in both modes, so a packed and an exact sweep from the same noise
+    consume the same draws."""
+    spec = cfg.quant_spec
     w_bits = codec.codec_for(cfg).spec.w_bits
     if noise is None:
         noise = gumbel((corpus.num_tokens, cfg.num_topics), gen, corpus.device)
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
+    if spec.packed:
+        codes, scales = pack_word_table(cfg, state.n_wt)
+        return resample_quant(corpus.docs, corpus.words, state.z, corpus.weights,
+                              state.n_dt, codes, scales, state.n_t, noise,
+                              bits=spec.bits, **hp)
     return resample(corpus.docs, corpus.words, state.z, corpus.weights,
-                    state.n_dt, state.n_wt, state.n_t, noise,
-                    alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
-                    w_bits=w_bits)
+                    state.n_dt, state.n_wt, state.n_t, noise, **hp)
 
 
 def sweep(cfg: LDAConfig, state: LDAState, corpus: Corpus, gen: torch.Generator,
@@ -194,7 +322,7 @@ def resample_many(docs, words, z, weights, n_dt, n_wt, n_t, noise, *,
     z_out = torch.empty_like(z)
     kernel.launch_many(docs, words, z, weights, n_dt, n_wt, n_t, noise, z_out,
                        alpha=float(alpha), beta=float(beta), beta_bar=float(beta_bar),
-                       scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
+                       scale=_scale(w_bits))
     resample_many.launches += 1
     return z_out
 

@@ -1,5 +1,5 @@
-"""The Hopper kernels (lda_gibbs, alias_mh, single-model and batched) on
-the card, against their plain versions.
+"""The Hopper kernels (lda_gibbs, alias_mh, single-model and batched, and the
+packed-table lda_gibbs entry) on the card, against their plain versions.
 
 Every test here needs a CUDA card (marker `cuda`) and skips without one;
 this file imports no JAX, so it runs on the card's machine:
@@ -324,3 +324,73 @@ def test_batched_sweeps_on_card_match_cpu_sweeps_on_the_same_noise(card, w_bits)
                 dev = (getattr(got_s, f).cpu().double() - getattr(want_s, f).double()).abs()
                 assert float(dev.max()) <= (1.0 if w_bits is not None else 1e-4), f
 
+
+
+# -- the packed-table entry (lda_gibbs_resample_quant) -------------------------
+
+
+def _quant_inputs(n, k, w_bits, bits, seed, device, d=60, v=300):
+    """Ids, z, weights, stored n_dt, the packed word table (codes, scales),
+    stored n_t and noise on `device`: `_inputs` with its word table packed."""
+    from repro_torch.core import quant
+
+    docs, words, z, weights, n_dt, n_wt, n_t, noise = _inputs(n, k, w_bits, seed, device,
+                                                              d=d, v=v)
+    real = n_wt.to(torch.float32) * (1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
+    codes, scales = quant.quantize_rows_torch(real, bits)
+    if bits == 4:
+        codes = quant.pack_nibbles_torch(codes)
+    return docs, words, z, weights, n_dt, codes.contiguous(), scales, n_t, noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [12, 33, 200])
+def test_quant_kernel_matches_plain_on_card(card, k, bits, w_bits):
+    args = _quant_inputs(4099, k, w_bits, bits, seed=k + bits, device=card)
+    hp = dict(HP, bits=bits, w_bits=w_bits)
+    before = ops.resample_quant.launches
+    got = ops.resample_quant(*args, **hp)
+    torch.cuda.synchronize()
+    assert ops.resample_quant.launches == before + 1
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    want = ops.resample_quant_plain(*args, **hp)
+    _assert_same_but_near_ties(got, want, ops.perturbed_scores_quant(*args, **hp))
+    frozen = args[3] == 0
+    assert torch.equal(got[frozen], args[2][frozen])
+
+
+@pytest.mark.cuda
+def test_quant_wrapper_refuses_what_the_kernel_does_not_take(card):
+    args = _quant_inputs(256, 12, 8, 8, seed=1, device=card)
+    with pytest.raises(ValueError, match="columns"):
+        ops.resample_quant(*args, bits=4, w_bits=8, **HP)
+    with pytest.raises(ValueError, match="codes is on cpu"):
+        ops.resample_quant(*args[:5], args[5].cpu(), *args[6:], bits=8, w_bits=8, **HP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int4_packed"])
+def test_packed_cuda_sweep_launches_the_quant_entry_and_matches_cpu(card, mode):
+    from repro_torch.core.quant import QuantSpec
+
+    rng = np.random.default_rng(4)
+    n, d, v, k = 5000, 80, 400, 12
+    cfg = types.LDAConfig(num_topics=k, vocab_size=v, num_docs=d, w_bits=8,
+                          quant=QuantSpec(mode, w_bits=8))
+    cpu = types.corpus_from_numpy(rng.integers(0, d, n), rng.integers(0, v, n),
+                                  rng.uniform(0.1, 1.0, n), device="cpu")
+    state = codec.rebuild_state(cfg, cpu, torch.as_tensor(rng.integers(0, k, n), dtype=torch.int32))
+    noise = torch.tensor(rng.gumbel(size=(n, k)).astype(np.float32))
+    want = ops.sweep(cfg, state, cpu, None, noise=noise)
+    before = (ops.resample.launches, ops.resample_quant.launches)
+    got = ops.sweep(cfg, state.to(card), cpu.to(card), None, noise=noise.to(card))
+    torch.cuda.synchronize()
+    assert (ops.resample.launches, ops.resample_quant.launches) == (before[0], before[1] + 1)
+    codes, scales = ops.pack_word_table(cfg, state.n_wt)
+    scores = ops.perturbed_scores_quant(cpu.docs, cpu.words, state.z, cpu.weights, state.n_dt,
+                                        codes, scales, state.n_t, noise, alpha=cfg.alpha,
+                                        beta=cfg.beta, beta_bar=cfg.beta_bar,
+                                        bits=cfg.quant_spec.bits, w_bits=8)
+    _assert_same_but_near_ties(got.z.cpu(), want.z, scores)

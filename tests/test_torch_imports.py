@@ -58,6 +58,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.batch, repro_torch.serving\n"
         "from repro_torch.serving import batch_engine, scheduler, topic_engine\n"
         "from repro_torch.serving import TopicEngine, WaveScheduler\n"
+        "import repro_torch.stream.sources, repro_torch.stream.router\n"
+        "import repro_torch.stream.scheduler, repro_torch.stream.snapshot\n"
+        "from repro_torch.stream import IncrementalScheduler, StreamRouter, restore_server\n"
+        "from repro_torch.core.quant import quantize_rows_torch, fake_quantize_rows\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

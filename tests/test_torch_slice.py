@@ -237,7 +237,11 @@ def test_backend_registry_aliases_and_routing():
         backends.get_backend("sparse")
     caps = backends.backend_capabilities("alias")
     assert caps.proposal_based and caps.device_kind == "gpu"
-    assert caps.quant_modes == ("f32", "fixed")
+    # The packed-table sweeps honor every mode, as the reference's do.
+    assert caps.quant_modes == ref_api.backend_capabilities("alias").quant_modes \
+        == ("f32", "fixed", "int8", "int4_packed")
+    assert backends.backend_capabilities("pallas").quant_modes \
+        == ref_api.backend_capabilities("pallas").quant_modes
     # The reference's routing order; names the port lacks fall to the oracle.
     assert backends.select_backend(num_tokens=10) == "torch"
     assert backends.select_backend(num_tokens=200_000) == "alias"
