@@ -65,10 +65,35 @@ Phases:
                  at 300 s and restored from its JSON snapshot; every acked
                  review must be applied; staleness, reviews/s, launches and
                  the device's share of a profiled 40 s window
+ 10. hybrid_serve
+                 the transformer zoo's serving path: the full zamba2-2.7b
+                 (54 Mamba2 layers, d_model 2560, weights from seed 0) through
+                 `Engine(cache_len=8192, max_batch=2)`: 2 x 4096-token prompts
+                 (the 4096-slot ring wraps at the first decode step), 2 x 512
+                 greedy and 1 x 512 at temperature 0.8, 32 new tokens each;
+                 launch counters zeroed before the run and read after (54
+                 chunk_scan launches a prefill wave, 9 decode_attn launches a
+                 decode step); prefill ms a wave, decode ms a step, tokens/s,
+                 peak memory, the device's share of a traced decode step and
+                 of a traced 2 x 4096 prefill; gates: finite logits and the
+                 full model's prefill/decode consistency below 2%
+ 11. hybrid_parity
+                 the card against the port on the CPU at full width and one
+                 group's depth (6 Mamba2 layers + the shared block): prefill
+                 logits and two teacher-forced decode steps within 4% of the
+                 logits' scale (bf16 on both sides)
 Phase 1 also holds both batched kernels against their plain versions over
 M in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 (x S
 in {2, 4} for alias_mh), and the packed-table entry over K in {12, 128,
-1000} x int8/int4 x stored n_dt f32/`w_bits` 8 at N = 65,536.
+1000} x int8/int4 x stored n_dt f32/`w_bits` 8 at N = 65,536; chunk_scan
+over both modes x float32/bf16 x s0 given/absent at Zamba2's prefill shape
+(B 2, S 4096, H 80, dk = dv = 64, chunk 32), RWKV6's (H 32, chunk 64), two
+ragged lengths and dk != dv; decode_attn at Zamba2's decode shape (B 2, a
+4096-slot ring, Hkv 32, hd 80) before, at and past the wrap, a qwen2-like
+GQA shape (Hkv 4, G 7, hd 128, 8192 long), a capped window, and hd in {32,
+64, 80, 128, 256} x G in {1, 2, 4, 7, 8}; each with its ms, plain ms, bound
+and (decode_attn) the masked `F.scaled_dot_product_attention` as
+`library_ms` (a yardstick the port never calls).
 
 Prints one JSON line per phase, then the kernels line, then
 `{"ok": true, "device": {...}}` as the last line. Any failure raises and
@@ -132,12 +157,15 @@ def phase_setup():
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.alias_mh import kernel as alias_kernel
+    from repro_torch.kernels.chunk_scan import kernel as scan_kernel
+    from repro_torch.kernels.decode_attn import kernel as attn_kernel
     from repro_torch.kernels.lda_gibbs import kernel as lda_kernel
 
     smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"]).splitlines()[0]
     print(smi, flush=True)
-    builds = {"lda_gibbs.resample": lda_kernel.build, "alias_mh.resample": alias_kernel.build}
+    builds = {"lda_gibbs.resample": lda_kernel.build, "alias_mh.resample": alias_kernel.build,
+              "chunk_scan": scan_kernel.build, "decode_attn": attn_kernel.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = {name: pool.submit(b) for name, b in builds.items()}
@@ -1678,6 +1706,417 @@ def phase_stream():
     return out
 
 
+# -- phase 1b: the transformer zoo's kernels ------------------------------------
+
+ZAMBA2_PREFILL = dict(b=2, s=4096, h=80, dk=64, dv=64)  # one Mamba2 layer's scan, 2 x 4096
+RWKV6_SCAN = dict(b=2, s=2048, h=32, dk=64, dv=64)  # rwkv6-1.6b's heads
+ZAMBA2_DECODE = dict(b=2, s=4096, hkv=32, g=1, hd=80)  # the shared block's ring cache
+
+
+def _scan_inputs(b, s, h, dk, dv, kdtype, seed, s0=True):
+    """chunk_scan's arguments on the card: w in float32 (as Mamba2 makes it),
+    k, q, v in `kdtype`, u (h, dk) and s0 (b, h, dk, dv) float32."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    w = torch.rand(b, s, h, dk, generator=gen, device=dev) * 0.4 + 0.6
+    k, v, q = (torch.randn(b, s, h, d, generator=gen, device=dev).mul_(0.3).to(kdtype)
+               for d in (dk, dv, dk))
+    u = torch.randn(h, dk, generator=gen, device=dev) * 0.1
+    st = torch.randn(b, h, dk, dv, generator=gen, device=dev) * 0.1 if s0 else None
+    return w, k, v, q, u, st
+
+
+def _scan_cost(b, s, h, dk, dv, chunk, itemsize, include_current, s0):
+    """(bytes, f32 operations, exps) the chunked scan needs: each input read
+    once, each output written once; per (b, h, chunk) the A entries the
+    mask keeps, the two state contractions and y's A @ v."""
+    moved = b * s * h * (4 * dk + itemsize * (2 * dk + 2 * dv)) + 4 * b * h * dk * dv * (1 + s0)
+    pairs = chunk * (chunk + 1) // 2 if include_current else chunk * (chunk - 1) // 2
+    per_chunk_exps = pairs * dk + 2 * chunk * dk + dk
+    per_chunk_ops = (4 * pairs * dk + (0 if include_current else 3 * chunk * dk)
+                     + 2 * chunk * dk * dv * 2 + 2 * chunk * (chunk + 1) // 2 * dv
+                     + 2 * dk * dv + 3 * chunk * dk + per_chunk_exps)
+    n = b * h * (s // chunk)
+    return moved, n * per_chunk_ops, n * per_chunk_exps
+
+
+def _bound(moved, ops_count):
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def compare_scan(args, *, include_current, chunk):
+    """Kernel vs plain on identical inputs: (max |dy|, max |dS|, within the
+    stated tolerance)."""
+    import torch
+
+    from repro_torch.kernels.chunk_scan import ops
+
+    kw = dict(include_current=include_current, chunk=chunk, s0=args[5])
+    y, st = ops.chunk_scan(*args[:5], **kw)
+    torch.cuda.synchronize()
+    y_p, st_p = ops.chunk_scan_plain(*args[:5], **kw)
+    dy = float((y.float() - y_p.float()).abs().max())
+    ds = float((st - st_p).abs().max())
+    if y.dtype == torch.bfloat16:  # the reference's bf16 tolerances
+        ok = (torch.allclose(y.float(), y_p.float(), atol=5e-2, rtol=5e-2)
+              and torch.allclose(st, st_p, atol=2e-2, rtol=2e-2))
+    else:  # float32: the state carries over many chunks, so 1e-4 past 1,000 tokens
+        tol = 3e-5 if args[1].shape[1] <= 1000 else 1e-4
+        ok = torch.allclose(y, y_p, atol=tol, rtol=tol) and torch.allclose(st, st_p, atol=tol,
+                                                                            rtol=tol)
+    return dy, ds, ok
+
+
+def scan_timing(shape, kdtype, *, include_current, chunk, reps=20, seed=0):
+    """The chunk_scan wrapper and its plain version on one call's inputs:
+    mean ms of each (CUDA events) and the bound from these inputs."""
+    import torch
+
+    from repro_torch.kernels.chunk_scan import ops
+
+    args = _scan_inputs(**shape, kdtype=kdtype, seed=seed, s0=not include_current)
+    kw = dict(include_current=include_current, chunk=chunk, s0=args[5])
+    u = None if include_current else args[4]
+    ms = cuda_ms(lambda: ops.chunk_scan(*args[:4], u, **kw), reps)
+    plain_ms = cuda_ms(lambda: ops.chunk_scan_plain(*args[:4], u, **kw), 3, warmup=1)
+    item = torch.tensor([], dtype=kdtype).element_size()
+    moved, ops_count, exps = _scan_cost(**shape, chunk=ops.chunk_len(shape["s"], chunk),
+                                        itemsize=item, include_current=include_current,
+                                        s0=not include_current)
+    bound_ms, bound_by = _bound(moved, ops_count)
+    return {"ms": ms, "plain_ms": plain_ms, "bytes": moved, "ops": ops_count, "exps": exps,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": (f"B={shape['b']} S={shape['s']} H={shape['h']} dk={shape['dk']} "
+                      f"dv={shape['dv']} chunk={chunk} k/q/v {str(kdtype)[6:]} w float32 "
+                      f"{'mamba2' if include_current else 'rwkv6'}")}
+
+
+def phase_chunk_scan_kernel():
+    import torch
+
+    cases = []
+    grid = [(ZAMBA2_PREFILL, True, 32), (RWKV6_SCAN, False, 64),
+            (dict(b=2, s=1000, h=4, dk=32, dv=64), True, 32),   # ragged: chunk 25
+            (dict(b=1, s=600, h=3, dk=64, dv=128), False, 64),  # ragged: chunk 60, dk != dv
+            (dict(b=3, s=96, h=2, dk=128, dv=64), True, 64)]
+    for shape, include_current, chunk in grid:
+        for kdtype in (torch.float32, torch.bfloat16):
+            for s0 in (True, False):
+                args = _scan_inputs(**shape, kdtype=kdtype, seed=len(cases), s0=s0)
+                dy, ds, ok = compare_scan(args, include_current=include_current, chunk=chunk)
+                cases.append({**shape, "chunk": chunk, "mode": "mamba2" if include_current
+                              else "rwkv6", "dtype": str(kdtype)[6:], "s0": s0,
+                              "max_abs_err_y": dy, "max_abs_err_state": ds, "ok": ok})
+    timing = scan_timing(ZAMBA2_PREFILL, torch.bfloat16, include_current=True, chunk=32)
+    timing_rwkv = scan_timing(RWKV6_SCAN, torch.bfloat16, include_current=False, chunk=64)
+    out = {"phase": "kernels", "kernels": ["chunk_scan"],
+           "failed": sum(not c["ok"] for c in cases),
+           "max_abs_err": max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in cases),
+           "kernel": timing, "kernel_rwkv6": timing_rwkv, "cases": cases}
+    emit(out)
+    if out["failed"]:
+        raise SystemExit(f"chunk_scan kernel disagrees with its plain version in "
+                         f"{out['failed']} cases")
+    return out
+
+
+def _attn_inputs(b, s, hkv, g, hd, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((b, hkv * g, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+
+
+def compare_attn(args, **kw):
+    import torch
+
+    from repro_torch.kernels.decode_attn import ops
+
+    out = ops.decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = ops.decode_attention_plain(*args, **kw)
+    err = float((out.float() - want.float()).abs().max())
+    if out.dtype == torch.bfloat16:
+        # Both sides round a float32 result to bf16 once, so they differ by at
+        # most one bf16 unit in the last place (2^-7 of the value): rtol 1e-2.
+        return err, torch.allclose(out.float(), want.float(), atol=1e-5, rtol=1e-2)
+    return err, torch.allclose(out, want, atol=2e-5, rtol=2e-5)
+
+
+def attn_timing(shape, dtype, reps=200, **kw):
+    """The decode_attn wrapper, its plain version and the masked
+    `F.scaled_dot_product_attention` (the yardstick: the port never calls
+    it) on one step's inputs: mean ms of each and the bound from the
+    positions this step reads."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import ops
+
+    q, k, v = _attn_inputs(**shape, dtype=dtype, seed=1)
+    b, s, hkv, hd = k.shape
+    valid = ops.valid_positions(s, device="cuda", **kw)
+    ms = cuda_ms(lambda: ops.decode_attention(q, k, v, **kw), reps)
+    plain_ms = cuda_ms(lambda: ops.decode_attention_plain(q, k, v, **kw), 20)
+    g = q.shape[1] // hkv
+    # SDPA on (B, Hq, 1, hd) against (B, Hq, S, hd) with the slot mask; GQA by
+    # repeating the kv heads (outside the timed call).
+    qs = q[:, :, None]
+    ks = k.permute(0, 2, 1, 3).repeat_interleave(g, 1).contiguous()
+    vs = v.permute(0, 2, 1, 3).repeat_interleave(g, 1).contiguous()
+    mask = valid[None, None, None, :]
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)[:, :, 0]
+    lib_err = float((lib_out.float() - ops.decode_attention_plain(q, k, v, **kw).float())
+                    .abs().max())
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+                         reps)
+    n_valid = int(valid.sum())
+    item = q.element_size()
+    moved = 2 * b * n_valid * hkv * hd * item + 2 * q.numel() * item
+    ops_count = b * hkv * g * n_valid * (4 * hd + 6)
+    bound_ms, bound_by = _bound(moved, ops_count)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err, "valid_positions": n_valid, "bytes": moved,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": (f"B={b} S={s} Hkv={hkv} G={g} hd={hd} {str(dtype)[6:]} "
+                      + " ".join(f"{k_}={v_}" for k_, v_ in kw.items()))}
+
+
+def phase_decode_attn_kernel():
+    import torch
+
+    z = ZAMBA2_DECODE
+    ring = dict(window=4096, ring=True)
+    grid = [(z, torch.bfloat16, dict(pos=p, length=p + 1, **ring))
+            for p in (1000, 4094, 4095, 4096, 5000)]  # before, at and past the wrap
+    grid += [(dict(b=2, s=8192, hkv=4, g=7, hd=128), dt, dict(pos=8191, length=8192))
+             for dt in (torch.bfloat16, torch.float32)]  # qwen2-like GQA, 8192 long
+    grid += [(dict(b=2, s=2048, hkv=8, g=2, hd=128), torch.float32,
+              dict(pos=2000, length=2001, window=1024, cap=50.0))]
+    grid += [(dict(b=2, s=1024, hkv=2, g=g, hd=hd), torch.float32,
+              dict(pos=900, length=901, cap=50.0 if g % 2 else 0.0))
+             for hd in (32, 64, 80, 128, 256) for g in (1, 2, 4, 7, 8)]
+    cases = []
+    for i, (shape, dtype, kw) in enumerate(grid):
+        err, ok = compare_attn(_attn_inputs(**shape, dtype=dtype, seed=i), **kw)
+        cases.append({**shape, "dtype": str(dtype)[6:], **kw, "max_abs_err": err, "ok": ok})
+    timing = attn_timing(z, torch.bfloat16, pos=4096, length=4097, **ring)
+    timing_gqa = attn_timing(dict(b=2, s=8192, hkv=4, g=7, hd=128), torch.bfloat16,
+                             pos=8191, length=8192)
+    out = {"phase": "kernels", "kernels": ["decode_attn"],
+           "failed": sum(not c["ok"] for c in cases),
+           "max_abs_err": max(c["max_abs_err"] for c in cases),
+           "kernel": timing, "kernel_gqa": timing_gqa, "cases": cases}
+    emit(out)
+    if out["failed"]:
+        raise SystemExit(f"decode_attn kernel disagrees with its plain version in "
+                         f"{out['failed']} cases")
+    return out
+
+
+# -- phase 10: the transformer serving path --------------------------------------
+
+SERVE = dict(cache_len=8192, max_batch=2, max_new=32, seed=0)
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _serve_requests(vocab):
+    """Two 4096-token prompts (the 4096-slot ring is full after prefill, so
+    the first decode step wraps it), two of 512, greedy, and one of 512 at
+    temperature 0.8: three waves."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(SERVE["seed"])
+    spec = [(4096, 0.0), (4096, 0.0), (512, 0.0), (512, 0.0), (512, 0.8)]
+    return [Request(uid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=SERVE["max_new"], temperature=t)
+            for i, (n, t) in enumerate(spec)]
+
+
+def phase_hybrid_serve():
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+    from repro_torch.kernels.decode_attn import ops as da_ops
+    from repro_torch.models import layers, params as plib
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    cfg = configs.get("zamba2-2.7b")
+    groups = cfg.num_layers // cfg.hybrid_attn_every
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, seed=SERVE["seed"], device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = Engine(cfg, params, cache_len=SERVE["cache_len"], max_batch=SERVE["max_batch"],
+                 seed=SERVE["seed"], device="cuda")
+    requests = _serve_requests(cfg.vocab_size)
+    for r in requests:
+        eng.submit(r)
+
+    # The main path: the counts are zeroed just before the run and read just after.
+    torch.cuda.reset_peak_memory_stats()
+    cs_ops.chunk_scan.launches = 0
+    da_ops.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"chunk_scan": cs_ops.chunk_scan.launches,
+                "decode_attn": da_ops.decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    waves = {}
+    for r in results:
+        req = requests[r.uid]
+        w = waves.setdefault(r.wave_id, {"batch": 0, "prompt": len(req.prompt),
+                                         "temperature": req.temperature,
+                                         "prefill_ms": r.prefill_s * 1e3,
+                                         "decode_s": r.decode_s})
+        w["batch"] += 1
+    steps = SERVE["max_new"] - 1  # decode steps a wave (the first token comes from prefill)
+    for w in waves.values():
+        w["decode_ms_per_step"] = w["decode_s"] * 1e3 / steps
+        w["decode_tokens_per_s"] = w["batch"] * SERVE["max_new"] / w.pop("decode_s")
+    total_steps = steps * len(waves)
+
+    # Gates on logits: prefill/decode consistency at full width (the
+    # reference's rel < 0.02), and finite logits at the 4096-token wrap.
+    tok = torch.tensor(np.append(requests[2].prompt, 7), dtype=torch.int32,
+                       device="cuda")[None]
+    with torch.inference_mode():
+        cache, pre_logits = M.prefill(params, cfg, {"tokens": tok[:, :512]}, 1024)
+        _, dec_logits = M.decode_step(params, cfg, cache, tok[:, 512], 512)
+        h, _ = M.forward_hidden(params, cfg, {"tokens": tok})
+        full = layers.logits_last(h[:, -1], M.unembed_table(params, cfg), cfg.final_softcap)
+        consistency = _rel(dec_logits, full)
+        long = torch.tensor(requests[0].prompt[None], device="cuda").repeat(2, 1)
+        # Where a 2 x 4096 prefill's device time goes (torch.profiler).
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cache, logits = M.prefill(params, cfg, {"tokens": long}, SERVE["cache_len"])
+            torch.cuda.synchronize()
+            prefill_traced_ms = (time.perf_counter() - t0) * 1e3
+        prefill_top, prefill_busy_ms = device_summary(prof, 1, unit="prefill")
+        finite = bool(torch.isfinite(pre_logits).all()) and bool(torch.isfinite(logits).all())
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+
+        # The device's share of a few decode steps past the wrap (torch.profiler).
+        for i in range(2):
+            cache, logits = M.decode_step(params, cfg, cache, nxt, 4096 + i)
+        finite = finite and bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        prof_steps = 4
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(prof_steps):
+                cache, logits = M.decode_step(params, cfg, cache, nxt, 4098 + i)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3 / prof_steps
+        top, busy_ms = device_summary(prof, prof_steps, unit="step")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(prof_steps):
+            cache, logits = M.decode_step(params, cfg, cache, nxt, 4102 + i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / prof_steps
+
+    out = {
+        "phase": "hybrid_serve", "arch": cfg.name, "params": plib.count_params(params),
+        "param_bytes": plib.tree_bytes(params), "init_s": round(init_s, 3),
+        "requests": len(requests), "waves": waves, "run_s": run_s,
+        "decode_tokens_per_s": sum(len(r.tokens) for r in results)
+        / sum({r.wave_id: r.decode_s for r in results}.values()),
+        "peak_mem_bytes": peak, "launches": launches,
+        "launches_expected": {"chunk_scan": cfg.num_layers * len(waves),
+                              "decode_attn": groups * total_steps},
+        "prefill_decode_rel": consistency, "finite_logits": finite,
+        "decode_step_ms_untraced": step_ms, "decode_step_ms_traced": traced_ms,
+        "device_busy_ms_per_step": busy_ms,
+        # The tracer slows the host, not the device: the share of an
+        # untraced step is the device's busy time over that step's time.
+        "device_busy_share": busy_ms / step_ms, "device_busy_share_traced": busy_ms / traced_ms,
+        "profile_top_device_ms": top,
+        "prefill_4096x2_ms_traced": prefill_traced_ms, "prefill_device_busy_ms": prefill_busy_ms,
+        "prefill_profile_top_device_ms": prefill_top,
+    }
+    emit(out)
+    if launches != out["launches_expected"]:
+        raise SystemExit(f"hybrid_serve launches {launches}, expected "
+                         f"{out['launches_expected']}")
+    if not finite or consistency >= 0.02:
+        raise SystemExit(f"hybrid_serve logits: finite={finite}, prefill/decode rel "
+                         f"{consistency} (limit 0.02)")
+    if len(results) != len(requests) or any(len(r.tokens) != SERVE["max_new"]
+                                            for r in results):
+        raise SystemExit("hybrid_serve: a request was not served in full")
+    return out
+
+
+def phase_hybrid_parity():
+    """The card (both kernels) against the port on the CPU (their plain
+    versions) at full width and one group's depth (6 Mamba2 layers and the
+    shared block): prefill logits and two teacher-forced decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(configs.get("zamba2-2.7b"), num_layers=6)
+    params = M.init_model(cfg, seed=1, device="cuda")
+    cpu = {}
+
+    def to_cpu(tree, out):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                to_cpu(v, out.setdefault(k, {}))
+            else:
+                out[k] = v.cpu()
+
+    to_cpu(params, cpu)
+    toks = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 18)),
+                        dtype=torch.int32)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        with torch.inference_mode():
+            cache, lg = M.prefill(params, cfg, {"tokens": toks[:, :16].cuda()}, 64)
+            t0 = time.perf_counter()
+            cache_c, lg_c = M.prefill(cpu, cfg, {"tokens": toks[:, :16]}, 64)
+            rels = [_rel(lg.cpu(), lg_c)]
+            for i in range(2):
+                cache, lg = M.decode_step(params, cfg, cache, toks[:, 16 + i].cuda(), 16 + i)
+                cache_c, lg_c = M.decode_step(cpu, cfg, cache_c, toks[:, 16 + i], 16 + i)
+                rels.append(_rel(lg.cpu(), lg_c))
+            cpu_s = time.perf_counter() - t0
+            state_rel = _rel(cache["S"].cpu(), cache_c["S"])
+    finally:
+        torch.set_num_threads(prev)
+    out = {"phase": "hybrid_parity", "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "prompt": 16, "logits_rel": rels, "state_rel": state_rel,
+           "cpu_side_s": round(cpu_s, 3), "limit": 0.04}
+    emit(out)
+    if max(rels) >= 0.04 or state_rel >= 0.04:
+        raise SystemExit(f"hybrid_parity: card vs CPU logits rel {rels}, state {state_rel}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1691,6 +2130,8 @@ def main() -> int:
     alias_kern = phase_alias_kernel()
     batched_kern = phase_batched_kernels()
     quant_kern = phase_quant_kernel()
+    scan_kern = phase_chunk_scan_kernel()
+    attn_kern = phase_decode_attn_kernel()
     main_out, handle = phase_main_path("jnp")
     # The main path's own shape: one 4096-token block against its tables.
     # The torch backend hands the kernel real-unit (decoded) float32 tables.
@@ -1726,6 +2167,8 @@ def main() -> int:
     packed, quant_launches = phase_packed()
     phase_packed_case_study()
     phase_stream()
+    serve = phase_hybrid_serve()
+    phase_hybrid_parity()
     t = scale["kernel"]
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"]]
     if block_timing["mismatch"]:
@@ -1790,7 +2233,22 @@ def main() -> int:
         "bound_by": q["bound_by"],
         "library_ms": None,
         "shape": q["shape"],
-    } for q in (packed["kernel"]["int8"],)]})
+    } for q in (packed["kernel"]["int8"],)] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": serve["launches"][name],
+        "max_abs_err": kern["max_abs_err"],
+        "ms": kern["kernel"]["ms"],
+        "plain_ms": kern["kernel"]["plain_ms"],
+        "bound_ms": kern["kernel"]["bound_ms"],
+        "bound_by": kern["kernel"]["bound_by"],
+        "library_ms": kern["kernel"]["library_ms"],
+        "shape": kern["kernel"]["shape"],
+    } for name, replaces, kern in (
+        ("chunk_scan", "src/repro/kernels/chunk_scan/kernel.py:105", scan_kern),
+        ("decode_attn", "src/repro/kernels/decode_attn/kernel.py:99", attn_kern))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -6,5 +6,8 @@
 #
 #   lda_gibbs    fused collapsed-Gibbs score + Gumbel-max resample
 #   alias_mh     AliasLDA stale alias-table proposals + S Metropolis-Hastings rounds
+#   chunk_scan   chunked diagonal-decay recurrence (Mamba2 / RWKV6 prefill)
+#   decode_attn  one-token GQA flash-decode over a (ring) KV cache
 #
-# each with a single-model entry and a batched one over M stacked models.
+# lda_gibbs and alias_mh each have a single-model entry and a batched one
+# over M stacked models.

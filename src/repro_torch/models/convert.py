@@ -1,0 +1,52 @@
+"""Carry weights and caches between the reference package and the port.
+
+Arrays cross as numpy: the reference's trees (`jax.tree.map(np.asarray,
+...)` of `repro.models.model.init_model` / `prefill` outputs) become the
+port's trees of tensors with the same keys, shapes and types (bf16 stays
+bf16, float32 stays float32), and back. numpy has no bfloat16 of its own
+(the reference's arrays use `ml_dtypes.bfloat16`), so a bf16 array goes
+through float32, which holds every bf16 value exactly; `cache_to_numpy`
+returns float32 arrays for bf16 tensors for the same reason.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(dev).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_reference(tree, *, device: DeviceLike = None) -> dict:
+    """The reference's parameter tree (numpy leaves) as the port's."""
+    dev = resolve_device(device)
+    return _tree(tree, lambda a: _tensor(a, dev))
+
+
+def cache_from_reference(cache, *, device: DeviceLike = None) -> dict:
+    """The reference's decode cache (numpy leaves) as the port's."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev) for k, v in cache.items()}
+
+
+def cache_to_numpy(cache) -> dict:
+    """The port's cache (or parameter) tree as numpy copies: float32 for
+    bf16 tensors (exact), the tensor's own type otherwise. Copies, because
+    `decode_step` updates a cache's tensors in place."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    return _tree(cache, conv)

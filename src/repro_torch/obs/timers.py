@@ -24,7 +24,12 @@ import torch
 from repro_torch.obs import config
 from repro_torch.obs.metrics import Histogram
 
-__all__ = ["DeviceTimer"]
+__all__ = ["now", "DeviceTimer"]
+
+
+def now() -> float:
+    """Monotonic seconds (`perf_counter`); only differences are meaningful."""
+    return time.perf_counter()
 
 
 def _tensors(value):

@@ -1,18 +1,22 @@
-"""Serving: wave scheduling and the batched multi-product topic engine.
+"""Serving: wave scheduling, the topic-model engines and the transformer engine.
 
   scheduler     `WaveScheduler`: submit / bucket / drain in bounded waves
   batch_engine  buckets compatible models and runs each bucket as one
                 stacked sampler run (`core.batch`, the batched kernels)
   topic_engine  `TopicEngine`: fit-and-view serving of many products over
                 the wire, a compatible wave in one `fit_batch` call
-
-The reference's transformer `Engine` is not ported yet.
+  engine        `Engine`: the transformer zoo's batched prefill + decode
+                (the hybrid family, `zamba2-2.7b`)
 """
 
 from repro_torch.serving.scheduler import WaveScheduler  # noqa: F401
 
 
-def __getattr__(name):  # lazy: TopicEngine pulls in the repro_torch.api layer
+def __getattr__(name):  # lazy: the engines pull in the model and api layers
+    if name in ("Engine", "Request", "Result"):
+        from repro_torch.serving import engine
+
+        return getattr(engine, name)
     if name in ("TopicEngine", "TopicResult"):
         from repro_torch.serving import topic_engine
 

@@ -4,8 +4,9 @@ Serving engines share one loop — submit requests, bucket them by a
 compatibility key, drain each bucket in bounded waves (the reference's
 `repro.serving.scheduler`). The topic-model `serving.TopicEngine` buckets
 by the full fit parameterization, so a wave of product fits can share one
-batched `fit_batch` call; the transformer `Engine` of the reference is not
-ported yet.
+batched `fit_batch` call; the transformer `serving.Engine` buckets by
+(prompt length, temperature), so a wave shares one position and one
+sampling temperature.
 
 Subclasses implement `bucket_key(request)` and `_run_wave(wave)`; everything
 about queueing and wave formation lives here.

@@ -1,0 +1,203 @@
+"""The chunk_scan kernel's plain version and the Mamba2 mixer vs the JAX reference.
+
+The reference side runs as its own tests run it on the CPU: the Pallas
+kernel `chunk_scan_pallas` in interpret mode (through
+`repro.kernels.chunk_scan.ops`) and the sequential oracle
+`chunk_scan_reference`. Inputs are made with numpy from a seed and handed
+to both sides.
+
+Tolerance: float32 within 3e-5 (the reference's own); bf16 inputs with y
+within 5e-2 and the state within 2e-2 (the reference's bf16 tolerances).
+The Mamba2 mixer on carried-across weights runs bf16 activations on both
+sides, and PyTorch's `silu` rounds once where XLA's rounds each of its four
+bf16 steps, so its outputs differ by a bf16 ulp or two: measured worst 0.7%
+of the output's scale for y and 0.5% for the float32 state; bounded at 2%.
+
+The Hopper kernel itself runs only on the card (`test_torch_cuda.py`);
+here the wrapper takes the plain version because the tensors lie on the
+CPU.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.chunk_scan import ops as ref_ops  # noqa: E402
+from repro.models import ssm as ref_ssm  # noqa: E402
+from repro_torch.kernels.chunk_scan import ops  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _inputs(seed, b, s, h, dk, dv):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.6, 1.0, (b, s, h, dk)).astype(np.float32),
+            (rng.standard_normal((b, s, h, dk)) * 0.3).astype(np.float32),
+            (rng.standard_normal((b, s, h, dv)) * 0.3).astype(np.float32),
+            (rng.standard_normal((b, s, h, dk)) * 0.3).astype(np.float32),
+            (rng.standard_normal((h, dk)) * 0.1).astype(np.float32),
+            (rng.standard_normal((b, h, dk, dv)) * 0.1).astype(np.float32))
+
+
+def _jax(arrays, dtype):
+    w, k, v, q, u, s0 = arrays
+    return (*(jnp.asarray(x, dtype) for x in (w, k, v, q)), jnp.asarray(u), jnp.asarray(s0))
+
+
+def _torch(arrays, dtype):
+    w, k, v, q, u, s0 = arrays
+    return (*(torch.tensor(x).to(dtype) for x in (w, k, v, q)), torch.tensor(u),
+            torch.tensor(s0))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv", [
+    (2, 128, 2, 64, 64), (1, 256, 4, 32, 32), (2, 64, 1, 128, 64), (3, 96, 2, 64, 128),
+])
+@pytest.mark.parametrize("include_current", [False, True])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_plain_matches_pallas_kernel_and_oracle(b, s, h, dk, dv, include_current, chunk):
+    arrays = _inputs(b * s + dk, b, s, h, dk, dv)
+    w, k, v, q, u, s0 = _jax(arrays, jnp.float32)
+    uu = None if include_current else u
+    y_k, S_k = ref_ops.chunk_scan(w, k, v, q, uu, include_current=include_current,
+                                  chunk=chunk, s0=s0)
+    tw, tk, tv, tq, tu, ts0 = _torch(arrays, torch.float32)
+    y, S = ops.chunk_scan(tw, tk, tv, tq, None if include_current else tu,
+                          include_current=include_current, chunk=chunk, s0=ts0)
+    assert y.dtype == torch.float32 and S.dtype == torch.float32
+    assert ops.chunk_scan.launches == 0  # CPU tensors never launch the kernel
+    _close(y, y_k, 3e-5)
+    _close(S, S_k, 3e-5)
+    if chunk == 32:  # the oracle once per shape and mode
+        y_r, S_r = ref_ssm.chunk_scan_reference(w, k, v, q, uu,
+                                                include_current=include_current, s0=s0)
+        _close(y, y_r, 3e-5)
+        _close(S, S_r, 3e-5)
+
+
+@pytest.mark.parametrize("include_current", [False, True])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_ragged_length_runs_at_the_largest_divisor(include_current, with_s0):
+    arrays = _inputs(7, 2, 100, 2, 32, 48)  # 100 tokens at chunk 32 -> chunk 25
+    assert ops.chunk_len(100, 32) == 25 and ops.chunk_len(128, 32) == 32
+    w, k, v, q, u, s0 = _jax(arrays, jnp.float32)
+    s0 = s0 if with_s0 else None
+    y_k, S_k = ref_ops.chunk_scan(w, k, v, q, u, include_current=include_current,
+                                  chunk=32, s0=s0)
+    tw, tk, tv, tq, tu, ts0 = _torch(arrays, torch.float32)
+    y, S = ops.chunk_scan(tw, tk, tv, tq, tu, include_current=include_current, chunk=32,
+                          s0=ts0 if with_s0 else None)
+    _close(y, y_k, 3e-5)
+    _close(S, S_k, 3e-5)
+
+
+@pytest.mark.parametrize("include_current", [False, True])
+def test_bf16_inputs(include_current):
+    arrays = _inputs(0, 2, 64, 2, 64, 64)
+    w, k, v, q, u, s0 = _jax(arrays, jnp.bfloat16)
+    uu = None if include_current else u
+    y_k, S_k = ref_ops.chunk_scan(w, k, v, q, uu, include_current=include_current,
+                                  chunk=32, s0=s0)
+    y_r, S_r = ref_ssm.chunk_scan_reference(w, k, v, q, uu,
+                                            include_current=include_current, s0=s0)
+    tw, tk, tv, tq, tu, ts0 = _torch(arrays, torch.bfloat16)
+    y, S = ops.chunk_scan(tw, tk, tv, tq, tu, include_current=include_current, chunk=32,
+                          s0=ts0)
+    assert y.dtype == torch.bfloat16 and S.dtype == torch.float32
+    for want_y, want_S in ((y_k, S_k), (y_r, S_r)):
+        _close(y, want_y, 5e-2)
+        _close(S, want_S, 2e-2)
+
+
+@pytest.mark.parametrize("include_current", [False, True])
+def test_system_chunk_scan_and_oracle_match_the_reference(include_current):
+    """The port's `ssm.chunk_scan` against its own sequential oracle and the
+    reference's, and `recurrence_step` token by token against both."""
+    arrays = _inputs(1, 2, 96, 3, 32, 64)
+    w, k, v, q, u, s0 = _jax(arrays, jnp.float32)
+    uu = None if include_current else u
+    y_r, S_r = ref_ssm.chunk_scan_reference(w, k, v, q, uu,
+                                            include_current=include_current, s0=s0)
+    tw, tk, tv, tq, tu, ts0 = _torch(arrays, torch.float32)
+    tuu = None if include_current else tu
+    y_c, S_c = ssm.chunk_scan(tw, tk, tv, tq, tuu, include_current=include_current,
+                              chunk=24, s0=ts0)
+    y_o, S_o = ssm.chunk_scan_reference(tw, tk, tv, tq, tuu,
+                                        include_current=include_current, s0=ts0)
+    for y, S in ((y_c, S_c), (y_o, S_o)):
+        _close(y, y_r, 3e-5)
+        _close(S, S_r, 3e-5)
+    S, ys = ts0, []
+    for t in range(16):
+        S, y = ssm.recurrence_step(S, tw[:, t], tk[:, t], tv[:, t], tq[:, t], tu,
+                                   include_current=include_current)
+        ys.append(y)
+    y16, S16 = ssm.chunk_scan_reference(tw[:, :16], tk[:, :16], tv[:, :16], tq[:, :16],
+                                        tuu, include_current=include_current, s0=ts0)
+    _close(torch.stack(ys, 1), y16.numpy(), 1e-5)
+    _close(S, S16.numpy(), 1e-5)
+
+
+# -- the Mamba2 mixer on carried-across weights ------------------------------
+
+
+@pytest.fixture(scope="module")
+def mamba_layer():
+    from repro import configs as ref_configs
+    from repro.models import model as ref_model
+    from repro_torch import configs
+    from repro_torch.models import convert
+
+    cfg_r = ref_configs.get("zamba2-2.7b").reduced()
+    cfg = configs.get("zamba2-2.7b").reduced()
+    params = ref_model.init_model(cfg_r, jax.random.PRNGKey(0))
+    p_r = jax.tree.map(lambda a: a[0, 1], params["blk"])
+    p = convert.params_from_reference(jax.tree.map(np.asarray, p_r), device="cpu")
+    x = np.random.default_rng(3).standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    return cfg_r, cfg, p_r, p, x
+
+
+def _scaled_close(got, want, frac):
+    want = np.asarray(want, np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= frac * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def test_mamba2_mix_matches_the_reference(mamba_layer):
+    cfg_r, cfg, p_r, p, x = mamba_layer
+    y_r, (S_r, c_r) = ref_ssm.mamba2_mix(p_r, jnp.asarray(x, jnp.bfloat16), None, None, cfg_r)
+    y, (S, c) = ssm.mamba2_mix(p, torch.tensor(x).bfloat16(), None, None, cfg)
+    assert y.dtype == torch.bfloat16 and S.dtype == torch.float32 and c.dtype == torch.bfloat16
+    assert S.shape == (2, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+    _scaled_close(y, y_r, 2e-2)
+    _scaled_close(S, S_r, 2e-2)
+    _scaled_close(c, c_r, 1e-2)
+
+
+def test_mamba2_mix_step_matches_the_reference(mamba_layer):
+    cfg_r, cfg, p_r, p, x = mamba_layer
+    _, (S_r, c_r) = ref_ssm.mamba2_mix(p_r, jnp.asarray(x[:, :32], jnp.bfloat16), None, None,
+                                       cfg_r)
+    S, c = torch.tensor(np.asarray(S_r)), torch.tensor(np.asarray(c_r, np.float32)).bfloat16()
+    x1 = x[:, 32:33]
+    y_r, (S1_r, c1_r) = ref_ssm.mamba2_mix_step(p_r, jnp.asarray(x1, jnp.bfloat16), S_r, c_r,
+                                                cfg_r)
+    y, (S1, c1) = ssm.mamba2_mix_step(p, torch.tensor(x1).bfloat16(), S, c, cfg)
+    _scaled_close(y, y_r, 2e-2)
+    _scaled_close(S1, S1_r, 2e-2)
+    _scaled_close(c1, c1_r, 1e-2)

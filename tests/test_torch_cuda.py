@@ -1,5 +1,6 @@
-"""The Hopper kernels (lda_gibbs, alias_mh, single-model and batched, and the
-packed-table lda_gibbs entry) on the card, against their plain versions.
+"""The Hopper kernels (lda_gibbs, alias_mh, single-model and batched, the
+packed-table lda_gibbs entry, chunk_scan and decode_attn) on the card,
+against their plain versions.
 
 Every test here needs a CUDA card (marker `cuda`) and skips without one;
 this file imports no JAX, so it runs on the card's machine:
@@ -11,7 +12,13 @@ except near-ties, where CUDA's `logf` and PyTorch's `log` could differ by
 an ulp: a top-2 margin of score + noise below 1e-5 for lda_gibbs, an
 accept margin |log u - log a| below 1e-5 in some round for alias_mh.
 A batched launch equals the single-model launches on each model's own
-rows exactly: both entries run the same kernel body.
+rows exactly: both entries run the same kernel body. chunk_scan and
+decode_attn sum in other orders than their plain versions: float32 within
+3e-5 (chunk_scan, the reference's own tolerance; 1e-4 past 1,000 tokens,
+where 64 chunks of state carry) and 2e-5 (decode_attn); bf16 outputs within
+the reference's bf16 tolerances (5e-2 for y, 2e-2 for the state); bf16
+attention within one bf16 ulp (atol 1e-5, rtol 1e-2), since both sides
+round one float32 result.
 """
 
 import numpy as np
@@ -394,3 +401,203 @@ def test_packed_cuda_sweep_launches_the_quant_entry_and_matches_cpu(card, mode):
                                         beta=cfg.beta, beta_bar=cfg.beta_bar,
                                         bits=cfg.quant_spec.bits, w_bits=8)
     _assert_same_but_near_ties(got.z.cpu(), want.z, scores)
+
+
+# -- chunk_scan ------------------------------------------------------------
+
+
+def _scan_inputs(b, s, h, dk, dv, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.uniform(0.6, 1.0, (b, s, h, dk)), rng.standard_normal((b, s, h, dk)) * 0.3,
+              rng.standard_normal((b, s, h, dv)) * 0.3, rng.standard_normal((b, s, h, dk)) * 0.3)
+    w, k, v, q = (torch.tensor(a.astype(np.float32), device=device).to(dtype) for a in arrays)
+    u = torch.tensor((rng.standard_normal((h, dk)) * 0.1).astype(np.float32), device=device)
+    s0 = torch.tensor((rng.standard_normal((b, h, dk, dv)) * 0.1).astype(np.float32),
+                      device=device)
+    return w, k, v, q, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
+    (2, 128, 2, 64, 64, 16), (1, 256, 4, 32, 32, 64), (2, 64, 1, 128, 64, 64),
+    (3, 96, 2, 64, 128, 64), (2, 100, 3, 64, 64, 32), (1, 2048, 8, 64, 64, 32),
+])
+@pytest.mark.parametrize("include_current", [True, False])
+@pytest.mark.parametrize("with_s0", [True, False])
+def test_chunk_scan_kernel_matches_plain_on_card(card, b, s, h, dk, dv, chunk,
+                                                 include_current, with_s0):
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+
+    w, k, v, q, u, s0 = _scan_inputs(b, s, h, dk, dv, torch.float32, s + dk, card)
+    s0 = s0 if with_s0 else None
+    kw = dict(include_current=include_current, chunk=chunk, s0=s0)
+    before = cs_ops.chunk_scan.launches
+    y, st = cs_ops.chunk_scan(w, k, v, q, u, **kw)
+    torch.cuda.synchronize()
+    assert cs_ops.chunk_scan.launches == before + 1
+    y_p, st_p = cs_ops.chunk_scan_plain(w, k, v, q, u, **kw)
+    tol = 3e-5 if s <= 1000 else 1e-4
+    torch.testing.assert_close(y, y_p, atol=tol, rtol=tol)
+    torch.testing.assert_close(st, st_p, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("include_current", [True, False])
+def test_chunk_scan_kernel_bf16_on_card(card, include_current):
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+
+    w, k, v, q, u, s0 = _scan_inputs(2, 128, 4, 64, 64, torch.bfloat16, 7, card)
+    kw = dict(include_current=include_current, chunk=32, s0=s0)
+    y, st = cs_ops.chunk_scan(w, k, v, q, u, **kw)
+    y_p, st_p = cs_ops.chunk_scan_plain(w, k, v, q, u, **kw)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_p.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(st, st_p, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_chunk_scan_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+
+    w, k, v, q, u, s0 = _scan_inputs(1, 64, 2, 32, 32, torch.float32, 1, card)
+    kw = dict(include_current=True, chunk=32)
+    with pytest.raises(ValueError, match="k is on cpu"):
+        cs_ops.chunk_scan(w, k.cpu(), v, q, u, **kw)
+    with pytest.raises(ValueError, match="share one type"):
+        cs_ops.chunk_scan(w, k.half(), v.half(), q.half(), u, **kw)
+    with pytest.raises(ValueError, match="share one type"):
+        cs_ops.chunk_scan(w, k.bfloat16(), v, q, u, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cs_ops.chunk_scan(w, k.transpose(1, 2).contiguous().transpose(1, 2), v, q, u, **kw)
+    with pytest.raises(ValueError, match="chunk must be"):
+        cs_ops.chunk_scan(w, k, v, q, u, include_current=True, chunk=128)
+    with pytest.raises(ValueError, match="s0 must be"):
+        cs_ops.chunk_scan(w, k, v, q, u, include_current=True, chunk=32, s0=s0.bfloat16())
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _scan_inputs(1, 64, 1, 256, 256, torch.float32, 2, card)
+        cs_ops.chunk_scan(*big[:5], include_current=True, chunk=64)
+
+
+# -- decode_attn -----------------------------------------------------------
+
+
+def _attn_inputs(b, s, hkv, g, hd, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                              device=device).to(dtype)
+                 for shape in ((b, hkv * g, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hkv,g,hd", [
+    (2, 256, 2, 4, 64), (1, 128, 4, 1, 32), (2, 512, 1, 8, 128), (3, 64, 2, 2, 256),
+    (2, 300, 4, 7, 128), (2, 512, 8, 1, 80), (1, 100, 2, 2, 16),
+])
+@pytest.mark.parametrize("cap,window", [(0.0, 0), (50.0, 0), (50.0, 40)])
+def test_decode_attn_kernel_matches_plain_on_card(card, b, s, hkv, g, hd, cap, window):
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q, k, v = _attn_inputs(b, s, hkv, g, hd, torch.float32, b + s + hd, card)
+    kw = dict(length=s - 7, pos=s - 8, window=window, cap=cap)
+    before = da_ops.decode_attention.launches
+    out = da_ops.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 1
+    torch.testing.assert_close(out, da_ops.decode_attention_plain(q, k, v, **kw),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos,length", [(40, 41), (63, 64), (64, 65), (100, 101),
+                                        (200, 201)])
+@pytest.mark.parametrize("g,hd", [(2, 32), (1, 80)])
+def test_decode_attn_kernel_ring_matches_plain_on_card(card, pos, length, g, hd):
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q, k, v = _attn_inputs(2, 64, 2, g, hd, torch.float32, pos, card)
+    kw = dict(length=length, pos=pos, window=64, ring=True)
+    torch.testing.assert_close(da_ops.decode_attention(q, k, v, **kw),
+                               da_ops.decode_attention_plain(q, k, v, **kw),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_decode_attn_kernel_bf16_on_card(card):
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q, k, v = _attn_inputs(2, 4096, 32, 1, 80, torch.bfloat16, 5, card)
+    kw = dict(length=4097, pos=4096, window=4096, ring=True)
+    out = da_ops.decode_attention(q, k, v, **kw)
+    assert out.dtype == torch.bfloat16
+    # Both sides round a float32 result to bf16 once: they differ by at most one
+    # bf16 unit in the last place (2^-7 of the value), which rtol 1e-2 covers.
+    torch.testing.assert_close(out.float(), da_ops.decode_attention_plain(q, k, v, **kw).float(),
+                               atol=1e-5, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_decode_attn_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q, k, v = _attn_inputs(1, 64, 2, 2, 32, torch.float32, 1, card)
+    kw = dict(length=10, pos=9)
+    with pytest.raises(ValueError, match="k_cache is on cpu"):
+        da_ops.decode_attention(q, k.cpu(), v, **kw)
+    with pytest.raises(ValueError, match="share one type"):
+        da_ops.decode_attention(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(ValueError, match="share one type"):
+        da_ops.decode_attention(q, k.bfloat16(), v.bfloat16(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        da_ops.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, **kw)
+    with pytest.raises(ValueError, match="G <= 8"):
+        q9, k9, v9 = _attn_inputs(1, 64, 1, 9, 32, torch.float32, 2, card)
+        da_ops.decode_attention(q9, k9, v9, **kw)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        qb, kb, vb = _attn_inputs(1, 16, 1, 1, 320, torch.float32, 3, card)
+        da_ops.decode_attention(qb, kb, vb, **kw)
+    for bad in (dict(length=0, pos=0), dict(length=0, pos=5, ring=True),
+                dict(length=10, pos=40, window=8)):
+        with pytest.raises(ValueError, match="no cache slot is valid"):
+            da_ops.decode_attention(q, k, v, **bad)
+
+
+# -- the hybrid serving path -------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_hybrid_prefill_and_decode_on_card_match_the_cpu(card):
+    """The reduced Zamba2 on the card (both kernels) against the port on the
+    CPU (their plain versions): same weights, same tokens."""
+    from repro_torch import configs
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+    from repro_torch.kernels.decode_attn import ops as da_ops
+    from repro_torch.models import model as M
+
+    cfg = configs.get("zamba2-2.7b").reduced()
+    params = M.init_model(cfg, seed=0, device=card)
+    cpu_params = _to(params, "cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 66)).astype(np.int32))
+    before = (cs_ops.chunk_scan.launches, da_ops.decode_attention.launches)
+    cache, logits = M.prefill(params, cfg, {"tokens": toks[:, :62].to(card)}, 64)
+    cache_c, logits_c = M.prefill(cpu_params, cfg, {"tokens": toks[:, :62]}, 64)
+    rels = [_rel(logits, logits_c)]
+    for i in range(3):  # the third step wraps the 64-slot ring
+        cache, logits = M.decode_step(params, cfg, cache, toks[:, 62 + i].to(card), 62 + i)
+        cache_c, logits_c = M.decode_step(cpu_params, cfg, cache_c, toks[:, 62 + i], 62 + i)
+        rels.append(_rel(logits, logits_c))
+    torch.cuda.synchronize()
+    assert (cs_ops.chunk_scan.launches, da_ops.decode_attention.launches) == (
+        before[0] + cfg.num_layers, before[1] + 3 * cfg.num_layers // cfg.hybrid_attn_every)
+    assert max(rels) < 0.04, rels
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _rel(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / b.abs().max())

@@ -1,0 +1,143 @@
+"""The decode_attn kernel's plain version and `flash_attention` vs the JAX reference.
+
+The reference side runs as its own tests run it on the CPU: the Pallas
+kernel `decode_attention_pallas` in interpret mode (through
+`repro.kernels.decode_attn.ops`) and the jnp oracle
+`repro.models.attention.decode_attention`; `flash_attention` (the
+"masked" strategy) against the reference's, which is jnp in both
+packages. Inputs are made with numpy from a seed and handed to both sides.
+
+Tolerance: float32 within 2e-5 (the reference's own); a bf16 cache within
+3e-2 (the reference's bf16 tolerance).
+
+The Hopper kernel itself runs only on the card (`test_torch_cuda.py`);
+here the wrapper takes the plain version because the tensors lie on the
+CPU.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attn import ops as ref_ops  # noqa: E402
+from repro.models import attention as ref_attention  # noqa: E402
+from repro_torch.kernels.decode_attn import ops  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _case(seed, b, s, hkv, g, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, hkv * g, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+
+
+def _both(arrays, jdtype, tdtype):
+    return (tuple(jnp.asarray(a, jdtype) for a in arrays),
+            tuple(torch.tensor(a).to(tdtype) for a in arrays))
+
+
+def _check(arrays, tol=2e-5, kv_block=64, jdtype=jnp.float32, tdtype=torch.float32, **kw):
+    (q, k, v), (tq, tk, tv) = _both(arrays, jdtype, tdtype)
+    got = ops.decode_attention(tq, tk, tv, **kw)
+    assert got.dtype == tdtype and ops.decode_attention.launches == 0
+    for want in (ref_ops.decode_attention(q, k, v, kv_block=kv_block, **kw),
+                 ref_attention.decode_attention(q, k, v, **kw)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+    return got
+
+
+@pytest.mark.parametrize("b,s,hkv,g,hd", [
+    (2, 256, 2, 4, 64), (1, 128, 4, 1, 32), (2, 512, 1, 8, 128), (3, 64, 2, 2, 256),
+])
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+def test_full_cache(b, s, hkv, g, hd, cap):
+    _check(_case(b + s, b, s, hkv, g, hd), length=s - 7, pos=s - 8, cap=cap)
+
+
+@pytest.mark.parametrize("window", [16, 64])
+def test_sliding_window(window):
+    _check(_case(0, 2, 128, 2, 2, 64), length=100, pos=99, window=window, kv_block=32)
+
+
+@pytest.mark.parametrize("pos,length", [(40, 41), (63, 64), (100, 101), (200, 201)])
+def test_ring_buffer(pos, length):
+    """Ring cache of size 64 at the reference tests' wrap positions."""
+    _check(_case(pos, 2, 64, 2, 2, 32), length=length, pos=pos, window=64, ring=True,
+           kv_block=32)
+
+
+@pytest.mark.parametrize("g,hd", [(7, 128), (1, 80)])
+def test_the_path_head_widths(g, hd):
+    """qwen2-like GQA (G = 7, hd = 128) and Zamba2's MHA at hd = 80, the
+    latter on a ring with a cap."""
+    _check(_case(g, 2, 96, 2, g, hd), length=60, pos=59, kv_block=32)
+    _check(_case(hd, 2, 64, 2, g, hd), length=131, pos=130, window=64, ring=True,
+           cap=50.0, kv_block=32)
+
+
+def test_bf16_cache():
+    _check(_case(5, 2, 128, 2, 4, 64), tol=3e-2, jdtype=jnp.bfloat16,
+           tdtype=torch.bfloat16, length=128, pos=127)
+
+
+def test_attention_module_decode_is_the_plain_version():
+    arrays = _case(9, 2, 64, 2, 2, 32)
+    tq, tk, tv = (torch.tensor(a) for a in arrays)
+    kw = dict(length=50, pos=49, window=16)
+    assert torch.equal(attention.decode_attention(tq, tk, tv, **kw),
+                       ops.decode_attention_plain(tq, tk, tv, **kw))
+
+
+@pytest.mark.parametrize("sq,skv,window,cap,q_block,kv_block", [
+    (96, 96, 0, 0.0, 32, 64),      # causal, padded kv tiles
+    (100, 100, 24, 0.0, 32, 32),   # windowed, padded q and kv tiles
+    (64, 64, 0, 30.0, 512, 1024),  # one tile, soft cap
+])
+@pytest.mark.parametrize("g", [1, 2])
+def test_flash_attention_matches_the_reference(sq, skv, window, cap, q_block, kv_block, g):
+    rng = np.random.default_rng(sq + g)
+    arrays = tuple(rng.standard_normal(shape).astype(np.float32)
+                   for shape in ((2, sq, 2 * g, 32), (2, skv, 2, 32), (2, skv, 2, 32)))
+    kw = dict(causal=True, window=window, cap=cap, q_block=q_block, kv_block=kv_block)
+    (q, k, v), (tq, tk, tv) = _both(arrays, jnp.float32, torch.float32)
+    want = np.asarray(ref_attention.flash_attention(q, k, v, **kw))
+    got = attention.flash_attention(tq, tk, tv, **kw)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_bf16():
+    rng = np.random.default_rng(11)
+    arrays = tuple(rng.standard_normal(shape).astype(np.float32)
+                   for shape in ((1, 80, 4, 32), (1, 80, 4, 32), (1, 80, 4, 32)))
+    (q, k, v), (tq, tk, tv) = _both(arrays, jnp.bfloat16, torch.bfloat16)
+    want = np.asarray(ref_attention.flash_attention(q, k, v, window=32, q_block=32,
+                                                    kv_block=32), np.float32)
+    got = attention.flash_attention(tq, tk, tv, window=32, q_block=32, kv_block=32)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2, rtol=3e-2)
+
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_any_valid_reads_the_mask(ring):
+    """The wrapper refuses a call that leaves no slot valid (the kernel would
+    write zeros where the plain version averages the whole cache); the host
+    rule it uses agrees with the mask itself."""
+    s = 16
+    for length in range(0, 36, 3):
+        for pos in range(-2, 40, 3):
+            for window in (0, 1, 5, 16, 30):
+                kw = dict(length=length, pos=pos, window=window, ring=ring)
+                want = bool(ops.valid_positions(s, device="cpu", **kw).any())
+                assert ops.any_valid(s, **kw) == want, kw

@@ -95,3 +95,51 @@ def test_resolve_device():
             resolve_device(None)
         with pytest.raises(RuntimeError):
             resolve_device("cuda")
+
+
+def test_serving_slice_imports_no_jax_and_ships_its_kernel_sources():
+    for name in ("chunk_scan", "decode_attn"):
+        assert (REPO / "src" / "repro_torch" / "kernels" / name / "csrc"
+                / f"{name}.cu").exists()
+    code = (
+        "import sys\n"
+        "import repro_torch.configs, repro_torch.configs.base\n"
+        "import repro_torch.models.params, repro_torch.models.layers\n"
+        "import repro_torch.models.ssm, repro_torch.models.attention\n"
+        "import repro_torch.models.model, repro_torch.models.convert\n"
+        "import repro_torch.kernels.chunk_scan.ops, repro_torch.kernels.chunk_scan.kernel\n"
+        "import repro_torch.kernels.decode_attn.ops, repro_torch.kernels.decode_attn.kernel\n"
+        "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+        "from repro_torch.serving import Engine, Request, Result\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=False)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["Engine", "init_model", "launch.serve"])
+def test_serving_entry_points_default_to_cuda_and_raise_without_it(entry):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device resolves, nothing to raise")
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine
+
+    cfg = configs.get("zamba2-2.7b").reduced()
+    calls = {
+        "Engine": lambda **kw: Engine(cfg, {}, **kw),
+        "init_model": lambda **kw: M.init_model(cfg, **kw),
+        "launch.serve": lambda **kw: serve.main(
+            ["--arch", "zamba2-2.7b", "--requests", "1", "--max-new", "2"]
+            + (["--device", kw["device"]] if kw else [])),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+    # Asking for the CPU explicitly is the only way onto it.
+    assert calls[entry](device="cpu") is not None
