@@ -76,7 +76,9 @@ Phases:
                  decode step); prefill ms a wave, decode ms a step, tokens/s,
                  peak memory, the device's share of a traced decode step and
                  of a traced 2 x 4096 prefill; gates: finite logits and the
-                 full model's prefill/decode consistency below 2%
+                 full model's prefill/decode consistency below 2%, at 512
+                 tokens and at 4102 (past the 4096 window and not a multiple
+                 of it: the ring tail must hold position p in slot p mod w)
  11. hybrid_parity
                  the card against the port on the CPU at full width and one
                  group's depth (6 Mamba2 layers + the shared block): prefill
@@ -88,12 +90,19 @@ in {2, 4} for alias_mh), and the packed-table entry over K in {12, 128,
 1000} x int8/int4 x stored n_dt f32/`w_bits` 8 at N = 65,536; chunk_scan
 over both modes x float32/bf16 x s0 given/absent at Zamba2's prefill shape
 (B 2, S 4096, H 80, dk = dv = 64, chunk 32), RWKV6's (H 32, chunk 64), two
-ragged lengths and dk != dv; decode_attn at Zamba2's decode shape (B 2, a
-4096-slot ring, Hkv 32, hd 80) before, at and past the wrap, a qwen2-like
-GQA shape (Hkv 4, G 7, hd 128, 8192 long), a capped window, and hd in {32,
-64, 80, 128, 256} x G in {1, 2, 4, 7, 8}; each with its ms, plain ms, bound
-and (decode_attn) the masked `F.scaled_dot_product_attention` as
-`library_ms` (a yardstick the port never calls).
+ragged lengths and dk != dv, and the Mamba2 entry (w (B, S, H), k and q
+(B, S, dk): the one the served prefill runs) at Zamba2's prefill, at B 1,
+at the ragged chunks 25 and 60, dk 128 at chunk 64 and rows that are not
+whole 16-byte units, each timed with both bounds (bytes, float32
+operations); decode_attn at Zamba2's decode shape (B 2, a 4096-slot ring,
+Hkv 32, hd 80) before, at and past the wrap, a ring written into its first
+partition only (the later ones all masked), S not divisible by P * T, a
+qwen2-like GQA shape (Hkv 4, G 7, hd 128, 8192 long), a capped window, and
+hd in {32, 64, 80, 128, 256} x G in {1, 2, 4, 7, 8}, plus its merge kernel
+alone against `merge_partials` (partitions with no valid slot included);
+each with its ms, plain ms, bound, its split (P, CUDA launches a call) and
+(decode_attn) the masked `F.scaled_dot_product_attention` as `library_ms`
+(a yardstick the port never calls).
 
 Prints one JSON line per phase, then the kernels line, then
 `{"ok": true, "device": {...}}` as the last line. Any failure raises and
@@ -165,7 +174,8 @@ def phase_setup():
                     "--format=csv,noheader"]).splitlines()[0]
     print(smi, flush=True)
     builds = {"lda_gibbs.resample": lda_kernel.build, "alias_mh.resample": alias_kernel.build,
-              "chunk_scan": scan_kernel.build, "decode_attn": attn_kernel.build}
+              "chunk_scan": scan_kernel.build, "chunk_scan_mamba2": scan_kernel.build_mamba2,
+              "decode_attn": attn_kernel.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = {name: pool.submit(b) for name, b in builds.items()}
@@ -1742,9 +1752,33 @@ def _scan_cost(b, s, h, dk, dv, chunk, itemsize, include_current, s0):
     return moved, n * per_chunk_ops, n * per_chunk_exps
 
 
+def _scan_cost_mamba2(b, s, h, dk, dv, chunk, itemsize, s0):
+    """(bytes, f32 operations, exps) the Mamba2 entry needs: w (B, S, H)
+    float32, k and q (B, S, dk), v and y (B, S, H, dv) read or written once,
+    the states; q_t . k_i once per (b, chunk) (it is the same for every
+    head), and per (b, h, chunk) the decay of the A entries the mask keeps,
+    y's two contractions, the state update, the scan of the log decays."""
+    moved = (4 * b * s * h + itemsize * (2 * b * s * dk + 2 * b * s * h * dv)
+             + 4 * b * h * dk * dv * (1 + s0))
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk_exps = pairs + 2 * chunk + 1
+    per_chunk_ops = (2 * pairs + 2 * chunk * dk * dv + 2 * pairs * dv + 2 * chunk * dv
+                     + chunk * dk + 2 * chunk * dk * dv + 2 * dk * dv + 4 * chunk
+                     + per_chunk_exps)
+    n_chunks = s // chunk
+    ops_count = b * h * n_chunks * per_chunk_ops + b * n_chunks * 2 * pairs * dk
+    return moved, ops_count, b * h * n_chunks * per_chunk_exps
+
+
 def _bound(moved, ops_count):
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _bounds(moved, ops_count):
+    """Both bounds in ms: bytes over the HBM rate, operations over float32's."""
+    return {"bound_bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "bound_ops_ms": ops_count / F32_OPS_PER_S * 1e3}
 
 
 def compare_scan(args, *, include_current, chunk):
@@ -1788,10 +1822,72 @@ def scan_timing(shape, kdtype, *, include_current, chunk, reps=20, seed=0):
                                         s0=not include_current)
     bound_ms, bound_by = _bound(moved, ops_count)
     return {"ms": ms, "plain_ms": plain_ms, "bytes": moved, "ops": ops_count, "exps": exps,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, **_bounds(moved, ops_count),
+            "library_ms": None,
             "shape": (f"B={shape['b']} S={shape['s']} H={shape['h']} dk={shape['dk']} "
                       f"dv={shape['dv']} chunk={chunk} k/q/v {str(kdtype)[6:]} w float32 "
                       f"{'mamba2' if include_current else 'rwkv6'}")}
+
+
+def _mamba2_inputs(b, s, h, dk, dv, kdtype, seed, s0=True):
+    """The Mamba2 entry's arguments on the card: w (b, s, h) float32, k and q
+    (b, s, dk) and v (b, s, h, dv) in `kdtype`, s0 (b, h, dk, dv) float32."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    w = torch.rand(b, s, h, generator=gen, device=dev) * 0.4 + 0.6
+    k, q = (torch.randn(b, s, dk, generator=gen, device=dev).mul_(0.3).to(kdtype)
+            for _ in range(2))
+    v = torch.randn(b, s, h, dv, generator=gen, device=dev).mul_(0.3).to(kdtype)
+    st = torch.randn(b, h, dk, dv, generator=gen, device=dev) * 0.1 if s0 else None
+    return w, k, q, v, st
+
+
+def compare_scan_mamba2(args, *, chunk):
+    """The Mamba2 entry's kernel vs its plain version on identical inputs,
+    at chunk_scan's tolerances: (max |dy|, max |dS|, within them)."""
+    import torch
+
+    from repro_torch.kernels.chunk_scan import ops
+
+    y, st = ops.chunk_scan_mamba2(*args[:4], chunk=chunk, s0=args[4])
+    torch.cuda.synchronize()
+    y_p, st_p = ops.chunk_scan_mamba2_plain(*args[:4], chunk=chunk, s0=args[4])
+    dy = float((y.float() - y_p.float()).abs().max())
+    ds = float((st - st_p).abs().max())
+    if y.dtype == torch.bfloat16:
+        ok = (torch.allclose(y.float(), y_p.float(), atol=5e-2, rtol=5e-2)
+              and torch.allclose(st, st_p, atol=2e-2, rtol=2e-2))
+    else:
+        tol = 3e-5 if args[1].shape[1] <= 1000 else 1e-4
+        ok = torch.allclose(y, y_p, atol=tol, rtol=tol) and torch.allclose(st, st_p, atol=tol,
+                                                                            rtol=tol)
+    return dy, ds, ok
+
+
+def scan_timing_mamba2(shape, kdtype, *, chunk, reps=50, seed=0):
+    """The Mamba2 entry and its plain version on one prefill layer's inputs
+    (no s0, as a prompt starts): mean ms (CUDA events) and both bounds."""
+    import torch
+
+    from repro_torch.kernels.chunk_scan import ops
+
+    args = _mamba2_inputs(**shape, kdtype=kdtype, seed=seed, s0=False)
+    ms = cuda_ms(lambda: ops.chunk_scan_mamba2(*args[:4], chunk=chunk), reps)
+    plain_ms = cuda_ms(lambda: ops.chunk_scan_mamba2_plain(*args[:4], chunk=chunk), 3,
+                       warmup=1)
+    item = torch.tensor([], dtype=kdtype).element_size()
+    moved, ops_count, exps = _scan_cost_mamba2(**shape, chunk=ops.chunk_len(shape["s"], chunk),
+                                               itemsize=item, s0=False)
+    bound_ms, bound_by = _bound(moved, ops_count)
+    return {"ms": ms, "plain_ms": plain_ms, "bytes": moved, "ops": ops_count, "exps": exps,
+            "bound_ms": bound_ms, "bound_by": bound_by, **_bounds(moved, ops_count),
+            "library_ms": None,
+            "dv_block": ops.dv_block(shape["b"], shape["h"], shape["dv"]),
+            "shape": (f"B={shape['b']} S={shape['s']} H={shape['h']} dk={shape['dk']} "
+                      f"dv={shape['dv']} chunk={chunk} k/q/v {str(kdtype)[6:]} w (B,S,H) "
+                      f"float32 mamba2 entry")}
 
 
 def phase_chunk_scan_kernel():
@@ -1810,12 +1906,31 @@ def phase_chunk_scan_kernel():
                 cases.append({**shape, "chunk": chunk, "mode": "mamba2" if include_current
                               else "rwkv6", "dtype": str(kdtype)[6:], "s0": s0,
                               "max_abs_err_y": dy, "max_abs_err_state": ds, "ok": ok})
+    # The Mamba2 entry (w (B, S, H), k and q (B, S, dk)): the served prefill
+    # shape, B = 1 (16-column state slices), ragged chunks, dk 128 at chunk 64,
+    # and dk 20, dv 48 (three 16-column slices; the entry takes dk % 4 == 0
+    # and dv % 16 == 0).
+    grid_m2 = [(ZAMBA2_PREFILL, 32), (dict(b=1, s=1024, h=80, dk=64, dv=64), 32),
+               (dict(b=2, s=1000, h=4, dk=32, dv=64), 32),   # ragged: chunk 25
+               (dict(b=1, s=600, h=3, dk=64, dv=128), 64),   # ragged: chunk 60, dk != dv
+               (dict(b=3, s=96, h=2, dk=128, dv=64), 64),
+               (dict(b=2, s=64, h=3, dk=20, dv=48), 16)]
+    for shape, chunk in grid_m2:
+        for kdtype in (torch.float32, torch.bfloat16):
+            for s0 in (True, False):
+                args = _mamba2_inputs(**shape, kdtype=kdtype, seed=len(cases), s0=s0)
+                dy, ds, ok = compare_scan_mamba2(args, chunk=chunk)
+                cases.append({**shape, "chunk": chunk, "mode": "mamba2 entry",
+                              "dtype": str(kdtype)[6:], "s0": s0, "max_abs_err_y": dy,
+                              "max_abs_err_state": ds, "ok": ok})
     timing = scan_timing(ZAMBA2_PREFILL, torch.bfloat16, include_current=True, chunk=32)
     timing_rwkv = scan_timing(RWKV6_SCAN, torch.bfloat16, include_current=False, chunk=64)
-    out = {"phase": "kernels", "kernels": ["chunk_scan"],
+    timing_m2 = scan_timing_mamba2(ZAMBA2_PREFILL, torch.bfloat16, chunk=32)
+    out = {"phase": "kernels", "kernels": ["chunk_scan", "chunk_scan_mamba2"],
            "failed": sum(not c["ok"] for c in cases),
            "max_abs_err": max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in cases),
-           "kernel": timing, "kernel_rwkv6": timing_rwkv, "cases": cases}
+           "kernel_mamba2": timing_m2, "kernel": timing, "kernel_rwkv6": timing_rwkv,
+           "cases": cases}
     emit(out)
     if out["failed"]:
         raise SystemExit(f"chunk_scan kernel disagrees with its plain version in "
@@ -1854,6 +1969,7 @@ def attn_timing(shape, dtype, reps=200, **kw):
     positions this step reads."""
     import torch
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.decode_attn import ops
 
@@ -1861,6 +1977,13 @@ def attn_timing(shape, dtype, reps=200, **kw):
     b, s, hkv, hd = k.shape
     valid = ops.valid_positions(s, device="cuda", **kw)
     ms = cuda_ms(lambda: ops.decode_attention(q, k, v, **kw), reps)
+    # The CUDA kernels one wrapper call launches (split and merge when the
+    # plan has P > 1), counted from the profiler's device events.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+    cuda_launches = sum(ev.count for ev in prof.key_averages()
+                        if str(ev.device_type).endswith("CUDA"))
     plain_ms = cuda_ms(lambda: ops.decode_attention_plain(q, k, v, **kw), 20)
     g = q.shape[1] // hkv
     # SDPA on (B, Hq, 1, hd) against (B, Hq, S, hd) with the slot mask; GQA by
@@ -1879,15 +2002,46 @@ def attn_timing(shape, dtype, reps=200, **kw):
     moved = 2 * b * n_valid * hkv * hd * item + 2 * q.numel() * item
     ops_count = b * hkv * g * n_valid * (4 * hd + 6)
     bound_ms, bound_by = _bound(moved, ops_count)
+    plan = ops.plan(b, s, hkv, hd, item)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_max_abs_err": lib_err, "valid_positions": n_valid, "bytes": moved,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan._asdict(),
+            "cuda_launches_per_call": cuda_launches,
             "shape": (f"B={b} S={s} Hkv={hkv} G={g} hd={hd} {str(dtype)[6:]} "
                       + " ".join(f"{k_}={v_}" for k_, v_ in kw.items()))}
 
 
+def compare_merge(b, s, hkv, g, hd, dtype, seed, **kw):
+    """The merge kernel alone against `merge_partials`, on plain partials of
+    the split that `plan` makes for this shape (with these positions, some
+    partitions may hold no valid slot)."""
+    import torch
+
+    from repro_torch.kernels.decode_attn import kernel, ops
+
+    q, k, v = _attn_inputs(b, s, hkv, g, hd, torch.float32, seed)
+    plan = ops.plan(b, s, hkv, hd, torch.tensor([], dtype=dtype).element_size())
+    m, l, acc = ops.partials_plain(q, k, v, parts=plan.parts,
+                                   slots_per_part=plan.tiles_per_part * plan.tile, **kw)
+    ws = torch.cat([acc, m[..., None], l[..., None]], -1).contiguous()
+    out = torch.empty(b, hkv * g, hd, device="cuda", dtype=dtype)
+    kernel.launch_merge(ws, out)
+    torch.cuda.synchronize()
+    want = ops.merge_partials(m, l, acc)
+    err = float((out.float() - want).abs().max())
+    if dtype == torch.bfloat16:
+        ok = torch.allclose(out.float(), want.to(dtype).float(), atol=1e-5, rtol=1e-2)
+    else:
+        ok = torch.allclose(out, want, atol=2e-5, rtol=2e-5)
+    return {"b": b, "s": s, "hkv": hkv, "g": g, "hd": hd, "dtype": str(dtype)[6:], **kw,
+            "parts": plan.parts, "empty_parts": int((l == 0).any(0).any(0).sum()),
+            "max_abs_err": err, "ok": bool(ok and torch.isfinite(out.float()).all())}
+
+
 def phase_decode_attn_kernel():
     import torch
+
+    from repro_torch.kernels.decode_attn import ops
 
     z = ZAMBA2_DECODE
     ring = dict(window=4096, ring=True)
@@ -1900,17 +2054,38 @@ def phase_decode_attn_kernel():
     grid += [(dict(b=2, s=1024, hkv=2, g=g, hd=hd), torch.float32,
               dict(pos=900, length=901, cap=50.0 if g % 2 else 0.0))
              for hd in (32, 64, 80, 128, 256) for g in (1, 2, 4, 7, 8)]
+    # The split (P > 1 at every shape below): a ring written into its first
+    # partition only, so the later ones are all masked; S not divisible by
+    # P * T, flat and ring; a float32 Zamba2 ring past its wrap.
+    grid += [(z, dt, dict(pos=100, length=101, **ring)) for dt in (torch.bfloat16, torch.float32)]
+    # B = 1, as the served 1 x 512 wave decodes (its own split: P = 10, the
+    # last partition one tile): inside the ring and past its wrap.
+    grid += [(dict(z, b=1), torch.bfloat16, dict(pos=p, length=p + 1, **ring))
+             for p in (512, 5000)]
+    grid += [(dict(b=2, s=1000, hkv=32, g=1, hd=80), torch.bfloat16, dict(pos=990, length=991)),
+             (dict(b=1, s=3001, hkv=4, g=7, hd=128), torch.bfloat16,
+              dict(pos=5000, length=5001, window=3001, ring=True)),
+             (z, torch.float32, dict(pos=5000, length=5001, **ring))]
     cases = []
     for i, (shape, dtype, kw) in enumerate(grid):
         err, ok = compare_attn(_attn_inputs(**shape, dtype=dtype, seed=i), **kw)
-        cases.append({**shape, "dtype": str(dtype)[6:], **kw, "max_abs_err": err, "ok": ok})
+        plan = ops.plan(shape["b"], shape["s"], shape["hkv"], shape["hd"],
+                        torch.tensor([], dtype=dtype).element_size())
+        cases.append({**shape, "dtype": str(dtype)[6:], **kw, "parts": plan.parts,
+                      "max_abs_err": err, "ok": ok})
+    merges = [compare_merge(**z, dtype=torch.bfloat16, seed=1, pos=100, length=101, **ring),
+              compare_merge(**z, dtype=torch.bfloat16, seed=2, pos=5000, length=5001, **ring),
+              compare_merge(b=2, s=8192, hkv=4, g=7, hd=128, dtype=torch.bfloat16, seed=3,
+                            pos=3000, length=3001),
+              compare_merge(b=2, s=8192, hkv=4, g=7, hd=128, dtype=torch.float32, seed=4,
+                            pos=8191, length=8192)]
     timing = attn_timing(z, torch.bfloat16, pos=4096, length=4097, **ring)
     timing_gqa = attn_timing(dict(b=2, s=8192, hkv=4, g=7, hd=128), torch.bfloat16,
                              pos=8191, length=8192)
     out = {"phase": "kernels", "kernels": ["decode_attn"],
-           "failed": sum(not c["ok"] for c in cases),
-           "max_abs_err": max(c["max_abs_err"] for c in cases),
-           "kernel": timing, "kernel_gqa": timing_gqa, "cases": cases}
+           "failed": sum(not c["ok"] for c in cases + merges),
+           "max_abs_err": max(c["max_abs_err"] for c in cases + merges),
+           "kernel": timing, "kernel_gqa": timing_gqa, "merge_cases": merges, "cases": cases}
     emit(out)
     if out["failed"]:
         raise SystemExit(f"decode_attn kernel disagrees with its plain version in "
@@ -1921,6 +2096,13 @@ def phase_decode_attn_kernel():
 # -- phase 10: the transformer serving path --------------------------------------
 
 SERVE = dict(cache_len=8192, max_batch=2, max_new=32, seed=0)
+RING_PROMPT = 4102  # past the 4096 window and not a multiple of it (s % w = 6)
+# Teacher-forced decode steps after it. A tail left unrolled (slot i holding
+# position s - w + i) keeps a position the window has dropped and loses one
+# it holds, two keys a step more until 2 (s % w) are wrong; with random
+# weights the attention is near uniform over 4096 keys, so the first step
+# alone moves the logits little.
+RING_STEPS = 12
 
 
 def _rel(a, b):
@@ -2004,6 +2186,32 @@ def phase_hybrid_serve():
         h, _ = M.forward_hidden(params, cfg, {"tokens": tok})
         full = layers.logits_last(h[:, -1], M.unembed_table(params, cfg), cfg.final_softcap)
         consistency = _rel(dec_logits, full)
+        # A prompt longer than the ring window and not a multiple of it: the
+        # prefill's ring tail must put position p in slot p mod w. Each
+        # decode step's logits against the prefill of the tokens up to it
+        # (one causal forward over them all).
+        rtok = torch.tensor(np.random.default_rng(SERVE["seed"] + 1).integers(
+            0, cfg.vocab_size, RING_PROMPT + RING_STEPS), dtype=torch.int32,
+            device="cuda")[None]
+        cache, _ = M.prefill(params, cfg, {"tokens": rtok[:, :RING_PROMPT]},
+                             SERVE["cache_len"])
+        # The fault the gate is there to catch: the tail unrolled into slots
+        # 0..w-1 (the reference's layout; decode_step writes the cache in
+        # place, so this copy is made first). It must read past the limit.
+        shift = -(RING_PROMPT % cache["ak"].shape[-3])
+        unrolled = {key: torch.roll(t, shift, dims=-3) if key in ("ak", "av") else t.clone()
+                    for key, t in cache.items()}
+        h, _ = M.forward_hidden(params, cfg, {"tokens": rtok})
+        table = M.unembed_table(params, cfg)
+        ring_rels, ring_rels_unrolled = [], []
+        for pos in range(RING_PROMPT, RING_PROMPT + RING_STEPS):
+            full = layers.logits_last(h[:, pos], table, cfg.final_softcap)
+            _, dec_logits = M.decode_step(params, cfg, cache, rtok[:, pos], pos)
+            ring_rels.append(_rel(dec_logits, full))
+            _, dec_logits = M.decode_step(params, cfg, unrolled, rtok[:, pos], pos)
+            ring_rels_unrolled.append(_rel(dec_logits, full))
+        ring_rel, ring_rel_unrolled = max(ring_rels), max(ring_rels_unrolled)
+        del cache, unrolled, h
         long = torch.tensor(requests[0].prompt[None], device="cuda").repeat(2, 1)
         # Where a 2 x 4096 prefill's device time goes (torch.profiler).
         torch.cuda.synchronize()
@@ -2045,7 +2253,12 @@ def phase_hybrid_serve():
         "peak_mem_bytes": peak, "launches": launches,
         "launches_expected": {"chunk_scan": cfg.num_layers * len(waves),
                               "decode_attn": groups * total_steps},
-        "prefill_decode_rel": consistency, "finite_logits": finite,
+        "prefill_decode_rel": consistency, "ring_prompt": RING_PROMPT,
+        "ring_steps": RING_STEPS, "ring_prefill_decode_rel": ring_rel,
+        "ring_prefill_decode_rel_unrolled": ring_rel_unrolled,
+        "ring_prefill_decode_rel_by_step": ring_rels,
+        "ring_prefill_decode_rel_unrolled_by_step": ring_rels_unrolled,
+        "finite_logits": finite,
         "decode_step_ms_untraced": step_ms, "decode_step_ms_traced": traced_ms,
         "device_busy_ms_per_step": busy_ms,
         # The tracer slows the host, not the device: the share of an
@@ -2059,9 +2272,11 @@ def phase_hybrid_serve():
     if launches != out["launches_expected"]:
         raise SystemExit(f"hybrid_serve launches {launches}, expected "
                          f"{out['launches_expected']}")
-    if not finite or consistency >= 0.02:
+    if not finite or consistency >= 0.02 or ring_rel >= 0.02 or ring_rel_unrolled < 0.02:
         raise SystemExit(f"hybrid_serve logits: finite={finite}, prefill/decode rel "
-                         f"{consistency} (limit 0.02)")
+                         f"{consistency}, {RING_STEPS} steps after {RING_PROMPT} tokens "
+                         f"{ring_rel} (limit 0.02; the unrolled tail read "
+                         f"{ring_rel_unrolled}, must read past it)")
     if len(results) != len(requests) or any(len(r.tokens) != SERVE["max_new"]
                                             for r in results):
         raise SystemExit("hybrid_serve: a request was not served in full")
@@ -2236,19 +2451,26 @@ def main() -> int:
     } for q in (packed["kernel"]["int8"],)] + [{
         "name": name,
         "route": "cuda",
-        "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+        "source": f"src/repro_torch/kernels/{name}/csrc/{source}.cu",
         "replaces": replaces,
         "launches": serve["launches"][name],
         "max_abs_err": kern["max_abs_err"],
-        "ms": kern["kernel"]["ms"],
-        "plain_ms": kern["kernel"]["plain_ms"],
-        "bound_ms": kern["kernel"]["bound_ms"],
-        "bound_by": kern["kernel"]["bound_by"],
-        "library_ms": kern["kernel"]["library_ms"],
-        "shape": kern["kernel"]["shape"],
-    } for name, replaces, kern in (
-        ("chunk_scan", "src/repro/kernels/chunk_scan/kernel.py:105", scan_kern),
-        ("decode_attn", "src/repro/kernels/decode_attn/kernel.py:99", attn_kern))]})
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "shape": t["shape"],
+        **extra,
+    } for name, source, replaces, kern, t, extra in (
+        # The served prefill runs the Mamba2 entry; the general entry (rwkv6
+        # mode, no served path yet) is timed beside it.
+        ("chunk_scan", "chunk_scan_mamba2", "src/repro/kernels/chunk_scan/kernel.py:105",
+         scan_kern, scan_kern["kernel_mamba2"],
+         {"general_entry": {key: scan_kern["kernel"][key] for key in
+                            ("ms", "plain_ms", "bound_ms", "bound_by", "shape")}}),
+        ("decode_attn", "decode_attn", "src/repro/kernels/decode_attn/kernel.py:99", attn_kern,
+         attn_kern["kernel"], {}))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -20,6 +20,13 @@ chunk by chunk, with every decay as a ratio exp(L_a - L_b) <= 1 of the
 cumulative log decay clamped to [-20, 0]. y comes back in v's type, the
 final state in float32. A sequence that the chunk does not divide runs at
 its largest divisor below the chunk, as the reference's wrappers do.
+
+`chunk_scan_mamba2` is the Mamba2 entry (`models.ssm.mamba2_mix`): one
+decay scalar a head, w (B, S, H), and k, q (B, S, dk) shared by every
+head, so nothing is broadcast to (B, S, H, dk); on a CUDA tensor it
+launches its own kernel (`csrc/chunk_scan_mamba2.cu`), on the CPU its
+plain version expands the inputs and runs `chunk_scan_plain`. Both
+entries count their launches in ``chunk_scan.launches``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import torch
 
 LOG_W_MIN = -20.0  # decays below e^-20 are numerically zero already
 MAX_CHUNK = 64  # the kernel's largest chunk
+MAX_DK = 256  # the Mamba2 entry's widest k
+SMS = 132  # streaming multiprocessors of an H100 SXM: the Mamba2 split aims at two blocks each
 
 
 def chunk_len(s: int, chunk: int) -> int:
@@ -85,23 +94,28 @@ def chunk_scan_plain(w, k, v, q, u, *, include_current: bool, chunk: int = 64,
     return y.to(v.dtype), S
 
 
-def _check(w, k, v, q, u, s0, chunk) -> None:
-    """What the kernel takes (after `w` is brought to float32)."""
-    named = dict(w=w, k=k, v=v, q=q, u=u, s0=s0)
-    for name, t in named.items():
+def _check_common(w, k, q, v, **optional) -> None:
+    """Device, layout and types that both entries' kernels take (after `w`
+    is brought to float32)."""
+    for name, t in dict(w=w, k=k, q=q, v=v, **optional).items():
         if t is None:
             continue
         if t.device != v.device:
             raise ValueError(f"{name} is on {t.device}, v on {v.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k.dim() != 4 or v.dim() != 4:
-        raise ValueError("k must be (B, S, H, dk) and v (B, S, H, dv)")
     if v.dtype not in (torch.float32, torch.bfloat16) or k.dtype != v.dtype \
             or q.dtype != v.dtype:
         raise ValueError("k, q and v must share one type, torch.float32 or torch.bfloat16")
     if w.dtype != torch.float32:
         raise ValueError("w must be torch.float32 or torch.bfloat16")
+
+
+def _check(w, k, v, q, u, s0, chunk) -> None:
+    """What the general entry's kernel takes."""
+    _check_common(w, k, q, v, u=u, s0=s0)
+    if k.dim() != 4 or v.dim() != 4:
+        raise ValueError("k must be (B, S, H, dk) and v (B, S, H, dv)")
     b, s, h, dk = k.shape
     if w.shape != k.shape or q.shape != k.shape or v.shape[:3] != (b, s, h):
         raise ValueError(f"w, q must be {tuple(k.shape)} and v (B, S, H, dv)")
@@ -151,3 +165,77 @@ def chunk_scan(w, k, v, q, u, *, include_current: bool, chunk: int = 64,
 
 #: Kernel launches so far (CUDA tensors only; the plain version never counts).
 chunk_scan.launches = 0
+
+
+def chunk_scan_mamba2_plain(w, k, q, v, *, chunk: int = 32, s0: Optional[torch.Tensor] = None):
+    """The Mamba2 entry's plain version: w (B, S, H), k and q (B, S, dk) are
+    broadcast over heads and dk as the reference's `mamba2_mix` does, and
+    `chunk_scan_plain(include_current=True)` runs on them."""
+    b, s, h, _ = v.shape
+    dk = k.shape[-1]
+    return chunk_scan_plain(w[..., None].expand(b, s, h, dk),
+                            k[:, :, None, :].expand(b, s, h, dk), v,
+                            q[:, :, None, :].expand(b, s, h, dk), None, include_current=True,
+                            chunk=chunk, s0=s0)
+
+
+def dv_block(b: int, h: int, dv: int) -> int:
+    """State columns a Mamba2-entry block owns: 32 if they divide dv and
+    still give B * H * dv / 32 >= 2 * SMS blocks, else 16."""
+    return 32 if dv % 32 == 0 and b * h * (dv // 32) >= 2 * SMS else 16
+
+
+def _check_mamba2(w, k, q, v, s0, chunk) -> None:
+    """What the Mamba2 entry's kernel takes. It copies k, v and its scratch
+    into shared memory in 16-byte units only, so it takes dk % 4 == 0,
+    dv % 16 == 0 and a 16-byte aligned v (Zamba2's ns = hd = 64)."""
+    _check_common(w, k, q, v, s0=s0)
+    if v.dim() != 4 or k.dim() != 3:
+        raise ValueError("v must be (B, S, H, dv) and k, q (B, S, dk)")
+    b, s, h, dv = v.shape
+    dk = k.shape[-1]
+    if w.shape != (b, s, h) or k.shape[:2] != (b, s) or q.shape != k.shape:
+        raise ValueError(f"w must be {(b, s, h)} and k, q (B, S, dk) = ({b}, {s}, dk)")
+    if not 1 <= dk <= MAX_DK or dk % 4:
+        raise ValueError(f"the Mamba2 entry takes dk <= {MAX_DK} and a multiple of 4, "
+                         f"got {dk}")
+    if dv % 16:
+        raise ValueError(f"the Mamba2 entry takes dv a multiple of 16, got {dv}")
+    if v.data_ptr() % 16:
+        raise ValueError("v must start on a 16-byte boundary")
+    if s0 is not None and (s0.dtype != torch.float32 or s0.shape != (b, h, dk, dv)):
+        raise ValueError(f"s0 must be float32 of shape {(b, h, dk, dv)}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+
+
+def chunk_scan_mamba2(w, k, q, v, *, chunk: int = 32, s0: Optional[torch.Tensor] = None):
+    """Mamba2's scan with per-head scalar decays: w (B, S, H), k and q
+    (B, S, dk) shared by every head, v (B, S, H, dv), s0 (B, H, dk, dv).
+    Returns (y in v's type, final state float32), exactly
+    `chunk_scan(..., include_current=True)` on the broadcast inputs. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (two
+    launches: a prep kernel, then the scan), which reads w in float32 (a
+    bf16 `w` is widened here, exactly)."""
+    if v.device.type == "cpu":
+        return chunk_scan_mamba2_plain(w, k, q, v, chunk=chunk, s0=s0)
+    if v.device.type != "cuda":
+        raise ValueError(f"no chunk_scan kernel for device {v.device}")
+    if w.dtype == torch.bfloat16:
+        w = w.float()
+    _check_mamba2(w, k, q, v, s0, chunk)
+    from repro_torch.kernels.chunk_scan import kernel
+
+    b, s, h, dv = v.shape
+    dk = k.shape[-1]
+    chunk = chunk_len(s, chunk)
+    blk = dv_block(b, h, dv)
+    need = kernel.mamba2_smem_bytes(chunk, dk, blk, v.element_size())
+    if need > kernel.MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {chunk} at dk={dk} needs {need} bytes of shared memory, "
+                         f"past the card's {kernel.MAX_SMEM_BYTES}")
+    y = torch.empty_like(v)
+    s_out = torch.empty((b, h, dk, dv), dtype=torch.float32, device=v.device)
+    kernel.launch_mamba2(w, k, q, v, s0, y, s_out, chunk=chunk, dv_block=blk)
+    chunk_scan.launches += 1
+    return y, s_out

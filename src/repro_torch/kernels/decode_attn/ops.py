@@ -16,15 +16,63 @@ cap, validity from `pos`/`length` (a ring buffer when `ring`: slot i holds
 the position whose age is (pos mod S - i) mod S) and an optional sliding
 window, masked scores at -1e30, softmax, and the value average in float32,
 returned in q's type. `kv_block` (the TPU's tile) is accepted and unused.
+
+The kernel splits the cache into P partitions (`plan`, from the shape
+alone): each writes its partial softmax (m, l, acc), and a second kernel
+merges them; `partials_plain` and `merge_partials` are the plain versions
+of the two steps.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 NEG_INF = -1e30
 MAX_G = 8  # query heads per kv head the kernel holds
 MAX_HD = 256
+SMS = 132  # streaming multiprocessors of an H100 SXM: the split aims at two blocks each
+MAX_PARTS = 512  # the merge kernel's limit
+STAGE_BUDGET = 76 * 1024  # shared-memory bytes of a block's stage ring: three blocks an SM
+
+
+class Plan(NamedTuple):
+    """How the kernel cuts a (B, S, Hkv, hd) cache: `tile` positions a
+    tile, `stages` tiles in flight, `parts` partitions of `tiles_per_part`
+    tiles each (the last may hold fewer)."""
+    tile: int
+    stages: int
+    parts: int
+    tiles_per_part: int
+
+    @property
+    def launches(self) -> int:
+        """CUDA launches a call: the split kernel, and the merge when P > 1."""
+        return 1 if self.parts == 1 else 2
+
+
+def row_bytes(hd: int, itemsize: int) -> int:
+    """Shared-memory bytes of one cache row on the kernel's scalar-copy path
+    (an odd number of 16-byte units; the tensor-copy path stores rows dense,
+    in no more): the bound the tile and stage choice is made on."""
+    units = -(-hd * itemsize // 16)
+    return 16 * (units + 1 - units % 2)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, s: int, hkv: int, hd: int, itemsize: int) -> Plan:
+    """The split for a cache shape: tiles of 64 positions (32 past 480-byte
+    rows), three stages if they fit the budget (else two), and P so that
+    B * Hkv * P >= 2 * SMS with at least one tile a partition."""
+    rs = row_bytes(hd, itemsize)
+    tile = 64 if rs <= 480 else 32
+    stages = 3 if 3 * 2 * tile * rs <= STAGE_BUDGET else 2
+    ntiles = -(-s // tile)
+    want = -(-2 * SMS // (b * hkv))
+    tpp = max(1, ntiles // want, -(-ntiles // MAX_PARTS))
+    return Plan(tile, stages, -(-ntiles // tpp), tpp)
 
 
 def valid_positions(s: int, *, length: int, pos: int, window: int = 0, ring: bool = False,
@@ -62,6 +110,45 @@ def decode_attention_plain(q, k_cache, v_cache, *, length: int, pos: int, window
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     return out.reshape(b, hq, hd).to(q.dtype)
+
+
+def partials_plain(q, k_cache, v_cache, *, length: int, pos: int, window: int = 0,
+                   ring: bool = False, cap: float = 0.0, parts: int, slots_per_part: int):
+    """The split kernel's first step in eager PyTorch: over each partition of
+    `slots_per_part` consecutive slots, the partial softmax of every query
+    head, float32 (m (B, Hq, P), l (B, Hq, P), acc (B, Hq, P, hd)). A
+    partition with no valid slot has m = -1e30, l = 0, acc = 0."""
+    b, s, hkv, hd = k_cache.shape
+    hq = q.shape[1]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, hd).float()
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * hd ** -0.5
+    if cap > 0.0:
+        scores = cap * torch.tanh(scores / cap)
+    valid = valid_positions(s, length=int(length), pos=int(pos), window=window, ring=ring,
+                            device=q.device)
+    ms, ls, accs = [], [], []
+    for i in range(parts):
+        lo, hi = i * slots_per_part, min(s, (i + 1) * slots_per_part)
+        ok = valid[lo:hi]
+        sc = torch.where(ok, scores[..., lo:hi], NEG_INF)
+        m = sc.max(-1).values if hi > lo else torch.full(scores.shape[:-1], NEG_INF,
+                                                            device=q.device)
+        e = torch.where(ok, torch.exp(sc - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(e.sum(-1))
+        accs.append(torch.einsum("bhgs,bshd->bhgd", e, v_cache[:, lo:hi].float()))
+    return (torch.stack(ms, -1).reshape(b, hq, parts),
+            torch.stack(ls, -1).reshape(b, hq, parts),
+            torch.stack(accs, -2).reshape(b, hq, parts, hd))
+
+
+def merge_partials(m, l, acc):
+    """The merge kernel's plain version: P partial softmaxes (m, l (B, Hq,
+    P), acc (B, Hq, P, hd)) into the attention output (B, Hq, hd) float32.
+    A partition with l = 0 and m = -1e30 weighs nothing."""
+    w = torch.exp(m - m.max(-1, keepdim=True).values)
+    return (acc * w[..., None]).sum(-2) / (l * w).sum(-1).clamp_min(1e-30)[..., None]
 
 
 def any_valid(s: int, *, length: int, pos: int, window: int = 0, ring: bool = False) -> bool:
@@ -117,12 +204,18 @@ def decode_attention(q, k_cache, v_cache, *, length, pos, window: int = 0,
     _check(q, k_cache, v_cache, length, pos, window, ring)
     from repro_torch.kernels.decode_attn import kernel
 
+    b, s, hkv, hd = k_cache.shape
+    pl = plan(b, s, hkv, hd, q.element_size())
     out = torch.empty_like(q)
-    kernel.launch(q, k_cache, v_cache, out, length=int(length), pos=int(pos),
-                  window=int(window), ring=bool(ring), cap=float(cap))
+    ws = None if pl.parts == 1 else torch.empty((b, q.shape[1], pl.parts, hd + 2),
+                                                dtype=torch.float32, device=q.device)
+    kernel.launch(q, k_cache, v_cache, out, ws, length=int(length), pos=int(pos),
+                  window=int(window), ring=bool(ring), cap=float(cap), plan=pl)
     decode_attention.launches += 1
     return out
 
 
-#: Kernel launches so far (CUDA tensors only; the plain version never counts).
+#: Calls that launched the kernel so far (CUDA tensors only; the plain
+#: version never counts): one a call, whether it took one launch or two
+#: (`plan(...).launches`).
 decode_attention.launches = 0

@@ -312,11 +312,14 @@ def init_cache(cfg: ArchConfig, b: int, cache_len: int, *, device: DeviceLike = 
 
 
 def _ring_tail(k_full, w):
-    """Last `w` positions of (..., S, H, hd), ring-aligned (S % w == 0)."""
+    """Last `w` positions of (..., S, H, hd), ring-aligned: position p lands
+    in slot p mod w, as `decode_step` and the decode kernel read the ring.
+    The reference takes the tail unrolled (slots 0..w-1), which is aligned
+    only when S % w == 0; here it is rolled by S mod w."""
     s = k_full.shape[-3]
     if s <= w:
         return F.pad(k_full, (0, 0, 0, 0, 0, w - s))
-    return k_full[..., s - w:, :, :]
+    return torch.roll(k_full[..., s - w:, :, :], s % w, dims=-3)
 
 
 def prefill(params, cfg: ArchConfig, batch, cache_len: int):

@@ -9,9 +9,9 @@ instances of the diagonal-decay recurrence
   Mamba2 (SSD): d_t = w_t = exp(-Δt·exp(A_log)) (scalar per head,
     broadcast over dk), u_t = 1, k = B, q = C, v = Δt·x.
 
-`mamba2_mix` (prefill) runs the chunked scan through the kernel's wrapper
-(`kernels/chunk_scan/ops.chunk_scan`: the Hopper kernel on CUDA tensors,
-its plain version on the CPU); `mamba2_mix_step` (decode) takes the one
+`mamba2_mix` (prefill) runs the chunked scan through the kernel's Mamba2
+entry (`kernels/chunk_scan/ops.chunk_scan_mamba2`: the Hopper kernel on
+CUDA tensors, its plain version on the CPU); `mamba2_mix_step` (decode) takes the one
 token through `recurrence_step`, the reference's chunk-1 plain scan in a
 single update (not a kernel there either). The RWKV6 time and channel
 mixes wait for the rwkv6 family (ROADMAP.md queue 1, item 13).
@@ -87,8 +87,8 @@ def _causal_conv(x, conv_w, conv_state=None):
 
 def _mamba2_in(p, x, conv_state, cfg):
     """Projections and causal conv of x (B,S,D): the gate z, the conv'd x,
-    the scan's (w, k, v, q) with k, q and w broadcast over heads and dk, and
-    the new conv state."""
+    the scan's (a, k, q, v) — the decay a (B,S,H) float32 a head, k and q
+    (B,S,ns) shared by every head, v (B,S,H,hd) — and the new conv state."""
     b, s, d = x.shape
     h, hd, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     inner = h * hd
@@ -102,11 +102,8 @@ def _mamba2_in(p, x, conv_state, cfg):
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     a = torch.exp(-torch.exp(p["a_log"].float()) * dt)  # (B,S,H) decay
 
-    k = Bc[:, :, None, :].expand(b, s, h, ns)
-    q = Cc[:, :, None, :].expand(b, s, h, ns)
     v = xz.reshape(b, s, h, hd) * dt[..., None].to(xz.dtype)
-    w = a[..., None].expand(b, s, h, ns)  # scalar/head -> dk
-    return z, xz, (w, k, v, q), conv_state
+    return z, xz, (a, Bc, Cc, v), conv_state
 
 
 def _mamba2_out(p, y, xz, z, cfg):
@@ -122,19 +119,20 @@ def _mamba2_out(p, y, xz, z, cfg):
 def mamba2_mix(p, x, state, conv_state, cfg, *, chunk=32):
     """Mamba2 block core. x: (B,S,D). Returns (y, (S, conv_state)).
 
-    The scan goes through the kernel's wrapper, whose Hopper kernel takes
-    contiguous (B, S, H, d) tensors: the head and dk broadcasts of k, q and
-    w are materialized for it."""
-    z, xz, (w, k, v, q), conv_state = _mamba2_in(p, x, conv_state, cfg)
-    y, S = cs_ops.chunk_scan(w.contiguous(), k.contiguous(), v, q.contiguous(), None,
-                             include_current=True, chunk=chunk, s0=state)
+    The scan goes through the kernel's Mamba2 entry, which takes the decay
+    as (B, S, H) and k, q as (B, S, ns): nothing is broadcast over heads."""
+    z, xz, (a, k, q, v), conv_state = _mamba2_in(p, x, conv_state, cfg)
+    y, S = cs_ops.chunk_scan_mamba2(a, k.contiguous(), q.contiguous(), v, chunk=chunk,
+                                    s0=state)
     return _mamba2_out(p, y, xz, z, cfg), (S, conv_state)
 
 
 def mamba2_mix_step(p, x, state, conv_state, cfg):
     """Single-token Mamba2 decode. x: (B,1,D); state: (B,H,dk,dv) float32.
     One `recurrence_step`: the reference's chunk-1 plain scan."""
-    z, xz, (w, k, v, q), conv_state = _mamba2_in(p, x, conv_state, cfg)
-    S, y = recurrence_step(state, w[:, 0], k[:, 0], v[:, 0], q[:, 0], None,
-                           include_current=True)
+    z, xz, (a, k, q, v), conv_state = _mamba2_in(p, x, conv_state, cfg)
+    b, h, ns = v.shape[0], v.shape[2], k.shape[-1]
+    S, y = recurrence_step(state, a[:, 0, :, None].expand(b, h, ns),
+                           k[:, 0, None, :].expand(b, h, ns), v[:, 0],
+                           q[:, 0, None, :].expand(b, h, ns), None, include_current=True)
     return _mamba2_out(p, y[:, None], xz, z, cfg), (S, conv_state)

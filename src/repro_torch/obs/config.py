@@ -8,7 +8,7 @@ nothing beyond a single attribute read per instrumented call — the
 Disabled is the default. Serving deployments, benches, and tests that
 want telemetry opt in explicitly:
 
-    from repro import obs
+    from repro_torch import obs
     obs.enable()       # counters count, spans record, timers observe
     ...
     obs.disable()      # back to the free path

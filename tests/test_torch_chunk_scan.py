@@ -201,3 +201,84 @@ def test_mamba2_mix_step_matches_the_reference(mamba_layer):
     _scaled_close(y, y_r, 2e-2)
     _scaled_close(S1, S1_r, 2e-2)
     _scaled_close(c1, c1_r, 1e-2)
+
+
+# -- the Mamba2 entry: a decay scalar a head, k and q shared by every head ----
+
+
+def _mamba2_inputs(seed, b, s, h, dk, dv):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.6, 1.0, (b, s, h)).astype(np.float32),
+            (rng.standard_normal((b, s, dk)) * 0.3).astype(np.float32),
+            (rng.standard_normal((b, s, dk)) * 0.3).astype(np.float32),
+            (rng.standard_normal((b, s, h, dv)) * 0.3).astype(np.float32),
+            (rng.standard_normal((b, h, dk, dv)) * 0.1).astype(np.float32))
+
+
+def _broadcast(w, k, q, h):
+    """The reference's `mamba2_mix` inputs: w over dk, k and q over heads."""
+    b, s, dk = k.shape
+    return (np.broadcast_to(w[..., None], (b, s, h, dk)),
+            np.broadcast_to(k[:, :, None], (b, s, h, dk)),
+            np.broadcast_to(q[:, :, None], (b, s, h, dk)))
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv", [
+    (2, 128, 2, 64, 64), (1, 256, 4, 32, 32), (2, 64, 1, 128, 64), (3, 96, 2, 64, 128),
+])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_mamba2_entry_matches_pallas_kernel_and_plain(b, s, h, dk, dv, chunk):
+    """`chunk_scan_mamba2` (its plain version, on CPU tensors) against the
+    reference's Pallas kernel in interpret mode and the port's general entry,
+    both on the broadcast inputs, float32 within 3e-5."""
+    w, k, q, v, s0 = _mamba2_inputs(b * s + dk + 1, b, s, h, dk, dv)
+    wb, kb, qb = _broadcast(w, k, q, h)
+    y_k, S_k = ref_ops.chunk_scan(*(jnp.asarray(x) for x in (wb, kb, v, qb)), None,
+                                  include_current=True, chunk=chunk, s0=jnp.asarray(s0))
+    tw, tk, tq, tv, ts0 = (torch.tensor(x) for x in (w, k, q, v, s0))
+    y, S = ops.chunk_scan_mamba2(tw, tk, tq, tv, chunk=chunk, s0=ts0)
+    assert y.dtype == torch.float32 and S.shape == (b, h, dk, dv)
+    assert ops.chunk_scan.launches == 0
+    _close(y, y_k, 3e-5)
+    _close(S, S_k, 3e-5)
+    y_p, S_p = ops.chunk_scan_plain(*(torch.tensor(np.ascontiguousarray(x))
+                                      for x in (wb, kb, v, qb)), None, include_current=True,
+                                    chunk=chunk, s0=ts0)
+    assert torch.equal(y, y_p) and torch.equal(S, S_p)
+
+
+@pytest.mark.parametrize("s,chunk", [(100, 32), (600, 64)])  # chunks of 25 and 60
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_mamba2_entry_ragged_lengths(s, chunk, with_s0):
+    w, k, q, v, s0 = _mamba2_inputs(s + int(with_s0), 2, s, 2, 32, 48)
+    s0 = s0 if with_s0 else None
+    wb, kb, qb = _broadcast(w, k, q, 2)
+    y_k, S_k = ref_ops.chunk_scan(*(jnp.asarray(x) for x in (wb, kb, v, qb)), None,
+                                  include_current=True, chunk=chunk,
+                                  s0=None if s0 is None else jnp.asarray(s0))
+    y, S = ops.chunk_scan_mamba2(*(torch.tensor(x) for x in (w, k, q, v)), chunk=chunk,
+                                 s0=None if s0 is None else torch.tensor(s0))
+    _close(y, y_k, 3e-5)
+    _close(S, S_k, 3e-5)
+
+
+def test_mamba2_entry_bf16_inputs():
+    w, k, q, v, s0 = _mamba2_inputs(3, 2, 64, 2, 64, 64)
+    wb, kb, qb = _broadcast(w, k, q, 2)
+    y_k, S_k = ref_ops.chunk_scan(*(jnp.asarray(x, jnp.bfloat16) for x in (wb, kb, v, qb)),
+                                  None, include_current=True, chunk=32, s0=jnp.asarray(s0))
+    y, S = ops.chunk_scan_mamba2(torch.tensor(w).bfloat16(), torch.tensor(k).bfloat16(),
+                                 torch.tensor(q).bfloat16(), torch.tensor(v).bfloat16(),
+                                 chunk=32, s0=torch.tensor(s0))
+    assert y.dtype == torch.bfloat16 and S.dtype == torch.float32
+    _close(y, y_k, 5e-2)
+    _close(S, S_k, 2e-2)
+
+
+@pytest.mark.parametrize("b,h,dv,want", [(2, 80, 64, 32), (1, 80, 64, 16), (1, 2, 48, 16),
+                                         (4, 80, 48, 16)])
+def test_mamba2_entry_fills_the_card_from_the_shape(b, h, dv, want):
+    blk = ops.dv_block(b, h, dv)
+    assert blk == want
+    assert dv % blk == 0
+    assert b * h * (dv // blk) >= 2 * ops.SMS or blk == 16

@@ -478,6 +478,77 @@ def test_chunk_scan_wrapper_refuses_what_the_kernel_does_not_take(card):
         cs_ops.chunk_scan(*big[:5], include_current=True, chunk=64)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
+    (2, 4096, 80, 64, 64, 32),   # Zamba2's prefill wave, one layer
+    (1, 512, 80, 64, 64, 32),    # B = 1: 16-column state slices
+    (2, 1000, 4, 32, 64, 32),    # ragged: chunk 25
+    (1, 600, 3, 64, 128, 64),    # ragged: chunk 60, dk != dv
+    (3, 96, 2, 128, 64, 64),     # dk 128 at chunk 64
+    (2, 64, 3, 20, 48, 16),      # dk 20, dv 48: three 16-column state slices
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [True, False])
+def test_chunk_scan_mamba2_kernel_matches_plain_on_card(card, b, s, h, dk, dv, chunk, dtype,
+                                                        with_s0):
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+
+    rng = np.random.default_rng(s + dk + int(with_s0))
+    w = torch.tensor(rng.uniform(0.6, 1.0, (b, s, h)).astype(np.float32), device=card)
+    k, q = (torch.tensor((rng.standard_normal((b, s, dk)) * 0.3).astype(np.float32),
+                         device=card).to(dtype) for _ in range(2))
+    v = torch.tensor((rng.standard_normal((b, s, h, dv)) * 0.3).astype(np.float32),
+                     device=card).to(dtype)
+    s0 = (torch.tensor((rng.standard_normal((b, h, dk, dv)) * 0.1).astype(np.float32),
+                       device=card) if with_s0 else None)
+    before = cs_ops.chunk_scan.launches
+    y, st = cs_ops.chunk_scan_mamba2(w, k, q, v, chunk=chunk, s0=s0)
+    torch.cuda.synchronize()
+    assert cs_ops.chunk_scan.launches == before + 1
+    y_p, st_p = cs_ops.chunk_scan_mamba2_plain(w, k, q, v, chunk=chunk, s0=s0)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    if dtype == torch.bfloat16:  # the reference's bf16 tolerances
+        torch.testing.assert_close(y.float(), y_p.float(), atol=5e-2, rtol=5e-2)
+        torch.testing.assert_close(st, st_p, atol=2e-2, rtol=2e-2)
+    else:
+        tol = 3e-5 if s <= 1000 else 1e-4
+        torch.testing.assert_close(y, y_p, atol=tol, rtol=tol)
+        torch.testing.assert_close(st, st_p, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_chunk_scan_mamba2_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+
+    w = torch.rand(1, 64, 2, device=card)
+    k, q = torch.randn(1, 64, 32, device=card), torch.randn(1, 64, 32, device=card)
+    v = torch.randn(1, 64, 2, 32, device=card)
+    with pytest.raises(ValueError, match="k is on cpu"):
+        cs_ops.chunk_scan_mamba2(w, k.cpu(), q, v)
+    with pytest.raises(ValueError, match="share one type"):
+        cs_ops.chunk_scan_mamba2(w, k.bfloat16(), q, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        cs_ops.chunk_scan_mamba2(w, k, q, v.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="w must be"):
+        cs_ops.chunk_scan_mamba2(w[..., None].expand(1, 64, 2, 32).contiguous(), k, q, v)
+    with pytest.raises(ValueError, match="chunk must be"):
+        cs_ops.chunk_scan_mamba2(w, k, q, v, chunk=128)
+    with pytest.raises(ValueError, match="dk <= 256"):
+        cs_ops.chunk_scan_mamba2(w, torch.randn(1, 64, 300, device=card),
+                                 torch.randn(1, 64, 300, device=card), v)
+    with pytest.raises(ValueError, match="multiple of 4"):  # k rows are 16-byte copies
+        cs_ops.chunk_scan_mamba2(w, torch.randn(1, 64, 30, device=card),
+                                 torch.randn(1, 64, 30, device=card), v)
+    with pytest.raises(ValueError, match="multiple of 16"):  # v slices are 16-byte copies
+        cs_ops.chunk_scan_mamba2(w, k, q, torch.randn(1, 64, 2, 40, device=card))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        off = torch.randn(1 + v.numel(), device=card)[1:].view(v.shape)
+        cs_ops.chunk_scan_mamba2(w, k, q, off)
+    with pytest.raises(ValueError, match="s0 must be"):
+        cs_ops.chunk_scan_mamba2(w, k, q, v, s0=torch.zeros(1, 2, 32, 32, device=card,
+                                                            dtype=torch.bfloat16))
+
+
 # -- decode_attn -----------------------------------------------------------
 
 
@@ -559,6 +630,85 @@ def test_decode_attn_wrapper_refuses_what_the_kernel_does_not_take(card):
                 dict(length=10, pos=40, window=8)):
         with pytest.raises(ValueError, match="no cache slot is valid"):
             da_ops.decode_attention(q, k, v, **bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,pos,length,window,ring", [
+    (2, 4096, 1000, 1001, 4096, True),   # Zamba2's ring before the wrap: later partitions masked
+    (2, 4096, 4095, 4096, 4096, True),   # at the wrap
+    (2, 4096, 5000, 5001, 4096, True),   # past the wrap
+    (2, 4096, 100, 101, 4096, True),     # a ring written to one partition
+    (2, 1000, 990, 991, 0, False),       # S not divisible by P * T
+    (2, 3000, 2990, 2991, 700, False),   # a window inside the cache
+    (1, 4096, 512, 513, 4096, True),     # B = 1 (the served 1 x 512 wave): its own split
+    (1, 4096, 5000, 5001, 4096, True),   # B = 1 past the wrap
+])
+def test_decode_attn_split_matches_plain_on_card(card, dtype, b, s, pos, length, window, ring):
+    """Zamba2's decode shape (B 1 or 2, Hkv 32, hd 80) split over P > 1
+    partitions."""
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q, k, v = _attn_inputs(b, s, 32, 1, 80, dtype, pos, card)
+    pl = da_ops.plan(b, s, 32, 80, q.element_size())
+    assert pl.parts > 1 and pl.launches == 2
+    kw = dict(length=length, pos=pos, window=window, ring=ring)
+    before = da_ops.decode_attention.launches
+    out = da_ops.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 1  # one a call, two CUDA launches
+    want = da_ops.decode_attention_plain(q, k, v, **kw)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), want.float(), atol=1e-5, rtol=1e-2)
+    else:
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,offset", [(21, 0), (36, 0), (64, 1)])
+def test_decode_attn_scalar_copies_on_card(card, dtype, hd, offset):
+    """Rows that are not whole 16-byte units (hd 21; hd 36 in bf16) and a
+    cache view that starts off 16-byte alignment take the kernel's scalar
+    copies instead of its tensor copies."""
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q, k, v = _attn_inputs(2, 300, 4, 2, hd, dtype, hd + offset, card)
+    if offset:  # the same values, one element into a larger buffer
+        k = torch.cat([k.new_zeros(offset), k.flatten()])[offset:].view(k.shape)
+        v = torch.cat([v.new_zeros(offset), v.flatten()])[offset:].view(v.shape)
+        assert k.data_ptr() % 16 and k.is_contiguous()
+    for kw in (dict(length=290, pos=289), dict(length=331, pos=330, window=300, ring=True)):
+        out = da_ops.decode_attention(q, k, v, **kw)
+        want = da_ops.decode_attention_plain(q, k, v, **kw)
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(out.float(), want.float(), atol=1e-5, rtol=1e-2)
+        else:
+            torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [2, 3, 8, 43])
+def test_decode_attn_merge_kernel_matches_merge_partials_on_card(card, dtype, parts):
+    """The merge kernel alone over plain partials (some partitions with no
+    valid slot) against `merge_partials`."""
+    from repro_torch.kernels.decode_attn import kernel as da_kernel
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q, k, v = _attn_inputs(2, 512, 4, 7, 128, torch.float32, parts, card)
+    m, l, acc = da_ops.partials_plain(q, k, v, length=200, pos=199, parts=parts,
+                                      slots_per_part=-(-512 // parts))
+    ws = torch.cat([acc, m[..., None], l[..., None]], -1).contiguous()
+    out = torch.empty(2, 28, 128, device=card, dtype=dtype)
+    da_kernel.launch_merge(ws, out)
+    torch.cuda.synchronize()
+    want = da_ops.merge_partials(m, l, acc)
+    assert torch.isfinite(out.float()).all()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), want.to(dtype).float(), atol=1e-5, rtol=1e-2)
+    else:
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
 
 
 # -- the hybrid serving path -------------------------------------------------

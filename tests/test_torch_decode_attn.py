@@ -141,3 +141,59 @@ def test_any_valid_reads_the_mask(ring):
                 kw = dict(length=length, pos=pos, window=window, ring=ring)
                 want = bool(ops.valid_positions(s, device="cpu", **kw).any())
                 assert ops.any_valid(s, **kw) == want, kw
+
+
+# -- the split: partials over P partitions and their merge --------------------
+
+MERGE_CASES = {
+    # a flat cache written to slot 20 of 96: the later partitions hold no valid slot
+    "flat_short": (dict(b=2, s=96, hkv=2, g=4, hd=64), dict(length=21, pos=20)),
+    # a ring written to slot 30 of 64: the same, on the ring
+    "ring_early": (dict(b=2, s=64, hkv=2, g=1, hd=80),
+                   dict(length=31, pos=30, window=64, ring=True)),
+    # a ring past its wrap, with a cap: every partition valid
+    "ring_wrapped": (dict(b=1, s=64, hkv=2, g=2, hd=32),
+                     dict(length=101, pos=100, window=64, ring=True, cap=50.0)),
+    # a window narrower than a partition, and S not divisible by P
+    "window": (dict(b=2, s=100, hkv=1, g=7, hd=128), dict(length=90, pos=89, window=9)),
+}
+
+
+@pytest.mark.parametrize("parts", [1, 3, 8])
+@pytest.mark.parametrize("case", list(MERGE_CASES))
+def test_merge_partials_equals_the_plain_version(case, parts):
+    """Partials over P partitions (the split kernel's first step) merged by
+    `merge_partials` (the merge kernel's plain version) equal
+    `decode_attention_plain`, partitions with no valid slot included
+    (weighted 0, no NaN)."""
+    shape, kw = MERGE_CASES[case]
+    q, k, v = (torch.tensor(a) for a in _case(parts, **shape))
+    spp = -(-shape["s"] // parts)
+    m, l, acc = ops.partials_plain(q, k, v, parts=parts, slots_per_part=spp, **kw)
+    assert m.shape == l.shape == (shape["b"], shape["hkv"] * shape["g"], parts)
+    empty = l == 0
+    if case in ("flat_short", "ring_early") and parts > 1:
+        assert empty.any()
+    assert torch.all(m[empty] == ops.NEG_INF) and not acc[empty].any()
+    got = ops.merge_partials(m, l, acc)
+    assert torch.isfinite(got).all()
+    want = ops.decode_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,hkv,hd,itemsize", [
+    (2, 4096, 32, 80, 2),    # Zamba2's decode ring, bf16
+    (2, 8192, 4, 128, 2),    # qwen2-like GQA, bf16
+    (2, 1024, 2, 256, 4),    # wide rows, float32
+    (1, 100, 2, 16, 4),      # a short cache: one tile a partition
+    (64, 4096, 8, 128, 2),   # a batch that fills the card by itself
+])
+def test_plan_fills_the_card_from_the_shape(b, s, hkv, hd, itemsize):
+    pl = ops.plan(b, s, hkv, hd, itemsize)
+    ntiles = -(-s // pl.tile)
+    assert pl.tile in (32, 64) and pl.stages in (2, 3)
+    assert 3 * 2 * pl.tile * ops.row_bytes(hd, itemsize) <= ops.STAGE_BUDGET or pl.stages == 2
+    assert (pl.parts - 1) * pl.tiles_per_part < ntiles <= pl.parts * pl.tiles_per_part
+    assert b * hkv * pl.parts >= 2 * ops.SMS or pl.tiles_per_part == 1 or pl.parts == 1
+    assert pl.launches == (1 if pl.parts == 1 else 2)
+    assert ops.row_bytes(hd, itemsize) % 32 == 16

@@ -268,7 +268,40 @@ def test_prefill_decode_consistency(model):
     assert _rel(dec.numpy(), full.numpy()) < 0.02
 
 
+@pytest.fixture(scope="module")
+def past_the_window(model):
+    """A 70-token prompt (s = w + 6 at the 64 window, cache 128) and three
+    decode steps: [(decode logits at pos, full-forward logits over pos + 1
+    tokens)] per step."""
+    _, cfg, _, p, _ = model
+    s = 70
+    toks = torch.tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, s + 3))
+                        .astype(np.int32))
+    cache, _ = M.prefill(p, cfg, {"tokens": toks[:, :s]}, 128)
+    assert cache["ak"].shape[2] == 64
+    out = []
+    for i in range(3):
+        cache, dec = M.decode_step(p, cfg, cache, toks[:, s + i], s + i)
+        h, _ = M.forward_hidden(p, cfg, {"tokens": toks[:, :s + i + 1]})
+        full = layers.logits_last(h[:, -1], M.unembed_table(p, cfg), cfg.final_softcap)
+        out.append((dec.numpy(), full.numpy()))
+    return out
+
+
+@pytest.mark.parametrize("step", [1, 2, 3])
+def test_prefill_decode_consistency_past_the_window(past_the_window, step):
+    """A prompt longer than the ring window and not a multiple of it: each
+    decode step equals the full forward over s + 1 tokens (rel < 0.02). The
+    prefill's ring tail must put position p in slot p mod w."""
+    dec, full = past_the_window[step - 1]
+    assert _rel(dec, full) < 0.02
+
+
 def test_init_cache_and_ring_tail(model):
+    """The tail of a prompt longer than the window is rolled so that
+    position p sits in slot p mod w; the reference keeps it unrolled (its
+    docstring assumes S % w == 0), so for S = 70 the port equals the
+    reference's tail rolled by S mod w: a deliberate departure."""
     _, cfg, *_ = model
     cache = M.init_cache(cfg, 3, 200, device="cpu")
     desc = M._cache_desc(cfg, 3, 200)
@@ -279,3 +312,8 @@ def test_init_cache_and_ring_tail(model):
     assert M._ring_tail(k[:, :40], 64).shape == (2, 64, 1, 2)
     assert np.array_equal(np.asarray(ref_model._ring_tail(jnp.asarray(k.numpy()[:, :40]), 64)),
                           M._ring_tail(k[:, :40], 64).numpy())
+    ref70 = np.asarray(ref_model._ring_tail(jnp.asarray(k.numpy()[:, :70]), 64))
+    got70 = M._ring_tail(k[:, :70], 64).numpy()
+    assert np.array_equal(got70, np.roll(ref70, 70 % 64, axis=1))
+    for p in range(6, 70):  # position p in slot p mod 64
+        assert np.array_equal(got70[:, p % 64], k.numpy()[:, p])
