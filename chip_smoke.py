@@ -9,20 +9,28 @@ Phases:
                  (one nvcc per source, all started together)
   1. kernels     each kernel against its plain PyTorch version on the card,
                  over a grid of shapes and count formats (and, for alias_mh,
-                 MH round counts); near-ties are exempt and counted
+                 MH round counts; for lda_gibbs's exact entries, both noise
+                 modes: injected, and Philox drawn in the kernel, against the
+                 plain version on `ops.philox_noise`); near-ties are exempt
+                 and counted; the kernels' Philox4x32-10 words against
+                 cuRAND's `curand_Philox4x32_10` on 2^20 counters
   2. main path   the §5 case study (`examples/quickstart.py`'s config) over the
                  wire through an in-process `VedaliaClient(device="cuda")`:
                  fit 30, refine 70, two view syncs, top reviews, perplexity,
                  once on the exact `torch` backend and once on `alias`;
                  kernel launch counters are zeroed just before each run and
-                 read just after, and each perplexity must land within 5% of
+                 read just after (the `torch` route's blocks take injected
+                 noise: no Philox launch), and each perplexity must land within 5% of
                  the same run of the port on the CPU; after each run, that
                  path's kernel against its plain version at the path's own
-                 shape (one 4096-token block; all tokens with one sweep's
-                 alias tables and draws)
+                 shape (one 4096-token block, in both noise modes; all tokens
+                 with one sweep's alias tables and draws)
   3. scale       a popular product (10,000 reviews, V = 10,000) fit with the
-                 single-launch `cuda` backend: sweep time, tokens/s, the
-                 kernel's time against its byte bound and its plain version
+                 single-launch `cuda` backend (30 launches, all with Philox
+                 noise drawn in the kernel): sweep time, tokens/s, the stages with each route's noise
+                 stage, the kernel in both noise modes against its bounds
+                 (the Philox mode's without the noise bytes) and its plain
+                 version
   4. large_fit   the same popular product over the wire with `backend="auto"`,
                  which must route to `alias` (>= 100k tokens): fit 100 sweeps
                  (one alias_mh launch each), a view sync, the count
@@ -36,13 +44,17 @@ Phases:
                  `auto` -> `batched`, two buckets (32 x 32,768 and 32 x 65,536
                  token slots) — 30 sweeps, a `refine_batch` of all 64 handles
                  (20 sweeps) and a view sync of each: one batched lda_gibbs
-                 launch per bucket and sweep (100), none single-model; the
+                 launch per bucket and sweep (100, all in the Philox mode),
+                 none single-model; the
                  count invariants of every model; four products fit one at a
                  time on `cuda` from the same seeds within 5% perplexity; one
                  batched sweep against 64 single-model launches on the same
-                 noise; zoo sweep time, tokens/s and models/s against 64
-                 sequential sweeps, stages, and the kernel at the larger
-                 bucket against its bound and plain version
+                 noise, and one batched Philox sweep against 64 single-model
+                 `cuda` sweeps from clones of the generators, bit for bit;
+                 zoo sweep time, tokens/s and models/s against 64 sequential
+                 sweeps, stages (key table, drawn noise, kernel in each mode,
+                 rebuild), and the kernel at the larger bucket in both modes
+                 against its bounds and plain version
   6. zoo_alias   the same 64 products through `fit_batch(backend="alias")`,
                  50 sweeps: 100 batched alias_mh launches, invariants, four
                  sequential `alias` fits within 5%, the kernel at the larger
@@ -50,7 +62,8 @@ Phases:
   7. packed      the packed-table path at the popular product, uncut: 30
                  sweeps on `cuda` with `QuantSpec.int8(w_bits=8)` and with
                  `int4` (30 lda_gibbs.resample_quant launches each, no exact
-                 launch), 100 on `alias` with int8 (100 alias_mh launches),
+                 launch; the exact run's 30 in the Philox mode), 100 on
+                 `alias` with int8 (100 alias_mh launches),
                  each training perplexity beside the exact run from the same
                  seed (int8 within 5%; int4 reported); sweep times, stages
                  (noise, table quantization, kernel, rebuild) and the quant
@@ -104,6 +117,13 @@ each with its ms, plain ms, bound, its split (P, CUDA launches a call) and
 (decode_attn) the masked `F.scaled_dot_product_attention` as `library_ms`
 (a yardstick the port never calls).
 
+Every kernel's `ms` is CUDA events over raw launches. The exact lda_gibbs
+entries give beside it `graph_ms`, device time with no host gaps (launches
+captured in a CUDA graph, replayed between CUDA events), and `wrapper_ms`,
+CUDA events through the wrapper. The kernels line's `lda_gibbs.resample`
+entry gives its launches by shape and noise mode (`by_shape`), both counted
+where the wrapper launches (`launches`, `launches_philox`).
+
 Prints one JSON line per phase, then the kernels line, then
 `{"ok": true, "device": {...}}` as the last line. Any failure raises and
 exits non-zero; without CUDA it exits 2 before doing anything.
@@ -156,6 +176,30 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
+    """Mean milliseconds of one `fn()` on the card with no host gaps:
+    `launches` calls captured in one CUDA graph, replayed `reps` times
+    between CUDA events. `fn` must launch on the current stream and
+    allocate nothing the graph keeps."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * launches)
 
 
 # -- phase 0 ---------------------------------------------------------------
@@ -225,12 +269,14 @@ def _random_inputs(n, k, w_bits, d=2000, v=10000, seed=0):
     return (docs, words, z, weights, n_dt, n_wt, n_t, noise)
 
 
-def compare(args, *, alpha, beta, beta_bar, w_bits, many=False, bits=None):
+def compare(args, *, alpha, beta, beta_bar, w_bits, many=False, bits=None, philox=None):
     """Kernel vs plain on identical inputs — one model, with `many` a stack
     of M models through the batched kernel, or with `bits` one model with a
-    packed word table through the quant entry: (mismatches outside
-    near-ties, near-tie mismatches, tokens with a near-tie top-2, max score
-    gap)."""
+    packed word table through the quant entry; with a Philox key `philox`
+    the kernel draws its own noise and the plain version takes
+    `ops.philox_noise` of that key in place of the last argument:
+    (mismatches outside near-ties, near-tie mismatches, tokens with a
+    near-tie top-2, max score gap)."""
     import torch
 
     from repro_torch.kernels.lda_gibbs import ops
@@ -244,7 +290,11 @@ def compare(args, *, alpha, beta, beta_bar, w_bits, many=False, bits=None):
         kernel, plain = ((ops.resample_many, ops.resample_many_plain) if many
                          else (ops.resample, ops.resample_plain))
         scores_fn = ops.perturbed_scores
-    z_k = kernel(*args, **hp).flatten()
+    if philox is None:
+        z_k = kernel(*args, **hp).flatten()
+    else:
+        z_k = kernel(*args[:-1], None, philox=philox, **hp).flatten()
+        args = (*args[:-1], ops.philox_noise(args[2], args[6], philox))
     torch.cuda.synchronize()
     z_p = plain(*args, **hp).flatten()
     scores = scores_fn(*args, **hp)
@@ -262,29 +312,60 @@ def compare(args, *, alpha, beta, beta_bar, w_bits, many=False, bits=None):
             int(near.sum()), float(gap.abs().max()))
 
 
+def _summary(kernels, cases, **extra):
+    return {"phase": "kernels", "kernels": kernels,
+            "mismatches": sum(c["mismatch"] for c in cases),
+            "near_tie_flips": sum(c["near_tie_flips"] for c in cases),
+            "near_ties": sum(c["near_ties"] for c in cases),
+            "max_abs_err": max(c["max_abs_err"] for c in cases), **extra, "cases": cases}
+
+
+def philox_words_check(n=1 << 20, seed=0):
+    """The kernels' Philox4x32-10 against cuRAND's `curand_Philox4x32_10`
+    and the plain version on n random counters and keys (the all-zero and
+    all-ones words included): counts of words that differ."""
+    import torch
+
+    from repro_torch.kernels.lda_gibbs import kernel, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ctr = torch.randint(-2 ** 31, 2 ** 31, (n, 4), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    philox = torch.randint(-2 ** 31, 2 ** 31, (n, 2), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ctr[0], philox[0], ctr[1], philox[1] = 0, 0, -1, -1
+    ours, theirs = kernel.philox_words(ctr, philox)
+    u32 = 0xFFFFFFFF
+    plain = ops.philox4x32_10_plain(ctr.to(torch.int64) & u32, philox.to(torch.int64) & u32)
+    return {"n": n, "differ_curand": int((ours != theirs).sum()),
+            "differ_plain": int(((ours.to(torch.int64) & u32) != plain).sum())}
+
+
 def phase_kernels():
+    """The single-model entry in both noise modes (injected, Philox) against
+    its plain version over K x N x count format, and its Philox words
+    against cuRAND's."""
     hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * 10000)
     cases = []
-    for k in (12, 128, 1000):
-        for n in (65536, 40009):
+    for k in (12, 20, 128, 1000):
+        # 262,147 tokens take a thread a token at K <= 32; 65,536 and 40,009
+        # a group of lanes a token there (fewer than 2^17 tokens: 16 lanes
+        # at K 12, 32 at K 20).
+        for n in (262147, 65536, 40009) if k < 1000 else (65536, 40009):
             for w_bits in (None, 8):
                 args = _random_inputs(n, k, w_bits, seed=k * 7 + n)
-                bad, near_flip, near, gap = compare(args, w_bits=w_bits, **hp)
-                cases.append({"k": k, "n": n, "w_bits": w_bits, "mismatch": bad,
-                              "near_tie_flips": near_flip, "near_ties": near,
-                              "max_abs_err": gap})
-    out = {
-        "phase": "kernels",
-        "kernels": ["lda_gibbs.resample"],
-        "mismatches": sum(c["mismatch"] for c in cases),
-        "near_tie_flips": sum(c["near_tie_flips"] for c in cases),
-        "near_ties": sum(c["near_ties"] for c in cases),
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "cases": cases,
-    }
+                for mode, philox in (("injected", None), ("philox", (2 ** 64 - 1 - n, 4 * k))):
+                    bad, near_flip, near, gap = compare(args, w_bits=w_bits, philox=philox, **hp)
+                    cases.append({"k": k, "n": n, "w_bits": w_bits, "noise": mode,
+                                  "mismatch": bad, "near_tie_flips": near_flip,
+                                  "near_ties": near, "max_abs_err": gap})
+    words = philox_words_check()
+    out = _summary(["lda_gibbs.resample"], cases, philox_words=words)
     emit(out)
     if out["mismatches"]:
         raise SystemExit(f"kernel disagrees with its plain version: {out['mismatches']} tokens")
+    if words["differ_curand"] or words["differ_plain"]:
+        raise SystemExit(f"the kernels' Philox words differ: {words}")
     return out
 
 
@@ -419,7 +500,10 @@ def _grid_width(m, k):
 
 def phase_batched_kernels():
     """Both batched kernels against their plain versions over M x ragged N
-    x K x count format (x S for alias_mh)."""
+    x K x count format (x S for alias_mh; x noise mode, injected or Philox,
+    for lda_gibbs)."""
+    import torch
+
     hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * 4000)
     out = {}
     for name in ("lda_gibbs.resample_many", "alias_mh.resample_many"):
@@ -432,11 +516,15 @@ def phase_batched_kernels():
                     seed = m * 1009 + k * 7 + (w_bits or 0)
                     if name == "lda_gibbs.resample_many":
                         args = _stack_random_inputs(m, n, k, w_bits, d, v, seed)
-                        bad, near_flip, near, gap = compare(args, w_bits=w_bits, many=True,
-                                                            **hp)
-                        cases.append({"m": m, "k": k, "n": n, "w_bits": w_bits,
-                                      "mismatch": bad, "near_tie_flips": near_flip,
-                                      "near_ties": near, "max_abs_err": gap})
+                        table = torch.stack([torch.arange(m, device="cuda") * 7919 - seed,
+                                            torch.arange(m, device="cuda") * 4 + 4 * k], 1)
+                        for mode, philox in (("injected", None), ("philox", table)):
+                            bad, near_flip, near, gap = compare(args, w_bits=w_bits, many=True,
+                                                                philox=philox, **hp)
+                            cases.append({"m": m, "k": k, "n": n, "w_bits": w_bits,
+                                          "noise": mode, "mismatch": bad,
+                                          "near_tie_flips": near_flip, "near_ties": near,
+                                          "max_abs_err": gap})
                         continue
                     for mh_steps in (2, 4):
                         args = _stack_random_inputs(m, n, k, w_bits, d, v, seed + mh_steps,
@@ -447,15 +535,7 @@ def phase_batched_kernels():
                                       "mh_steps": mh_steps, "mismatch": bad,
                                       "near_tie_flips": near_flip, "near_ties": near,
                                       "max_abs_err": gap, "moved": moved})
-        res = {
-            "phase": "kernels",
-            "kernels": [name],
-            "mismatches": sum(c["mismatch"] for c in cases),
-            "near_tie_flips": sum(c["near_tie_flips"] for c in cases),
-            "near_ties": sum(c["near_ties"] for c in cases),
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "cases": cases,
-        }
+        res = _summary([name], cases)
         emit(res)
         if res["mismatches"]:
             raise SystemExit(f"{name} disagrees with its plain version: "
@@ -544,13 +624,14 @@ def phase_main_path(backend):
     from repro_torch.kernels.lda_gibbs import ops
 
     corp = reviews.generate(reviews.SyntheticSpec(**QUICKSTART))
-    ops.resample.launches = 0
+    ops.resample.launches = ops.resample.launches_philox = 0
     alias_ops.mh_resample.launches = 0
     client, fit, sync, resync, tops, ppx, fit_s, total_s = _quickstart_run(
         "cuda", corp.reviews, backend)
     torch.cuda.synchronize()
     launches = {"lda_gibbs.resample": ops.resample.launches,
                 "alias_mh.resample": alias_ops.mh_resample.launches}
+    launches_philox = {"lda_gibbs.resample": ops.resample.launches_philox}
     service = client.server.service
     _check_invariants(service, fit.handle_id)
     handle = service.handles[fit.handle_id]
@@ -559,6 +640,8 @@ def phase_main_path(backend):
                 "alias": {"lda_gibbs.resample": 0, "alias_mh.resample": 100}}[backend]
     if backend == "jnp" and launches["lda_gibbs.resample"] == 0:
         raise SystemExit("the main path launched no lda_gibbs kernel")
+    if launches_philox["lda_gibbs.resample"]:  # the `torch` route injects its blocks' noise
+        raise SystemExit(f"the main path launched {launches_philox} in the Philox mode")
     if backend == "alias" and launches != expected:
         raise SystemExit(f"the alias main path launched {launches}, expected {expected}")
     if not sync.valid or len(resync.topics) != 0 or not resync.delta:
@@ -570,8 +653,8 @@ def phase_main_path(backend):
         "phase": "main_path" if backend == "jnp" else f"main_path_{backend}",
         "tokens": n, "num_topics": fit.num_topics,
         "vocab": handle.cfg.vocab_size, "backend": fit.backend,
-        "launches": launches, "expected_launches": expected,
-        "fit_30_s": round(fit_s, 4), "fit_plus_refine_100_s": round(total_s, 4),
+        "launches": launches, "launches_philox": launches_philox,
+        "expected_launches": expected, "fit_30_s": round(fit_s, 4), "fit_plus_refine_100_s": round(total_s, 4),
         "core_topics": sync.topic_ids, "view_bytes": sync.payload_bytes,
         "delta_bytes": resync.payload_bytes, "top_reviews": {str(k): v for k, v in tops.items()},
         "perplexity": ppx, "perplexity_cpu": ppx_cpu, "perplexity_rel_diff": rel,
@@ -587,42 +670,87 @@ def phase_main_path(backend):
 POPULAR = dict(num_reviews=10_000, vocab_size=2_000, num_topics=8, mean_tokens=60, seed=42)
 
 
+def lda_bound(n_live, n_pad, k, table_bytes, philox):
+    """The least time of one resample: the bytes it must move (each live
+    token's ids/z/weight and output, its (K,) noise row in the injected
+    mode, each padding slot's z/weight/output, the count tables once) over
+    the HBM rate, or its operations — 3 logs (about 4 ops each) a token and
+    topic, and in the Philox mode the Gumbel transform's 2 more logs and one
+    Philox4x32-10 call (about 40 ops) a 4 topics — over the float32 rate,
+    whichever is larger: (bytes, bound ms, what bounds it)."""
+    moved = n_live * (4 * 4 + 4 + (0 if philox else 4 * k)) + n_pad * 12 + table_bytes
+    ops_count = n_live * k * 12
+    if philox:
+        ops_count += n_live * (k * 8 + (k + 3) // 4 * 40)
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S
+    return moved, max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+PHILOX_TIMING_KEY = (2 ** 64 - 123, 8)
+
+
 def kernel_timing(cfg, corpus, state, reps=50):
-    """The wrapper vs its plain version on one sweep's inputs: agreement,
-    mean ms of each, and the kernel's bound from these inputs' bytes."""
+    """The single-model entry in both noise modes on one sweep's inputs:
+    agreement with its plain version, its ms (CUDA events over raw
+    launches; `graph_ms`, the same launches replayed from a CUDA graph:
+    device time with no host gaps; `wrapper_ms`, CUDA events through
+    `ops.resample`), the plain version's ms
+    (in the Philox mode with its noise drawn by `ops.philox_noise`), and
+    the bound from these inputs."""
     import torch
 
     from repro_torch.core import codec
-    from repro_torch.kernels.lda_gibbs import ops
+    from repro_torch.kernels.lda_gibbs import kernel, ops
 
     n, k = corpus.num_tokens, cfg.num_topics
     gen = torch.Generator(device="cuda").manual_seed(123)
     noise = ops.gumbel((n, k), gen, "cuda")
-    args = (corpus.docs, corpus.words, state.z, corpus.weights,
-            state.n_dt, state.n_wt, state.n_t, noise)
-    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
-              w_bits=codec.codec_for(cfg).spec.w_bits)
-    bad, near_flip, near, gap = compare(args, **hp)
-    ms = cuda_ms(lambda: ops.resample(*args, **hp), reps)
-    plain_ms = cuda_ms(lambda: ops.resample_plain(*args, **hp), max(3, reps // 10))
-    table_bytes = sum(t.numel() * t.element_size() for t in (state.n_dt, state.n_wt, state.n_t))
-    moved = n * (4 * 4 + 4 * k + 4) + table_bytes  # ids/z/weight + noise + out; tables once
-    ops_count = n * k * 12  # 3 logs (~4 ops each) per token-topic; adds and max are fewer
-    bound_ms = max(moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S) * 1e3
-    return {
-        "n": n, "k": k, "d": state.n_dt.shape[0], "v": state.n_wt.shape[0],
-        "w_bits": hp["w_bits"], "mismatch": bad, "near_tie_flips": near_flip,
-        "near_ties": near, "max_abs_err": gap, "ms": ms, "plain_ms": plain_ms,
-        "bytes": moved, "bound_ms": bound_ms,
-        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops_count / F32_OPS_PER_S
-        else "operations",
-        "gathered_bytes": n * (4 * 4 + 4 * k + 4 + 2 * 4 * k),
-    }
+    counts = (state.n_dt, state.n_wt, state.n_t)
+    args = (corpus.docs, corpus.words, state.z, corpus.weights, *counts)
+    w_bits = codec.codec_for(cfg).spec.w_bits
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
+    raw_hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
+                  scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
+    table_bytes = sum(t.numel() * t.element_size() for t in counts)
+    z_out = torch.empty_like(state.z)
+    out = {"n": n, "k": k, "d": state.n_dt.shape[0], "v": state.n_wt.shape[0],
+           "w_bits": w_bits,
+           "shape": f"N={n} K={k} D={state.n_dt.shape[0]} V={state.n_wt.shape[0]} "
+                    f"w_bits={w_bits}",
+           "gathered_bytes": n * (4 * 4 + 4 * k + 4 + 2 * 4 * k)}
+    for mode, philox in (("injected", None), ("philox", PHILOX_TIMING_KEY)):
+        g = noise if philox is None else None
+        bad, near_flip, near, gap = compare((*args, noise), philox=philox, **hp)
+
+        def raw(g=g, philox=philox):
+            kernel.launch(*args, g, z_out, philox=philox or (0, 0), **raw_hp)
+
+        def wrapper(g=g, philox=philox):
+            return ops.resample(*args, g, philox=philox, **hp)
+
+        def plain(philox=philox):  # in the Philox mode its draw included
+            g = noise if philox is None else ops.philox_noise(state.z, state.n_t, philox)
+            return ops.resample_plain(*args, g, **hp)
+
+        moved, bound_ms, bound_by = lda_bound(n, 0, k, table_bytes, philox is not None)
+        out[mode] = {
+            "mismatch": bad, "near_tie_flips": near_flip, "near_ties": near,
+            "max_abs_err": gap, "ms": cuda_ms(raw, reps * 4), "graph_ms": graph_ms(raw),
+            "wrapper_ms": cuda_ms(wrapper, reps), "plain_ms": cuda_ms(plain, max(3, reps // 10)),
+            "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    out["mismatch"] = out["injected"]["mismatch"] + out["philox"]["mismatch"]
+    out["max_abs_err"] = max(out["injected"]["max_abs_err"], out["philox"]["max_abs_err"])
+    return out
 
 
 def sweep_breakdown(cfg, corpus, state, reps=20):
-    """Mean ms of each stage of one `cuda`-backend sweep, by CUDA events:
-    the noise draw, the kernel, and the count rebuild."""
+    """Mean ms of each stage of one `cuda`-backend sweep, by CUDA events,
+    with the noise stage of each route: the `cuda` route's Philox key
+    (host only; the kernel draws the noise), the (N, K) `torch.rand`
+    Gumbel draw the injected routes take (the packed sweep; the `torch`
+    route draws it a block at a time), the resample in each mode, and the
+    count rebuild."""
     import torch
 
     from repro_torch.core import codec
@@ -631,10 +759,17 @@ def sweep_breakdown(cfg, corpus, state, reps=20):
     gen = torch.Generator(device="cuda").manual_seed(11)
     shape = (corpus.num_tokens, cfg.num_topics)
     noise = ops.gumbel(shape, gen, "cuda")
-    z_new = ops.sweep_resample(cfg, state, corpus, gen, noise)
+    z_new = ops.sweep_resample(cfg, state, corpus, gen)
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        ops.philox_key(gen)
+    key_host_ms = time.perf_counter() - t0  # seconds over 1000 calls = ms a call
     return {
-        "noise": cuda_ms(lambda: ops.gumbel(shape, gen, "cuda"), reps),
-        "resample": cuda_ms(lambda: ops.sweep_resample(cfg, state, corpus, gen, noise), reps),
+        "noise_cuda_philox_key_host_ms": key_host_ms,
+        "noise_injected_draw": cuda_ms(lambda: ops.gumbel(shape, gen, "cuda"), reps),
+        "resample_philox": cuda_ms(lambda: ops.sweep_resample(cfg, state, corpus, gen), reps),
+        "resample_injected": cuda_ms(lambda: ops.sweep_resample(cfg, state, corpus, gen, noise),
+                                     reps),
         "rebuild": cuda_ms(lambda: codec.rebuild_state(cfg, corpus, z_new), reps),
     }
 
@@ -704,14 +839,14 @@ def phase_scale():
 
     corp, gen_s = popular_reviews()
     torch.cuda.reset_peak_memory_stats()
-    ops.resample.launches = 0
+    ops.resample.launches = ops.resample.launches_philox = 0
     client = VedaliaClient(device="cuda", backend="cuda")
     t0 = time.perf_counter()
     fit = client.fit(corp.reviews, num_topics=12, base_vocab=POPULAR["vocab_size"],
                      w_bits=8, num_sweeps=30, seed=0)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = ops.resample.launches
+    launches, launches_philox = ops.resample.launches, ops.resample.launches_philox
     service = client.server.service
     _check_invariants(service, fit.handle_id)
     handle = service.handles[fit.handle_id]
@@ -735,6 +870,7 @@ def phase_scale():
         "phase": "scale", "tokens": n, "docs": cfg.num_docs, "vocab": cfg.vocab_size,
         "num_topics": cfg.num_topics, "generate_s": round(gen_s, 3),
         "fit_30_s": round(fit_s, 4), "fit_launches": launches,
+        "fit_launches_philox": launches_philox,
         "sweep_ms_median": med, "sweep_ms_min": min(sweep_ms), "sweep_ms_max": max(sweep_ms),
         "tokens_per_s": n / (med / 1e3), "perplexity": fit.perplexity,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -744,8 +880,10 @@ def phase_scale():
     out["profile_top_device_ms"], out["device_busy_ms_per_sweep"] = profile_sweeps(
         sampler, cfg, corpus, state)
     emit(out)
-    if launches != 30 or timing["mismatch"] or not math.isfinite(fit.perplexity):
-        raise SystemExit(f"scale phase failed: launches={launches}, "
+    if launches != 30 or launches_philox != 30 or timing["mismatch"] \
+            or not math.isfinite(fit.perplexity):
+        raise SystemExit(f"scale phase failed: launches={launches} "
+                         f"(Philox {launches_philox}), "
                          f"mismatch={timing['mismatch']}, ppx={fit.perplexity}")
     return out
 
@@ -950,11 +1088,12 @@ def _bucket_shape(b):
 
 
 def batched_kernel_timing(b, reps=50):
-    """The batched Gibbs kernel at one bucket's shape, on one sweep's noise:
-    agreement with its plain version, ms by raw launches (validated inputs,
-    one output), through its wrapper, of the plain version, and the bound
-    from these inputs: every live token's ids/z/weight, noise and output,
-    every padding slot's z/weight/output, and the tables once."""
+    """The batched Gibbs kernel at one bucket's shape in both noise modes
+    (one sweep's drawn noise; a Philox philox a model): agreement with its
+    plain version, ms (CUDA events over raw launches; `graph_ms` from a CUDA
+    graph of them; through its wrapper), the plain version's ms, and the bound
+    from these inputs (`lda_bound`: live tokens in full, padding slots' z,
+    weight and output, the tables once)."""
     import torch
 
     from repro_torch.core import codec
@@ -964,29 +1103,43 @@ def batched_kernel_timing(b, reps=50):
     m, n = corpora.docs.shape
     k = cfg.num_topics
     noise = ops.gumbel((m, n, k), torch.Generator(device="cuda").manual_seed(123), "cuda")
-    args = (corpora.docs, corpora.words, states.z, corpora.weights,
-            states.n_dt, states.n_wt, states.n_t, noise)
+    table = ops.philox_keys([torch.Generator(device="cuda").manual_seed(123 + i)
+                            for i in range(m)], "cuda")
+    counts = (states.n_dt, states.n_wt, states.n_t)
+    args = (corpora.docs, corpora.words, states.z, corpora.weights, *counts)
     w_bits = codec.codec_for(cfg).spec.w_bits
     hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
-    bad, near_flip, near, gap = compare(args, many=True, **hp)
+    raw_hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
+                  scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
     z_out = torch.empty_like(states.z)
-    scale = 1.0 if w_bits is None else 2.0 ** -(w_bits + 1)
-    ms = cuda_ms(lambda: kernel.launch_many(*args, z_out, alpha=cfg.alpha, beta=cfg.beta,
-                                            beta_bar=cfg.beta_bar, scale=scale), reps * 4)
-    wrapper_ms = cuda_ms(lambda: ops.resample_many(*args, **hp), reps)
-    plain_ms = cuda_ms(lambda: ops.resample_many_plain(*args, **hp), max(3, reps // 10))
     live = int((corpora.weights > 0).sum())
-    table_bytes = sum(t.numel() * t.element_size() for t in (states.n_dt, states.n_wt, states.n_t))
-    moved = live * (4 * 4 + 4 * k + 4) + (m * n - live) * 12 + table_bytes
-    ops_count = live * k * 12
-    return {
-        "shape": _bucket_shape(b), "live_tokens": live, "mismatch": bad,
-        "near_tie_flips": near_flip, "near_ties": near, "max_abs_err": gap,
-        "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bytes": moved,
-        "bound_ms": max(moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops_count / F32_OPS_PER_S
-        else "operations",
-    }
+    table_bytes = sum(t.numel() * t.element_size() for t in counts)
+    out = {"shape": _bucket_shape(b), "live_tokens": live}
+    for mode, philox in (("injected", None), ("philox", table)):
+        g = noise if philox is None else None
+        bad, near_flip, near, gap = compare((*args, noise), many=True, philox=philox, **hp)
+
+        def raw(g=g, philox=philox):
+            kernel.launch_many(*args, g, z_out, philox=philox, **raw_hp)
+
+        def wrapper(g=g, philox=philox):
+            return ops.resample_many(*args, g, philox=philox, **hp)
+
+        def plain(philox=philox):  # in the Philox mode its draw included
+            g = noise if philox is None else ops.philox_noise(states.z, states.n_t, philox)
+            return ops.resample_many_plain(*args, g, **hp)
+
+        moved, bound_ms, bound_by = lda_bound(live, m * n - live, k, table_bytes,
+                                              philox is not None)
+        out[mode] = {
+            "mismatch": bad, "near_tie_flips": near_flip, "near_ties": near,
+            "max_abs_err": gap, "ms": cuda_ms(raw, reps * 4), "graph_ms": graph_ms(raw),
+            "wrapper_ms": cuda_ms(wrapper, reps), "plain_ms": cuda_ms(plain, max(3, reps // 10)),
+            "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    out["mismatch"] = out["injected"]["mismatch"] + out["philox"]["mismatch"]
+    out["max_abs_err"] = max(out["injected"]["max_abs_err"], out["philox"]["max_abs_err"])
+    return out
 
 
 def batched_alias_kernel_timing(b, mh_steps, reps=50):
@@ -1089,6 +1242,7 @@ def phase_zoo(sets):
                 alias_ops.mh_resample_many)
     for c in counters:
         c.launches = 0
+    ops.resample.launches_philox = ops.resample_many.launches_philox = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = engine.fit_many([FitRequest(uid=i, reviews=rs, num_sweeps=ZOO_FIT_SWEEPS,
@@ -1105,6 +1259,8 @@ def phase_zoo(sets):
                 "lda_gibbs.resample_many": ops.resample_many.launches,
                 "alias_mh.resample": alias_ops.mh_resample.launches,
                 "alias_mh.resample_many": alias_ops.mh_resample_many.launches}
+    launches_philox = {"lda_gibbs.resample": ops.resample.launches_philox,
+                       "lda_gibbs.resample_many": ops.resample_many.launches_philox}
     peak = torch.cuda.max_memory_allocated()
     want = {"lda_gibbs.resample": 0,
             "lda_gibbs.resample_many": 2 * (ZOO_FIT_SWEEPS + ZOO_REFINE_SWEEPS),
@@ -1141,6 +1297,20 @@ def phase_zoo(sets):
                 near = (top2[:, 0] - top2[:, 1]) < NEAR_TIE
                 stack_vs_single["mismatch"] += int((differ & ~near).sum())
                 stack_vs_single["near_tie_flips"] += int((differ & near).sum())
+    # The route's own noise: one Philox sweep of each stack against each
+    # model's single `cuda` sweep from a clone of its generator, bit for bit.
+    stack_vs_single["philox_differ"] = 0
+    for b in buckets:
+        gens = [torch.Generator(device="cuda").manual_seed(500 + i)
+                for i in range(len(b["handles"]))]
+        twins = []
+        for g in gens:
+            twins.append(torch.Generator(device="cuda"))
+            twins[-1].set_state(g.get_state())
+        z_many = batch.sweep_batch(b["cfg"], b["states"], b["corpora"], gens, b["lengths"]).z
+        for i, (h, n_i, twin) in enumerate(zip(b["handles"], b["lengths"], twins)):
+            z_one = ops.sweep_resample(h.cfg, h.state, h.model.corpus, twin)
+            stack_vs_single["philox_differ"] += int((z_one != z_many[i, :n_i]).sum())
 
     # Time: the zoo sweep (both buckets, as `run_many` sweeps them), the same
     # 64 products as 64 single-model `cuda` sweeps, stages, the kernel.
@@ -1154,8 +1324,8 @@ def phase_zoo(sets):
 
     def zoo_sweep():
         for r in runs:
-            r["states"] = ops.sweep_many(r["cfg"], r["states"], r["corpora"],
-                                         batch.draw_noise(r["noise"], r["gens"], r["lengths"]))
+            r["states"] = batch.sweep_batch(r["cfg"], r["states"], r["corpora"], r["gens"],
+                                            r["lengths"])
 
     zoo_sweep()
     med, lo, hi = _median_ms(zoo_sweep, 20)
@@ -1172,24 +1342,21 @@ def phase_zoo(sets):
     seq_med, seq_lo, seq_hi = _median_ms(sequential_sweeps, 5)
     breakdown = []
     for r in runs:
-        z_new = ops.resample_many(r["corpora"].docs, r["corpora"].words, r["states"].z,
-                                  r["corpora"].weights, r["states"].n_dt, r["states"].n_wt,
-                                  r["states"].n_t, r["noise"], alpha=r["cfg"].alpha,
-                                  beta=r["cfg"].beta, beta_bar=r["cfg"].beta_bar,
-                                  w_bits=r["cfg"].w_bits)
-
-        def kernel_call(r=r):
-            return ops.resample_many(r["corpora"].docs, r["corpora"].words, r["states"].z,
-                                     r["corpora"].weights, r["states"].n_dt,
-                                     r["states"].n_wt, r["states"].n_t, r["noise"],
-                                     alpha=r["cfg"].alpha, beta=r["cfg"].beta,
-                                     beta_bar=r["cfg"].beta_bar, w_bits=r["cfg"].w_bits)
-
+        c, st, cfg = r["corpora"], r["states"], r["cfg"]
+        args = (c.docs, c.words, st.z, c.weights, st.n_dt, st.n_wt, st.n_t)
+        hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=cfg.w_bits)
+        table = ops.philox_keys(r["gens"], "cuda")
+        batch.draw_noise(r["noise"], r["gens"], r["lengths"])
+        z_new = ops.resample_many(*args, philox=table, **hp)
         breakdown.append({
             "shape": _bucket_shape(r),
+            "keys": cuda_ms(lambda r=r: ops.philox_keys(r["gens"], "cuda"), 20),
             "draws": cuda_ms(lambda r=r: batch.draw_noise(r["noise"], r["gens"], r["lengths"]),
                              20),
-            "kernel": cuda_ms(kernel_call, 20),
+            "kernel_philox": cuda_ms(lambda a=args, h=hp, t=table: ops.resample_many(
+                *a, philox=t, **h), 20),
+            "kernel_injected": cuda_ms(lambda a=args, h=hp, r=r: ops.resample_many(
+                *a, r["noise"], **h), 20),
             "rebuild": cuda_ms(lambda r=r, z=z_new: codec.rebuild_state(r["cfg"], r["corpora"], z),
                                20),
         })
@@ -1198,8 +1365,8 @@ def phase_zoo(sets):
     out = {
         "phase": "zoo", "products": ZOO_PRODUCTS, "real_tokens": real_tokens,
         "buckets": [_bucket_shape(b) for b in buckets], "backends": backends,
-        "launches": launches, "expected_launches": want,
-        "fit_many_30_s": round(fit_s, 4), "refine_batch_20_s": round(refine_s, 4),
+        "launches": launches, "launches_philox": launches_philox,
+        "expected_launches": want, "fit_many_30_s": round(fit_s, 4), "refine_batch_20_s": round(refine_s, 4),
         "views_valid": all(s.valid for s in syncs),
         "perplexity_min": min(ppx), "perplexity_max": max(ppx),
         "sequential_cuda_check": gaps,
@@ -1217,13 +1384,16 @@ def phase_zoo(sets):
     emit(out)
     if launches != want:
         raise SystemExit(f"the zoo launched {launches}, expected {want}")
+    if launches_philox["lda_gibbs.resample_many"] != want["lda_gibbs.resample_many"]:
+        raise SystemExit(f"the zoo's batched sweeps drew {launches_philox} in the kernel, "
+                         f"expected all {want['lda_gibbs.resample_many']}")
     if backends != ["batched"]:
         raise SystemExit(f"the zoo resolved to {backends}, expected ['batched']")
     if not out["views_valid"] or not all(math.isfinite(p) for p in ppx):
         raise SystemExit("zoo views invalid or perplexity not finite")
     if out["max_rel_gap"] > PPX_BAND:
         raise SystemExit(f"batched vs sequential cuda perplexity gap {out['max_rel_gap']:.2%}")
-    if stack_vs_single["mismatch"] or timing["mismatch"]:
+    if stack_vs_single["mismatch"] or stack_vs_single["philox_differ"] or timing["mismatch"]:
         raise SystemExit(f"batched kernel disagrees: {stack_vs_single}, "
                          f"plain at the larger bucket {timing['mismatch']}")
     return out
@@ -1465,6 +1635,7 @@ def phase_packed():
         for mode in modes:
             run_cfg = cfg if mode == "exact" else dataclasses.replace(cfg, quant=specs[mode])
             ops.resample.launches = ops.resample_quant.launches = 0
+            ops.resample.launches_philox = 0
             alias_ops.mh_resample.launches = 0
             state, secs = _timed_run(sampler, run_cfg, corpus, seed=0, sweeps=sweeps)
             runs[f"{backend}_{mode}"] = {
@@ -1472,6 +1643,7 @@ def phase_packed():
                 "launches": {"lda_gibbs.resample": ops.resample.launches,
                              "lda_gibbs.resample_quant": ops.resample_quant.launches,
                              "alias_mh.resample": alias_ops.mh_resample.launches},
+                "launches_philox": {"lda_gibbs.resample": ops.resample.launches_philox},
                 "perplexity": perplexity.perplexity(run_cfg, state, corpus),
             }
     for name, r in runs.items():
@@ -1522,9 +1694,10 @@ def phase_packed():
         sampler, r8["cfg"], corpus, r8["state"])
     emit(out)
     for name, r in runs.items():
-        if r["launches"] != want[name]:
-            raise SystemExit(f"packed phase: {name} launched {r['launches']}, "
-                             f"expected {want[name]}")
+        if r["launches"] != want[name] or r["launches_philox"]["lda_gibbs.resample"] \
+                != want[name]["lda_gibbs.resample"]:  # the exact `cuda` run draws in the kernel
+            raise SystemExit(f"packed phase: {name} launched {r['launches']} "
+                             f"(Philox {r['launches_philox']}), expected {want[name]}")
         if not math.isfinite(r["perplexity"]):
             raise SystemExit(f"packed phase: {name} perplexity {r['perplexity']}")
     for name in ("cuda_int8", "alias_int8"):
@@ -2389,19 +2562,36 @@ def main() -> int:
     if block_timing["mismatch"]:
         raise SystemExit("kernel disagrees with its plain version at the main-path shape")
     a = large["kernel"]
+    timed = ("ms", "graph_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
+    # Launches by shape and noise mode, as the wrapper counted them: the case
+    # study's blocks on `torch` (the main path: ⌈N/4096⌉ a sweep, the last
+    # one N mod 4096 tokens), and the popular product's single launches on
+    # `cuda` (`scale` and `packed`'s exact run).
+    cuda_exact = packed["runs"]["cuda_exact"]
+    counted = (
+        (block_timing, main_out["launches"]["lda_gibbs.resample"],
+         main_out["launches_philox"]["lda_gibbs.resample"]),
+        (t, scale["fit_launches"] + cuda_exact["launches"]["lda_gibbs.resample"],
+         scale["fit_launches_philox"] + cuda_exact["launches_philox"]["lda_gibbs.resample"]))
+    by_shape = [{"shape": timing["shape"], "launches_injected": n - n_philox,
+                 "launches_philox": n_philox,
+                 **{mode: {key: timing[mode][key] for key in timed}
+                    for mode in ("injected", "philox")}}
+                for timing, n, n_philox in counted]
+    zk = zoo["kernel"]
     emit({"kernels": [{
         "name": "lda_gibbs.resample",
         "route": "cuda",
         "source": "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu",
         "replaces": "src/repro/kernels/lda_gibbs/kernel.py:233",
         "launches": main_out["launches"]["lda_gibbs.resample"],
+        "launches_philox": main_out["launches_philox"]["lda_gibbs.resample"],
         "max_abs_err": max(errs),
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
+        **{key: block_timing["injected"][key]
+           for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-        "shape": f"N={t['n']} K={t['k']} D={t['d']} V={t['v']} w_bits={t['w_bits']}",
+        "shape": block_timing["shape"] + " noise=injected",
+        "by_shape": by_shape,
     }, {
         "name": "alias_mh.resample",
         "route": "cuda",
@@ -2417,24 +2607,33 @@ def main() -> int:
         "library_ms": None,
         "shape": f"N={a['n']} K={a['k']} D={a['d']} V={a['v']} w_bits={a['w_bits']} "
                  f"S={a['mh_steps']}",
-    }] + [{
-        "name": name,
+    }, {
+        "name": "alias_mh.resample_many",
         "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "launches": phase["launches"][name],
-        "max_abs_err": max(batched_kern[name]["max_abs_err"], phase["kernel"]["max_abs_err"]),
-        "ms": phase["kernel"]["ms"],
-        "plain_ms": phase["kernel"]["plain_ms"],
-        "bound_ms": phase["kernel"]["bound_ms"],
-        "bound_by": phase["kernel"]["bound_by"],
+        "source": "src/repro_torch/kernels/alias_mh/csrc/alias_mh.cu",
+        "replaces": "src/repro/kernels/alias_mh/kernel.py:269",
+        "launches": zoo_alias["launches"]["alias_mh.resample_many"],
+        "max_abs_err": max(batched_kern["alias_mh.resample_many"]["max_abs_err"],
+                           zoo_alias["kernel"]["max_abs_err"]),
+        **{key: zoo_alias["kernel"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-        "shape": phase["kernel"]["shape"],
-    } for name, source, replaces, phase in (
-        ("lda_gibbs.resample_many", "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu",
-         "src/repro/kernels/lda_gibbs/kernel.py:276", zoo),
-        ("alias_mh.resample_many", "src/repro_torch/kernels/alias_mh/csrc/alias_mh.cu",
-         "src/repro/kernels/alias_mh/kernel.py:269", zoo_alias))] + [{
+        "shape": zoo_alias["kernel"]["shape"],
+    }, {
+        "name": "lda_gibbs.resample_many",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu",
+        "replaces": "src/repro/kernels/lda_gibbs/kernel.py:276",
+        "launches": zoo["launches"]["lda_gibbs.resample_many"],
+        "launches_philox": zoo["launches_philox"]["lda_gibbs.resample_many"],
+        "max_abs_err": max(batched_kern["lda_gibbs.resample_many"]["max_abs_err"],
+                           zk["max_abs_err"]),
+        **{key: zk["philox"][key]
+           for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": zk["shape"] + " noise=philox",
+        "injected": {key: zk["injected"][key] for key in timed},
+        "philox": {key: zk["philox"][key] for key in timed},
+    }] + [{
         "name": "lda_gibbs.resample_quant",
         "route": "cuda",
         "source": "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu",

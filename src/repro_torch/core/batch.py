@@ -14,11 +14,15 @@ tensor; the counts of all M models rebuild in one scatter
 (`core.types.build_counts`).
 
 Randomness: model i owns generator i and consumes it exactly as
-`_BaseSampler.run` would for it alone — its init draw and each sweep's
-(N_i, K) uniforms at its own token count N_i, never at the padded length
-(a CUDA Philox draw of N_pad rows does not begin with the draw of N_i
-rows) — so on the CPU a batched run equals M sequential `cuda` runs from
-the same generators token for token.
+`_BaseSampler.run` would for it alone — its init draw at its own token
+count N_i, never at the padded length, then one draw a sweep. On the card
+a sweep's noise is drawn in the kernel: row i of the (M, 2) key table is
+`philox_key(gens[i])`, the (seed, offset) the single-model `cuda` sweep
+would take, and the draw of a token depends only on its index within its
+model, so a batched run equals M sequential `cuda` runs bit for bit. On
+the CPU each sweep draws model i's (N_i, K) uniforms from `gens[i]`
+(`draw_noise`), so a batched run equals M sequential `cuda` runs there
+token for token too.
 
 Bucketing policy (which models may stack) lives one layer up in
 `serving.batch_engine`; this module only checks compatibility.
@@ -138,28 +142,42 @@ def draw_noise(noise: torch.Tensor, gens: Sequence[torch.Generator],
     return kops.gumbel_(noise)
 
 
+def _sweep_noise(cfg: LDAConfig, corpora: Corpus, gens: Sequence[torch.Generator],
+                 lengths: Sequence[int], buf: Optional[torch.Tensor] = None) -> dict:
+    """One sweep's noise as `sweep_many`'s keyword: on the card the (M, 2)
+    Philox key table (`philox=`), elsewhere the (M, N, K) Gumbel draw
+    (`noise=`, into `buf` when given)."""
+    if corpora.device.type == "cuda":
+        return {"philox": kops.philox_keys(gens, corpora.device)}
+    if buf is None:
+        m, n = corpora.docs.shape
+        buf = torch.zeros((m, n, cfg.num_topics), dtype=torch.float32, device=corpora.device)
+    return {"noise": draw_noise(buf, gens, lengths)}
+
+
 def sweep_batch(cfg: LDAConfig, states: LDAState, corpora: Corpus,
                 gens: Sequence[torch.Generator],
                 lengths: Optional[Sequence[int]] = None) -> LDAState:
     """One full sweep over M stacked models; model i consumes `gens[i]`
     exactly as the single-model `cuda` sweep would."""
-    m, n = corpora.docs.shape
-    noise = torch.zeros((m, n, cfg.num_topics), dtype=torch.float32, device=corpora.device)
     return kops.sweep_many(cfg, states, corpora,
-                           draw_noise(noise, gens, _lengths(corpora, lengths)))
+                           **_sweep_noise(cfg, corpora, gens, _lengths(corpora, lengths)))
 
 
 def run_many(cfg: LDAConfig, states: LDAState, corpora: Corpus,
              gens: Sequence[torch.Generator], num_sweeps: int,
              lengths: Optional[Sequence[int]] = None) -> LDAState:
     """`num_sweeps` sweeps over all M stacked models (stored units in and
-    out), one batched kernel launch each; the (M, N, K) noise buffer is
-    allocated once for the run."""
+    out), one batched kernel launch each; off the card the (M, N, K) noise
+    buffer is allocated once for the run."""
     m, n = corpora.docs.shape
     lengths = _lengths(corpora, lengths)
-    noise = torch.zeros((m, n, cfg.num_topics), dtype=torch.float32, device=corpora.device)
+    buf = None
+    if corpora.device.type != "cuda":
+        buf = torch.zeros((m, n, cfg.num_topics), dtype=torch.float32, device=corpora.device)
     for _ in range(num_sweeps):
-        states = kops.sweep_many(cfg, states, corpora, draw_noise(noise, gens, lengths))
+        states = kops.sweep_many(cfg, states, corpora,
+                                 **_sweep_noise(cfg, corpora, gens, lengths, buf))
     return states
 
 

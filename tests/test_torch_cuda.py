@@ -12,7 +12,11 @@ except near-ties, where CUDA's `logf` and PyTorch's `log` could differ by
 an ulp: a top-2 margin of score + noise below 1e-5 for lda_gibbs, an
 accept margin |log u - log a| below 1e-5 in some round for alias_mh.
 A batched launch equals the single-model launches on each model's own
-rows exactly: both entries run the same kernel body. chunk_scan and
+rows exactly: both entries run the same kernel body. The Philox mode
+(noise drawn in the kernel) is held to the same near-tie rule against the
+plain version on `philox_gumbel_plain`'s noise; its Philox words equal
+cuRAND's exactly, and a `batched` sweep equals the single `cuda` sweeps
+from cloned generators exactly. chunk_scan and
 decode_attn sum in other orders than their plain versions: float32 within
 3e-5 (chunk_scan, the reference's own tolerance; 1e-4 past 1,000 tokens,
 where 64 chunks of state carry) and 2e-5 (decode_attn); bf16 outputs within
@@ -26,8 +30,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import alias, codec, types  # noqa: E402
+from repro_torch.core import alias, batch, codec, types  # noqa: E402
 from repro_torch.kernels.alias_mh import ops as alias_ops  # noqa: E402
+from repro_torch.kernels.lda_gibbs import kernel as lda_kernel  # noqa: E402
 from repro_torch.kernels.lda_gibbs import ops  # noqa: E402
 
 NEAR_TIE = 1e-5
@@ -331,6 +336,161 @@ def test_batched_sweeps_on_card_match_cpu_sweeps_on_the_same_noise(card, w_bits)
                 dev = (getattr(got_s, f).cpu().double() - getattr(want_s, f).double()).abs()
                 assert float(dev.max()) <= (1.0 if w_bits is not None else 1e-4), f
 
+
+
+# -- the exact entries' Philox mode ------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_kernel_philox_words_equal_curand_on_card(card):
+    rng = np.random.default_rng(0)
+    ctr = rng.integers(0, 2 ** 32, (4096, 4), dtype=np.uint64)
+    key = rng.integers(0, 2 ** 32, (4096, 2), dtype=np.uint64)
+    ctr[0], key[0] = 0, 0
+    ctr[1], key[1] = 2 ** 32 - 1, 2 ** 32 - 1
+    as_i32 = lambda a: torch.tensor(a.astype(np.uint32).view(np.int32), device=card)  # noqa: E731
+    ours, theirs = lda_kernel.philox_words(as_i32(ctr), as_i32(key))
+    assert torch.equal(ours, theirs)
+    want = ops.philox4x32_10_plain(torch.tensor(ctr.astype(np.int64)),
+                                   torch.tensor(key.astype(np.int64)))
+    assert torch.equal(ours.cpu().to(torch.int64) & 0xFFFFFFFF, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("many", [False, True])
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("k,n,v", [(5, 2051, 300), (5, 131101, 300), (12, 2051, 300),
+                                   (12, 131101, 300), (12, 140001, 40000), (20, 2051, 300),
+                                   (20, 131101, 300), (33, 2051, 300), (128, 2051, 300),
+                                   (1000, 517, 300)])
+def test_both_noise_modes_match_plain_on_card(card, k, n, v, w_bits, many):
+    # K <= 32: below 2^17 tokens a call takes a group of lanes a token (16,
+    # or 32 above K 16) and reads the count rows, above it a thread a token
+    # and the rows' log tables (with V 40,000 the tables outnumber the
+    # tokens).
+    if many:
+        args = _stack_inputs(3, n, k, w_bits, seed=k + 1, device=card, v=v)
+        key = torch.tensor([[2 ** 62 + 5, 8], [-3, 2 ** 40], [11, 0]], device=card)
+        wrapper, plain = ops.resample_many, ops.resample_many_plain
+        counter = ops.resample_many
+    else:
+        args = _inputs(n, k, w_bits, seed=k + 1, device=card, v=v)
+        key = (2 ** 64 - 3, 2 ** 33 + 12)
+        wrapper, plain = ops.resample, ops.resample_plain
+        counter = ops.resample
+    noise = ops.philox_noise(args[2], args[6], key)
+    for kernel_noise, kernel_key, plain_noise in ((args[7], None, args[7]), (None, key, noise)):
+        before = (counter.launches, counter.launches_philox)
+        got = wrapper(*args[:7], kernel_noise, philox=kernel_key, w_bits=w_bits, **HP)
+        torch.cuda.synchronize()
+        assert (counter.launches, counter.launches_philox) == (
+            before[0] + 1, before[1] + (kernel_key is not None))
+        want = plain(*args[:7], plain_noise, w_bits=w_bits, **HP)
+        scores = ops.perturbed_scores(*args[:7], plain_noise, w_bits=w_bits, **HP)
+        _assert_same_but_near_ties(got.flatten(), want.flatten(), scores.reshape(-1, k))
+        frozen = args[3] == 0
+        assert torch.equal(got[frozen], args[2][frozen])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(12, 1031), (12, 140001), (128, 1031)])
+def test_unaligned_tables_take_scalar_loads_on_card(card, k, n):
+    args = list(_inputs(n, k, None, seed=k, device=card))
+    want = ops.resample(*args, **HP)
+    shifted = []
+    for t in (args[4], args[5], args[7]):  # n_dt, n_wt, noise 4 bytes off a 16-byte line
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        shifted.append(view)
+    assert shifted[0].data_ptr() % 16 != 0
+    args[4], args[5], args[7] = shifted
+    assert torch.equal(ops.resample(*args, **HP), want)
+    assert torch.equal(ops.resample(*args[:7], philox=(5, 0), **HP),
+                       ops.resample(*args[:4], *(t.contiguous().clone() for t in args[4:7]),
+                                    philox=(5, 0), **HP))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+def test_philox_key_advances_the_card_generator(card, w_bits):
+    gen = torch.Generator(device=card).manual_seed(2 ** 64 - 1)
+    seed, offset = ops.philox_key(gen)
+    assert seed == 2 ** 64 - 1 and gen.get_offset() == offset + 4
+    table = ops.philox_keys([gen, torch.Generator(device=card).manual_seed(7)], card)
+    assert table.device.type == "cuda" and table.dtype == torch.int64
+    assert table[0].tolist() == [ops._i64(2 ** 64 - 1), offset + 4]
+    # A sweep on the card draws in the kernel: two sweeps from one
+    # generator differ, and a clone of it replays the first exactly.
+    rng = np.random.default_rng(1)
+    n, d, v, k = 3000, 80, 400, 12
+    cfg = types.LDAConfig(num_topics=k, vocab_size=v, num_docs=d, w_bits=w_bits)
+    corpus = types.corpus_from_numpy(rng.integers(0, d, n), rng.integers(0, v, n),
+                                     rng.uniform(0.1, 1.0, n), device=card)
+    state = codec.rebuild_state(cfg, corpus, torch.as_tensor(rng.integers(0, k, n),
+                                                             dtype=torch.int32, device=card))
+    gen = torch.Generator(device=card).manual_seed(3)
+    twin = torch.Generator(device=card)
+    twin.set_state(gen.get_state())
+    before = ops.resample.launches
+    first = ops.sweep_resample(cfg, state, corpus, gen)
+    second = ops.sweep_resample(cfg, state, corpus, gen)
+    assert ops.resample.launches == before + 2
+    assert torch.equal(first, ops.sweep_resample(cfg, state, corpus, twin))
+    assert not torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("k", [12, 128])
+def test_batched_sweep_equals_single_cuda_sweeps_on_card(card, k, w_bits):
+    rng = np.random.default_rng(k)
+    lengths = [1500, 977, 1500, 1203]
+    d, v = 60, 300
+    cfgs, corpora, states = [], [], []
+    for n_i in lengths:
+        cfg = types.LDAConfig(num_topics=k, vocab_size=v, num_docs=d, w_bits=w_bits)
+        c = types.corpus_from_numpy(rng.integers(0, d, n_i), rng.integers(0, v, n_i),
+                                    rng.uniform(0.1, 1.0, n_i), device=card)
+        cfgs.append(cfg)
+        corpora.append(c)
+        states.append(codec.rebuild_state(cfg, c, torch.as_tensor(
+            rng.integers(0, k, n_i), dtype=torch.int32, device=card)))
+    bcfg = batch.batch_cfg(cfgs, d)
+    n_pad = max(lengths)
+    stacked = batch.stack_corpora(corpora, n_pad)
+    stacked_states = batch.stack_states(bcfg, states, n_pad)
+    gens = [torch.Generator(device=card).manual_seed(100 + i) for i in range(len(lengths))]
+    twins = []
+    for g in gens:
+        t = torch.Generator(device=card)
+        t.set_state(g.get_state())
+        twins.append(t)
+    before = (ops.resample_many.launches, ops.resample.launches)
+    got = batch.sweep_batch(bcfg, stacked_states, stacked, gens, lengths)
+    assert (ops.resample_many.launches, ops.resample.launches) == (before[0] + 1, before[1])
+    for i, (cfg, c, st, twin) in enumerate(zip(cfgs, corpora, states, twins)):
+        one = ops.sweep_resample(cfg, st, c, twin)
+        assert torch.equal(got.z[i, : lengths[i]], one), i
+        assert twin.get_offset() == gens[i].get_offset()
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_bad_philox_arguments_on_card(card):
+    args = _inputs(256, 12, 8, seed=1, device=card)
+    with pytest.raises(ValueError, match="not both"):
+        ops.resample(*args, philox=(1, 0), w_bits=8, **HP)
+    with pytest.raises(ValueError, match="key must be a"):
+        ops.resample(*args[:7], philox=(1.5, 0), w_bits=8, **HP)
+    stack = _stack_inputs(3, 256, 12, 8, seed=2, device=card)
+    good = torch.zeros((3, 2), dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="not both"):
+        ops.resample_many(*stack, philox=good, w_bits=8, **HP)
+    for bad in (good.cpu(), good[:2], good.to(torch.int32), good.t().contiguous().t()):
+        with pytest.raises(ValueError, match="key must be a contiguous int64"):
+            ops.resample_many(*stack[:7], philox=bad, w_bits=8, **HP)
+    with pytest.raises(ValueError, match=r"z must be \(M, N\)"):
+        ops.resample_many(*(a[0] for a in stack[:7]), philox=good, w_bits=8, **HP)
 
 
 # -- the packed-table entry (lda_gibbs_resample_quant) -------------------------
