@@ -9,10 +9,12 @@ Phases:
                  (one nvcc per source, all started together)
   1. kernels     each kernel against its plain PyTorch version on the card,
                  over a grid of shapes and count formats (and, for alias_mh,
-                 MH round counts; for lda_gibbs's exact entries, both noise
-                 modes: injected, and Philox drawn in the kernel, against the
-                 plain version on `ops.philox_noise`); near-ties are exempt
-                 and counted; the kernels' Philox4x32-10 words against
+                 MH round counts; for lda_gibbs's exact entries and both
+                 alias_mh entries, both noise or draw modes: injected, and
+                 Philox drawn in the kernel, against the plain version on
+                 `ops.philox_noise` / `ops.philox_draws`; alias_mh records the
+                 body it picks, direct or log tables); near-ties are exempt
+                 and counted; each library's Philox4x32-10 words against
                  cuRAND's `curand_Philox4x32_10` on 2^20 counters
   2. main path   the §5 case study (`examples/quickstart.py`'s config) over the
                  wire through an in-process `VedaliaClient(device="cuda")`:
@@ -20,11 +22,13 @@ Phases:
                  once on the exact `torch` backend and once on `alias`;
                  kernel launch counters are zeroed just before each run and
                  read just after (the `torch` route's blocks take injected
-                 noise: no Philox launch), and each perplexity must land within 5% of
-                 the same run of the port on the CPU; after each run, that
-                 path's kernel against its plain version at the path's own
-                 shape (one 4096-token block, in both noise modes; all tokens
-                 with one sweep's alias tables and draws)
+                 noise: no Philox launch; the `alias` sweeps draw in the
+                 kernel: 100 Philox launches), and each perplexity must land
+                 within 5% of the same run of the port on the CPU; after each
+                 run, that path's kernel against its plain version at the
+                 path's own shape (one 4096-token block, in both noise modes;
+                 all tokens with one sweep's alias tables, in both draw modes,
+                 and the two alias_mh bodies forced, by CUDA graph)
   3. scale       a popular product (10,000 reviews, V = 10,000) fit with the
                  single-launch `cuda` backend (30 launches, all with Philox
                  noise drawn in the kernel): sweep time, tokens/s, the stages with each route's noise
@@ -33,11 +37,13 @@ Phases:
                  version
   4. large_fit   the same popular product over the wire with `backend="auto"`,
                  which must route to `alias` (>= 100k tokens): fit 100 sweeps
-                 (one alias_mh launch each), a view sync, the count
-                 invariants, perplexity within 0.3 in log of phase 3's exact
-                 fit; then sweep time, a per-stage breakdown, the profiler's
-                 top device ops and the kernel against its bound and plain
-                 version
+                 (one alias_mh launch each, all in the Philox mode), a view
+                 sync, the count invariants, perplexity within 0.3 in log of
+                 phase 3's exact fit; then sweep time, a per-stage breakdown
+                 (the Philox key beside the injected mode's draws), the
+                 profiler's top device ops and the kernel in both draw modes
+                 against its bounds (the Philox mode's without the draw
+                 bytes) and plain version
   5. zoo         the batched slice's main path: 64 products at the case
                  study's widths (300 or 600 reviews, base vocab 800, K = 12)
                  through `TopicEngine.fit_many` — one `fit_batch` request,
@@ -56,14 +62,18 @@ Phases:
                  rebuild), and the kernel at the larger bucket in both modes
                  against its bounds and plain version
   6. zoo_alias   the same 64 products through `fit_batch(backend="alias")`,
-                 50 sweeps: 100 batched alias_mh launches, invariants, four
-                 sequential `alias` fits within 5%, the kernel at the larger
-                 bucket against its plain version, bound and time
+                 50 sweeps: 100 batched alias_mh launches, all in the Philox
+                 mode, invariants, four sequential `alias` fits within 5%;
+                 one batched Philox sweep against 64 single `alias` sweeps
+                 from clones of the generators, bit for bit; the kernel at the
+                 larger bucket in both draw modes against its plain version,
+                 bounds and time
   7. packed      the packed-table path at the popular product, uncut: 30
                  sweeps on `cuda` with `QuantSpec.int8(w_bits=8)` and with
                  `int4` (30 lda_gibbs.resample_quant launches each, no exact
                  launch; the exact run's 30 in the Philox mode), 100 on
-                 `alias` with int8 (100 alias_mh launches),
+                 `alias` exact and with int8 (100 alias_mh launches each, all
+                 Philox; the kernel on the int8 run's tables in both modes),
                  each training perplexity beside the exact run from the same
                  seed (int8 within 5%; int4 reported); sweep times, stages
                  (noise, table quantization, kernel, rebuild) and the quant
@@ -97,32 +107,35 @@ Phases:
                  group's depth (6 Mamba2 layers + the shared block): prefill
                  logits and two teacher-forced decode steps within 4% of the
                  logits' scale (bf16 on both sides)
-Phase 1 also holds both batched kernels against their plain versions over
-M in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 (x S
-in {2, 4} for alias_mh), and the packed-table entry over K in {12, 128,
-1000} x int8/int4 x stored n_dt f32/`w_bits` 8 at N = 65,536; chunk_scan
-over both modes x float32/bf16 x s0 given/absent at Zamba2's prefill shape
-(B 2, S 4096, H 80, dk = dv = 64, chunk 32), RWKV6's (H 32, chunk 64), two
-ragged lengths and dk != dv, and the Mamba2 entry (w (B, S, H), k and q
-(B, S, dk): the one the served prefill runs) at Zamba2's prefill, at B 1,
-at the ragged chunks 25 and 60, dk 128 at chunk 64 and rows that are not
-whole 16-byte units, each timed with both bounds (bytes, float32
-operations); decode_attn at Zamba2's decode shape (B 2, a 4096-slot ring,
-Hkv 32, hd 80) before, at and past the wrap, a ring written into its first
-partition only (the later ones all masked), S not divisible by P * T, a
-qwen2-like GQA shape (Hkv 4, G 7, hd 128, 8192 long), a capped window, and
+Phase 1 also holds both batched kernels against their plain versions over M
+in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 x both
+noise or draw modes (x S in {2, 4} for alias_mh), and the packed-table entry
+over K in {12, 128, 1000} x int8/int4 x stored n_dt f32/`w_bits` 8 at N =
+65,536; chunk_scan over both modes x float32/bf16 x s0 given/absent at
+Zamba2's prefill shape (B 2, S 4096, H 80, dk = dv = 64, chunk 32), RWKV6's
+(H 32, chunk 64), two ragged lengths and dk != dv, and the Mamba2 entry (w
+(B, S, H), k and q (B, S, dk): the one the served prefill runs) at Zamba2's
+prefill, at B 1, at the ragged chunks 25 and 60, dk 128 at chunk 64 and rows
+that are not whole 16-byte units, each timed with both bounds (bytes,
+float32 operations); decode_attn at Zamba2's decode shape (B 2, a 4096-slot
+ring, Hkv 32, hd 80) before, at and past the wrap, a ring written into its
+first partition only (the later ones all masked), S not divisible by P * T,
+a qwen2-like GQA shape (Hkv 4, G 7, hd 128, 8192 long), a capped window, and
 hd in {32, 64, 80, 128, 256} x G in {1, 2, 4, 7, 8}, plus its merge kernel
 alone against `merge_partials` (partitions with no valid slot included);
 each with its ms, plain ms, bound, its split (P, CUDA launches a call) and
-(decode_attn) the masked `F.scaled_dot_product_attention` as `library_ms`
-(a yardstick the port never calls).
+(decode_attn) the masked `F.scaled_dot_product_attention` as `library_ms` (a
+yardstick the port never calls).
 
 Every kernel's `ms` is CUDA events over raw launches. The exact lda_gibbs
-entries give beside it `graph_ms`, device time with no host gaps (launches
-captured in a CUDA graph, replayed between CUDA events), and `wrapper_ms`,
-CUDA events through the wrapper. The kernels line's `lda_gibbs.resample`
-entry gives its launches by shape and noise mode (`by_shape`), both counted
-where the wrapper launches (`launches`, `launches_philox`).
+entries and both alias_mh entries give beside it `graph_ms`, device time
+with no host gaps (launches captured in a CUDA graph, replayed between CUDA
+events), and `wrapper_ms`, CUDA events through the wrapper. The kernels
+line's `lda_gibbs.resample` and `alias_mh.resample` entries give their
+launches by shape and noise or draw mode (`by_shape`), counted where the
+wrapper launches (`launches`, `launches_philox`): alias_mh.resample's are
+the case study's on `alias`, the popular product's on int32 tables
+(`large_fit` and `packed`'s exact `alias` run) and on packed int8 tables.
 
 Prints one JSON line per phase, then the kernels line, then
 `{"ok": true, "device": {...}}` as the last line. Any failure raises and
@@ -320,13 +333,14 @@ def _summary(kernels, cases, **extra):
             "max_abs_err": max(c["max_abs_err"] for c in cases), **extra, "cases": cases}
 
 
-def philox_words_check(n=1 << 20, seed=0):
-    """The kernels' Philox4x32-10 against cuRAND's `curand_Philox4x32_10`
-    and the plain version on n random counters and keys (the all-zero and
-    all-ones words included): counts of words that differ."""
+def philox_words_check(kernel, n=1 << 20, seed=0):
+    """A kernel library's Philox4x32-10 (its `philox_words` test entry)
+    against cuRAND's `curand_Philox4x32_10` and the plain version on n
+    random counters and keys (the all-zero and all-ones words included):
+    counts of words that differ."""
     import torch
 
-    from repro_torch.kernels.lda_gibbs import kernel, ops
+    from repro_torch.kernels.lda_gibbs import ops
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     ctr = torch.randint(-2 ** 31, 2 ** 31, (n, 4), generator=gen, device="cuda",
@@ -345,6 +359,8 @@ def phase_kernels():
     """The single-model entry in both noise modes (injected, Philox) against
     its plain version over K x N x count format, and its Philox words
     against cuRAND's."""
+    from repro_torch.kernels.lda_gibbs import kernel
+
     hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * 10000)
     cases = []
     for k in (12, 20, 128, 1000):
@@ -359,7 +375,7 @@ def phase_kernels():
                     cases.append({"k": k, "n": n, "w_bits": w_bits, "noise": mode,
                                   "mismatch": bad, "near_tie_flips": near_flip,
                                   "near_ties": near, "max_abs_err": gap})
-    words = philox_words_check()
+    words = philox_words_check(kernel)
     out = _summary(["lda_gibbs.resample"], cases, philox_words=words)
     emit(out)
     if out["mismatches"]:
@@ -396,13 +412,16 @@ def _alias_inputs(n, k, w_bits, mh_steps, d=2000, v=10000, seed=0):
     return (docs, words, z, weights, *counts, *tables, *draws)
 
 
-def compare_alias(args, *, alpha, beta, beta_bar, w_bits, many=False):
+def compare_alias(args, *, alpha, beta, beta_bar, w_bits, many=False, philox=None):
     """alias_mh kernel vs plain on identical inputs — one model, or with
-    `many` a stack of M models through the batched kernel: (mismatches
-    outside near-ties plus frozen tokens that moved, near-tie mismatches,
-    tokens with a near-tie in some round, the largest smallest-margin among
-    mismatched tokens — 0 when the two agree everywhere, tokens the kernel
-    moved)."""
+    `many` a stack of M models through the batched kernel; with a Philox key
+    `philox` the kernel draws its own rounds (as many as the injected draws
+    in `args` have) and the plain version takes `ops.philox_draws` of that
+    key in their place: (mismatches outside near-ties plus frozen tokens
+    that moved, near-tie mismatches, tokens with a near-tie — accept margin
+    |log u - log a| or proposal margin |u_prop - thresh| below NEAR_TIE — in
+    some round, the largest smallest-margin among mismatched tokens — 0 when
+    the two agree everywhere, tokens the kernel moved)."""
     import torch
 
     from repro_torch.kernels.alias_mh import ops
@@ -410,7 +429,12 @@ def compare_alias(args, *, alpha, beta, beta_bar, w_bits, many=False):
     hp = dict(alpha=alpha, beta=beta, beta_bar=beta_bar, w_bits=w_bits)
     kernel, plain = ((ops.mh_resample_many, ops.mh_resample_many_plain) if many
                      else (ops.mh_resample, ops.mh_resample_plain))
-    z_k = kernel(*args, **hp)
+    if philox is None:
+        z_k = kernel(*args, **hp)
+    else:
+        s = args[11].shape[-2]
+        z_k = kernel(*args[:11], philox=philox, mh_steps=s, **hp)
+        args = (*args[:11], *ops.philox_draws(args[2], args[6], philox, s))
     torch.cuda.synchronize()
     z_p = plain(*args, **hp)
     acc, prop = ops.margins(*args, **hp)
@@ -424,7 +448,19 @@ def compare_alias(args, *, alpha, beta, beta_bar, w_bits, many=False):
             int(near.sum()), float(gap.max()), int((z_k != args[2]).sum()))
 
 
+def alias_body(m, n, d, v, k, s):
+    """The body the alias_mh kernel picks for a call of these shapes."""
+    from repro_torch.kernels.alias_mh import kernel
+
+    return "tables" if kernel._workspace_floats(m, n, d, v, k, s, -1) else "direct"
+
+
 def phase_alias_kernel():
+    """The single-model entry in both draw modes (injected, Philox) against
+    its plain version over K x N x count format x S (the body it picks
+    recorded), and its Philox words against cuRAND's."""
+    from repro_torch.kernels.alias_mh import kernel
+
     hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * 10000)
     cases = []
     for k in (12, 128, 1000):
@@ -432,25 +468,25 @@ def phase_alias_kernel():
             for w_bits in (None, 8):
                 for mh_steps in (2, 4):
                     args = _alias_inputs(n, k, w_bits, mh_steps, seed=k * 7 + n + mh_steps)
-                    bad, near_flip, near, gap, moved = compare_alias(args, w_bits=w_bits, **hp)
-                    cases.append({"k": k, "n": n, "w_bits": w_bits, "mh_steps": mh_steps,
-                                  "mismatch": bad, "near_tie_flips": near_flip,
-                                  "near_ties": near, "max_abs_err": gap, "moved": moved})
-    out = {
-        "phase": "kernels",
-        "kernels": ["alias_mh.resample"],
-        "mismatches": sum(c["mismatch"] for c in cases),
-        "near_tie_flips": sum(c["near_tie_flips"] for c in cases),
-        "near_ties": sum(c["near_ties"] for c in cases),
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "cases": cases,
-    }
+                    body = alias_body(1, n, 2000, 10000, k, mh_steps)
+                    for mode, philox in (("injected", None),
+                                         ("philox", (2 ** 64 - 1 - n - mh_steps, 4 * k))):
+                        bad, near_flip, near, gap, moved = compare_alias(
+                            args, w_bits=w_bits, philox=philox, **hp)
+                        cases.append({"k": k, "n": n, "w_bits": w_bits, "mh_steps": mh_steps,
+                                      "draws": mode, "body": body, "mismatch": bad,
+                                      "near_tie_flips": near_flip, "near_ties": near,
+                                      "max_abs_err": gap, "moved": moved})
+    words = philox_words_check(kernel)
+    out = _summary(["alias_mh.resample"], cases, philox_words=words)
     emit(out)
     if out["mismatches"]:
         raise SystemExit(f"alias_mh kernel disagrees with its plain version: "
                          f"{out['mismatches']} tokens")
     if any(c["moved"] == 0 for c in cases):
         raise SystemExit("alias_mh kernel moved no token in some case")
+    if words["differ_curand"] or words["differ_plain"]:
+        raise SystemExit(f"the alias_mh kernel's Philox words differ: {words}")
     return out
 
 
@@ -500,8 +536,8 @@ def _grid_width(m, k):
 
 def phase_batched_kernels():
     """Both batched kernels against their plain versions over M x ragged N
-    x K x count format (x S for alias_mh; x noise mode, injected or Philox,
-    for lda_gibbs)."""
+    x K x count format x noise or draw mode (injected or Philox; x S for
+    alias_mh)."""
     import torch
 
     hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * 4000)
@@ -529,12 +565,18 @@ def phase_batched_kernels():
                     for mh_steps in (2, 4):
                         args = _stack_random_inputs(m, n, k, w_bits, d, v, seed + mh_steps,
                                                     mh_steps=mh_steps)
-                        bad, near_flip, near, gap, moved = compare_alias(
-                            args, w_bits=w_bits, many=True, **hp)
-                        cases.append({"m": m, "k": k, "n": n, "w_bits": w_bits,
-                                      "mh_steps": mh_steps, "mismatch": bad,
-                                      "near_tie_flips": near_flip, "near_ties": near,
-                                      "max_abs_err": gap, "moved": moved})
+                        table = torch.stack([torch.arange(m, device="cuda") * 7919 - seed,
+                                             torch.arange(m, device="cuda") * 4 + mh_steps],
+                                            1)
+                        for mode, philox in (("injected", None), ("philox", table)):
+                            bad, near_flip, near, gap, moved = compare_alias(
+                                args, w_bits=w_bits, many=True, philox=philox, **hp)
+                            cases.append({"m": m, "k": k, "n": n, "w_bits": w_bits,
+                                          "mh_steps": mh_steps, "draws": mode,
+                                          "body": alias_body(m, n, d, v, k, mh_steps),
+                                          "mismatch": bad, "near_tie_flips": near_flip,
+                                          "near_ties": near, "max_abs_err": gap,
+                                          "moved": moved})
         res = _summary([name], cases)
         emit(res)
         if res["mismatches"]:
@@ -616,7 +658,7 @@ def _check_state(cfg, corpus, state):
 def phase_main_path(backend):
     """The case study on `backend`: "jnp" (the reference's name for the
     exact blocked `torch` sweep, ⌈N/4096⌉ lda_gibbs launches a sweep) or
-    "alias" (one alias_mh launch a sweep)."""
+    "alias" (one alias_mh launch a sweep, its draws made in the kernel)."""
     import torch
 
     from repro_torch.data import reviews
@@ -625,13 +667,14 @@ def phase_main_path(backend):
 
     corp = reviews.generate(reviews.SyntheticSpec(**QUICKSTART))
     ops.resample.launches = ops.resample.launches_philox = 0
-    alias_ops.mh_resample.launches = 0
+    alias_ops.mh_resample.launches = alias_ops.mh_resample.launches_philox = 0
     client, fit, sync, resync, tops, ppx, fit_s, total_s = _quickstart_run(
         "cuda", corp.reviews, backend)
     torch.cuda.synchronize()
     launches = {"lda_gibbs.resample": ops.resample.launches,
                 "alias_mh.resample": alias_ops.mh_resample.launches}
-    launches_philox = {"lda_gibbs.resample": ops.resample.launches_philox}
+    launches_philox = {"lda_gibbs.resample": ops.resample.launches_philox,
+                       "alias_mh.resample": alias_ops.mh_resample.launches_philox}
     service = client.server.service
     _check_invariants(service, fit.handle_id)
     handle = service.handles[fit.handle_id]
@@ -642,8 +685,10 @@ def phase_main_path(backend):
         raise SystemExit("the main path launched no lda_gibbs kernel")
     if launches_philox["lda_gibbs.resample"]:  # the `torch` route injects its blocks' noise
         raise SystemExit(f"the main path launched {launches_philox} in the Philox mode")
-    if backend == "alias" and launches != expected:
-        raise SystemExit(f"the alias main path launched {launches}, expected {expected}")
+    if backend == "alias" and (launches != expected or launches_philox["alias_mh.resample"]
+                               != expected["alias_mh.resample"]):  # its sweeps draw in the kernel
+        raise SystemExit(f"the alias main path launched {launches} (Philox "
+                         f"{launches_philox}), expected {expected}, all Philox")
     if not sync.valid or len(resync.topics) != 0 or not resync.delta:
         raise SystemExit(f"view sync failed: valid={sync.valid}, re-sent {len(resync.topics)}")
     cpu = _quickstart_run("cpu", corp.reviews, backend)
@@ -891,85 +936,177 @@ def phase_scale():
 # -- phase 4 ---------------------------------------------------------------
 
 
-def alias_kernel_timing(cfg, corpus, state, mh_steps, reps=50):
-    """The alias_mh wrapper vs its plain version on one sweep's inputs:
-    agreement, mean ms of each, and the kernel's bound from these inputs."""
+def alias_bound(n_live, n_pad, mh_steps, table_bytes, philox):
+    """The least time of one MH resample: the bytes it must move (each live
+    token's ids/z/weight and output, its three draws a round in the injected
+    mode, each padding slot's z/weight/output, the count and alias tables
+    once) over the HBM rate, or its operations — 9 logs (about 4 ops each)
+    and about 20 others a round, and in the Philox mode one Philox4x32-10
+    call (about 40 ops) a round — over the float32 rate, whichever is
+    larger: (bytes, bound ms, what bounds it)."""
+    moved = n_live * (4 * 4 + 4 + (0 if philox else 12 * mh_steps)) + n_pad * 12 + table_bytes
+    ops_count = n_live * mh_steps * (9 * 4 + 20 + (40 if philox else 0))
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S
+    return moved, max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+ALIAS_TIMING_KEY = (2 ** 64 - 321, 12)
+
+
+def _alias_timing(args, draws, hp, philox, mh_steps, many, n_live, n_pad, reps):
+    """`alias_kernel_timing`'s body for one entry: both draw modes on one
+    sweep's ids, counts and tables `args` (11 tensors) and injected `draws`,
+    the Philox mode under `philox`."""
     import torch
 
-    from repro_torch.core import alias, codec
+    from repro_torch.kernels.alias_mh import kernel, ops
+
+    launch = kernel.launch_many if many else kernel.launch
+    wrapper = ops.mh_resample_many if many else ops.mh_resample
+    plain = ops.mh_resample_many_plain if many else ops.mh_resample_plain
+    raw_hp = dict(alpha=hp["alpha"], beta=hp["beta"], beta_bar=hp["beta_bar"],
+                  scale=1.0 if hp["w_bits"] is None else 2.0 ** -(hp["w_bits"] + 1))
+    table_bytes = sum(t.numel() * t.element_size() for t in args[4:11])
+    z_out = torch.empty_like(args[2])
+    out = {}
+    for mode, key in (("injected", None), ("philox", philox)):
+        bad, near_flip, near, gap, moved = compare_alias((*args, *draws), many=many,
+                                                         philox=key, **hp)
+        kw = {} if key is None else dict(philox=key, mh_steps=mh_steps)
+        d_k = draws if key is None else (None, None, None)
+
+        def raw(d_k=d_k, kw=kw):
+            launch(*args, *d_k, z_out, **raw_hp, **kw)
+
+        def through(d_k=d_k, kw=kw):
+            return wrapper(*args, *d_k, **hp, **kw)
+
+        def plain_run(key=key):  # in the Philox mode its draw included
+            d_p = draws if key is None else ops.philox_draws(args[2], args[6], key, mh_steps)
+            return plain(*args, *d_p, **hp)
+
+        moved_bytes, bound_ms, bound_by = alias_bound(n_live, n_pad, mh_steps, table_bytes,
+                                                      key is not None)
+        out[mode] = {
+            "mismatch": bad, "near_tie_flips": near_flip, "near_ties": near,
+            "max_abs_err": gap, "moved": moved, "ms": cuda_ms(raw, reps * 4),
+            "graph_ms": graph_ms(raw), "wrapper_ms": cuda_ms(through, reps),
+            "plain_ms": cuda_ms(plain_run, max(3, reps // 10)), "bytes": moved_bytes,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    out["mismatch"] = out["injected"]["mismatch"] + out["philox"]["mismatch"]
+    out["max_abs_err"] = max(out["injected"]["max_abs_err"], out["philox"]["max_abs_err"])
+    return out
+
+
+def alias_kernel_timing(cfg, corpus, state, mh_steps, reps=50):
+    """The single-model alias_mh entry in both draw modes on one sweep's
+    inputs, as `ops.mh_sweep` builds them (a packed `cfg.quant` included):
+    agreement with its plain version, its ms (CUDA events over raw
+    launches; `graph_ms`, the same launches replayed from a CUDA graph:
+    device time with no host gaps; `wrapper_ms`, CUDA events through
+    `ops.mh_resample`), the plain version's ms (in the Philox mode with its
+    draws by `ops.philox_draws`), the body the kernel picks, and the bound
+    from these inputs."""
+    import torch
+
+    from repro_torch.core import alias
+    from repro_torch.kernels.alias_mh import ops
+
+    n, k = corpus.num_tokens, cfg.num_topics
+    counts, w_bits, real = ops.sweep_counts(cfg, state)
+    tables = alias.sweep_tables(cfg, *real)
+    draws = alias.sweep_draws(torch.Generator(device="cuda").manual_seed(123), n, k,
+                              mh_steps, "cuda")
+    args = (corpus.docs, corpus.words, state.z, corpus.weights, *counts, *tables)
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
+    d, v = counts[0].shape[0], counts[1].shape[0]
+    out = {"n": n, "k": k, "d": d, "v": v, "w_bits": w_bits, "mh_steps": mh_steps,
+           "body": alias_body(1, n, d, v, k, mh_steps),
+           "shape": f"N={n} K={k} D={d} V={v} w_bits={w_bits} S={mh_steps}"
+                    + (f" quant={cfg.quant_spec.mode}" if cfg.quant_spec.packed else "")}
+    out.update(_alias_timing(args, draws, hp, ALIAS_TIMING_KEY, mh_steps, False, n, 0, reps))
+    return out
+
+
+def alias_bodies_at(cfg, corpus, state, mh_steps):
+    """Both bodies of the single-model alias_mh entry forced at one sweep's
+    inputs, in both draw modes: ms by CUDA graph (device time; the tables
+    body's is its two launches) and the tokens where a body's topics differ
+    from the direct body's (both give the same bits)."""
+    import torch
+
+    from repro_torch.core import alias
     from repro_torch.kernels.alias_mh import kernel, ops
 
     n, k = corpus.num_tokens, cfg.num_topics
-    sc = codec.codec_for(cfg)
-    tables = alias.sweep_tables(cfg, sc.decode_array(state.n_dt), sc.decode_array(state.n_wt))
-    draws = alias.sweep_draws(torch.Generator(device="cuda").manual_seed(123), n, k,
-                              mh_steps, "cuda")
-    args = (corpus.docs, corpus.words, state.z, corpus.weights,
-            state.n_dt, state.n_wt, state.n_t, *tables, *draws)
-    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=sc.spec.w_bits)
-    bad, near_flip, near, gap, moved = compare_alias(args, **hp)
-    # The kernel alone: launches on validated inputs into one output, so the
-    # wrapper's host work (checks, allocation) does not pace the card; the
-    # wrapper's own time per call is what a sweep pays.
-    z_out = torch.empty_like(state.z)
-    scale = 1.0 if hp["w_bits"] is None else 2.0 ** -(hp["w_bits"] + 1)
-    ms = cuda_ms(lambda: kernel.launch(*args, z_out, alpha=cfg.alpha, beta=cfg.beta,
-                                       beta_bar=cfg.beta_bar, scale=scale), reps * 4)
-    wrapper_ms = cuda_ms(lambda: ops.mh_resample(*args, **hp), reps)
-    plain_ms = cuda_ms(lambda: ops.mh_resample_plain(*args, **hp), max(3, reps // 10))
-    table_bytes = sum(t.numel() * t.element_size()
-                      for t in (state.n_dt, state.n_wt, state.n_t, *tables))
-    # ids/z/weight 16 B + three draws a round + the output, per token; every
-    # count and alias table read once
-    moved_bytes = n * (4 * 4 + 12 * mh_steps + 4) + table_bytes
-    ops_count = n * mh_steps * (9 * 4 + 20)  # 9 logs (~4 ops each) + ~20 others a round
-    bound_ms = max(moved_bytes / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S) * 1e3
-    return {
-        "n": n, "k": k, "d": state.n_dt.shape[0], "v": state.n_wt.shape[0],
-        "w_bits": hp["w_bits"], "mh_steps": mh_steps, "mismatch": bad,
-        "near_tie_flips": near_flip, "near_ties": near, "max_abs_err": gap, "moved": moved,
-        "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bytes": moved_bytes,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if moved_bytes / HBM_BYTES_PER_S >= ops_count / F32_OPS_PER_S
-        else "operations",
-    }
+    counts, w_bits, real = ops.sweep_counts(cfg, state)
+    args = (corpus.docs, corpus.words, state.z, corpus.weights, *counts,
+            *alias.sweep_tables(cfg, *real))
+    draws = alias.sweep_draws(torch.Generator(device="cuda").manual_seed(5), n, k, mh_steps,
+                              "cuda")
+    raw_hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
+                  scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
+    out = {}
+    for mode, d_k, kw in (("injected", draws, {}),
+                          ("philox", (None,) * 3,
+                           dict(philox=ALIAS_TIMING_KEY, mh_steps=mh_steps))):
+        zs = {}
+        for body in ("direct", "tables"):
+            zs[body] = torch.empty_like(state.z)
+
+            def run(body=body, d_k=d_k, kw=kw):
+                kernel.launch(*args, *d_k, zs[body], body=body, **raw_hp, **kw)
+
+            out[f"{mode}_{body}_graph_ms"] = graph_ms(run)
+            run()
+        torch.cuda.synchronize()
+        out[f"{mode}_differ"] = int((zs["direct"] != zs["tables"]).sum())
+    return out
 
 
 def alias_sweep_breakdown(cfg, corpus, state, mh_steps, reps=20):
     """Mean ms of each stage of one `alias`-backend sweep, by CUDA events:
-    the table build, the draws, the kernel, and the count rebuild."""
+    the table build, the resample in each draw mode (the card's sweep takes
+    the Philox mode, whose draw stage is the key: host time only), the
+    (S, N) draws the injected mode needs (`sweep_draws`, the CPU route's
+    stage), and the count rebuild."""
     import torch
 
     from repro_torch.core import alias, codec
     from repro_torch.kernels.alias_mh import ops
 
     n, k = corpus.num_tokens, cfg.num_topics
-    sc = codec.codec_for(cfg)
     gen = torch.Generator(device="cuda").manual_seed(17)
+    counts, w_bits, real = ops.sweep_counts(cfg, state)
 
     def tables():
-        return alias.sweep_tables(cfg, sc.decode_array(state.n_dt), sc.decode_array(state.n_wt))
+        return alias.sweep_tables(cfg, *real)
 
     tabs = tables()
     draws = alias.sweep_draws(gen, n, k, mh_steps, "cuda")
-    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=sc.spec.w_bits)
-
-    def resample():
-        return ops.mh_resample(corpus.docs, corpus.words, state.z, corpus.weights, state.n_dt,
-                               state.n_wt, state.n_t, *tabs, *draws, **hp)
-
-    z_new = resample()
+    args = (corpus.docs, corpus.words, state.z, corpus.weights, *counts, *tabs)
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
+    z_new = ops.mh_resample(*args, *draws, **hp)
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        ops.philox_key(gen)
+    key_host_ms = time.perf_counter() - t0  # seconds over 1000 calls = ms a call
     return {
         "tables": cuda_ms(tables, reps),
-        "draws": cuda_ms(lambda: alias.sweep_draws(gen, n, k, mh_steps, "cuda"), reps),
-        "kernel": cuda_ms(resample, reps),
+        "draws_philox_key_host_ms": key_host_ms,
+        "draws_injected": cuda_ms(lambda: alias.sweep_draws(gen, n, k, mh_steps, "cuda"), reps),
+        "kernel_philox": cuda_ms(lambda: ops.mh_resample(
+            *args, philox=ops.philox_key(gen), mh_steps=mh_steps, **hp), reps),
+        "kernel_injected": cuda_ms(lambda: ops.mh_resample(*args, *draws, **hp), reps),
         "rebuild": cuda_ms(lambda: codec.rebuild_state(cfg, corpus, z_new), reps),
     }
 
 
 def phase_large_fit(exact_ppx):
     """The popular product over the wire with `backend="auto"`: it must
-    resolve to `alias` and launch the alias_mh kernel once a sweep."""
+    resolve to `alias` and launch the alias_mh kernel once a sweep, in the
+    Philox mode."""
     import torch
 
     from repro_torch.api import VedaliaClient
@@ -980,7 +1117,7 @@ def phase_large_fit(exact_ppx):
     torch.cuda.reset_peak_memory_stats()
     client = VedaliaClient(device="cuda", backend="auto")
     ops.resample.launches = 0
-    alias_ops.mh_resample.launches = 0
+    alias_ops.mh_resample.launches = alias_ops.mh_resample.launches_philox = 0
     t0 = time.perf_counter()
     fit = client.fit(corp.reviews, num_topics=12, base_vocab=POPULAR["vocab_size"],
                      w_bits=8, num_sweeps=100, seed=0)
@@ -988,6 +1125,7 @@ def phase_large_fit(exact_ppx):
     fit_s = time.perf_counter() - t0
     launches = {"lda_gibbs.resample": ops.resample.launches,
                 "alias_mh.resample": alias_ops.mh_resample.launches}
+    launches_philox = {"alias_mh.resample": alias_ops.mh_resample.launches_philox}
     sync = client.sync_view(fit.handle_id, top_n=8, mass_coverage=0.9, max_topics=6)
     resync = client.sync_view(fit.handle_id, top_n=8, mass_coverage=0.9, max_topics=6)
     service = client.server.service
@@ -1014,6 +1152,7 @@ def phase_large_fit(exact_ppx):
         "phase": "large_fit", "tokens": n, "docs": cfg.num_docs, "vocab": cfg.vocab_size,
         "num_topics": cfg.num_topics, "mh_steps": mh_steps, "backend": fit.backend,
         "fit_100_s": round(fit_s, 4), "launches": launches,
+        "launches_philox": launches_philox,
         "perplexity": fit.perplexity, "perplexity_exact_cuda_30": exact_ppx,
         "log_perplexity_gap": log_gap, "core_topics": sync.topic_ids,
         "view_bytes": sync.payload_bytes, "delta_bytes": resync.payload_bytes,
@@ -1027,9 +1166,10 @@ def phase_large_fit(exact_ppx):
         sampler, cfg, corpus, state)
     emit(out)
     want = {"lda_gibbs.resample": 0, "alias_mh.resample": 100}
-    if fit.backend != "alias" or launches != want:
-        raise SystemExit(f"auto resolved to {fit.backend!r} with launches {launches}; "
-                         f"expected 'alias' with {want}")
+    if fit.backend != "alias" or launches != want \
+            or launches_philox["alias_mh.resample"] != 100:
+        raise SystemExit(f"auto resolved to {fit.backend!r} with launches {launches} "
+                         f"(Philox {launches_philox}); expected 'alias' with {want}, all Philox")
     if not sync.valid or len(resync.topics) != 0 or not resync.delta:
         raise SystemExit(f"view sync failed: valid={sync.valid}, re-sent {len(resync.topics)}")
     if not math.isfinite(fit.perplexity) or log_gap > LOG_PPX_BAND:
@@ -1143,14 +1283,15 @@ def batched_kernel_timing(b, reps=50):
 
 
 def batched_alias_kernel_timing(b, mh_steps, reps=50):
-    """The batched alias_mh kernel at one bucket's shape, with one sweep's
-    tables and draws: agreement, ms (raw launches, wrapper, plain) and the
-    bound from these inputs (live tokens' ids/z/weight, draws and output,
+    """The batched alias_mh entry at one bucket's shape in both draw modes
+    (one sweep's tables; draws from a generator a model, or a Philox key a
+    model): agreement, ms (raw launches, CUDA graph, wrapper, plain) and the
+    bounds from these inputs (live tokens' ids/z/weight, draws and output,
     padding slots' z/weight/output, every count and alias table once)."""
     import torch
 
     from repro_torch.core import alias, codec
-    from repro_torch.kernels.alias_mh import kernel, ops
+    from repro_torch.kernels.lda_gibbs.ops import philox_keys
 
     cfg, corpora, states = b["cfg"], b["corpora"], b["states"]
     m, n = corpora.docs.shape
@@ -1165,29 +1306,14 @@ def batched_alias_kernel_timing(b, mh_steps, reps=50):
         for buf, draw in zip(draws, alias.sweep_draws(gen, n_i, k, mh_steps, "cuda")):
             buf[i, :, :n_i] = draw
     args = (corpora.docs, corpora.words, states.z, corpora.weights,
-            states.n_dt, states.n_wt, states.n_t, *tables, *draws)
+            states.n_dt, states.n_wt, states.n_t, *tables)
     hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=sc.spec.w_bits)
-    bad, near_flip, near, gap, moved_tokens = compare_alias(args, many=True, **hp)
-    z_out = torch.empty_like(states.z)
-    scale = 1.0 if hp["w_bits"] is None else 2.0 ** -(hp["w_bits"] + 1)
-    ms = cuda_ms(lambda: kernel.launch_many(*args, z_out, alpha=cfg.alpha, beta=cfg.beta,
-                                            beta_bar=cfg.beta_bar, scale=scale), reps * 4)
-    wrapper_ms = cuda_ms(lambda: ops.mh_resample_many(*args, **hp), reps)
-    plain_ms = cuda_ms(lambda: ops.mh_resample_many_plain(*args, **hp), max(3, reps // 10))
     live = int((corpora.weights > 0).sum())
-    table_bytes = sum(t.numel() * t.element_size()
-                      for t in (states.n_dt, states.n_wt, states.n_t, *tables))
-    moved = live * (4 * 4 + 12 * mh_steps + 4) + (m * n - live) * 12 + table_bytes
-    ops_count = live * mh_steps * (9 * 4 + 20)
-    return {
-        "shape": _bucket_shape(b) + f" S={mh_steps}", "live_tokens": live, "mismatch": bad,
-        "near_tie_flips": near_flip, "near_ties": near, "max_abs_err": gap,
-        "moved": moved_tokens, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-        "bytes": moved,
-        "bound_ms": max(moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops_count / F32_OPS_PER_S
-        else "operations",
-    }
+    out = {"shape": _bucket_shape(b) + f" S={mh_steps}", "live_tokens": live,
+           "body": alias_body(m, n, cfg.num_docs, cfg.vocab_size, k, mh_steps)}
+    out.update(_alias_timing(args, draws, hp, philox_keys(gens, "cuda"), mh_steps, True, live,
+                             m * n - live, reps))
+    return out
 
 
 def _zoo_seed_check(sets, batched_ppx, seeds, backend, sweeps, refine_seed=None):
@@ -1401,7 +1527,9 @@ def phase_zoo(sets):
 
 def phase_zoo_alias(sets):
     """The same 64 products through `fit_batch(backend="alias")`: one
-    batched MH launch per bucket and sweep."""
+    batched MH launch per bucket and sweep, its draws made in the kernel;
+    one batched Philox sweep of each bucket against the single `alias`
+    sweeps of its models from clones of the generators, bit for bit."""
     import torch
 
     from repro_torch.api import VedaliaClient
@@ -1415,6 +1543,7 @@ def phase_zoo_alias(sets):
                 alias_ops.mh_resample_many)
     for c in counters:
         c.launches = 0
+    alias_ops.mh_resample_many.launches_philox = 0
     t0 = time.perf_counter()
     fits = client.fit_batch(sets, backend="alias", num_sweeps=ZOO_ALIAS_SWEEPS,
                             seed=ZOO_ALIAS_SEED, **ZOO_FIT)
@@ -1424,6 +1553,7 @@ def phase_zoo_alias(sets):
                 "lda_gibbs.resample_many": ops.resample_many.launches,
                 "alias_mh.resample": alias_ops.mh_resample.launches,
                 "alias_mh.resample_many": alias_ops.mh_resample_many.launches}
+    launches_philox = {"alias_mh.resample_many": alias_ops.mh_resample_many.launches_philox}
     want = {"lda_gibbs.resample": 0, "lda_gibbs.resample_many": 0, "alias_mh.resample": 0,
             "alias_mh.resample_many": 2 * ZOO_ALIAS_SWEEPS}
     ids = [f.handle_id for f in fits]
@@ -1434,6 +1564,22 @@ def phase_zoo_alias(sets):
     gaps = _zoo_seed_check(sets, ppx, seeds, "alias", (ZOO_ALIAS_SWEEPS,))
     mh_steps = service.sampler("alias").mh_steps
     buckets = zoo_buckets(service, ids)
+    # The route's own draws: one Philox sweep of each stack against each
+    # model's single `alias` sweep from a clone of its generator, bit for bit.
+    philox_differ, singles = 0, 0
+    for b in buckets:
+        gens = [torch.Generator(device="cuda").manual_seed(700 + i)
+                for i in range(len(b["handles"]))]
+        twins = []
+        for g in gens:
+            twins.append(torch.Generator(device="cuda"))
+            twins[-1].set_state(g.get_state())
+        z_many = alias.run_many(b["cfg"], b["states"], b["corpora"], gens, 1, mh_steps,
+                                b["lengths"]).z
+        for i, (h, n_i, twin) in enumerate(zip(b["handles"], b["lengths"], twins)):
+            z_one = alias_ops.mh_sweep(h.cfg, h.state, h.model.corpus, twin, mh_steps).z
+            philox_differ += int((z_one != z_many[i, :n_i]).sum())
+            singles += 1
     runs = [dict(b, gens=[torch.Generator(device="cuda").manual_seed(51 + i)
                           for i in range(len(b["handles"]))]) for b in buckets]
 
@@ -1451,7 +1597,9 @@ def phase_zoo_alias(sets):
     out = {
         "phase": "zoo_alias", "products": ZOO_PRODUCTS, "mh_steps": mh_steps,
         "backends": sorted({f.backend for f in fits}), "launches": launches,
+        "launches_philox": launches_philox,
         "expected_launches": want, "fit_batch_50_s": round(fit_s, 4),
+        "stack_vs_single": {"single_sweeps": singles, "philox_differ": philox_differ},
         "perplexity_min": min(ppx), "perplexity_max": max(ppx),
         "sequential_alias_check": gaps,
         "max_rel_gap": max(g["rel_gap"] for g in gaps.values()),
@@ -1462,9 +1610,13 @@ def phase_zoo_alias(sets):
         "kernel": timing,
     }
     emit(out)
-    if launches != want or out["backends"] != ["alias"]:
-        raise SystemExit(f"the alias zoo launched {launches} on {out['backends']}, "
-                         f"expected {want} on ['alias']")
+    if launches != want or out["backends"] != ["alias"] \
+            or launches_philox["alias_mh.resample_many"] != want["alias_mh.resample_many"]:
+        raise SystemExit(f"the alias zoo launched {launches} (Philox {launches_philox}) on "
+                         f"{out['backends']}, expected {want}, all Philox, on ['alias']")
+    if philox_differ or singles != ZOO_PRODUCTS:
+        raise SystemExit(f"the batched Philox alias sweep differs from {singles} single "
+                         f"alias sweeps on {philox_differ} tokens")
     if not all(math.isfinite(p) for p in ppx) or out["max_rel_gap"] > PPX_BAND:
         raise SystemExit(f"batched vs sequential alias perplexity gap {out['max_rel_gap']:.2%}")
     if timing["mismatch"]:
@@ -1636,14 +1788,15 @@ def phase_packed():
             run_cfg = cfg if mode == "exact" else dataclasses.replace(cfg, quant=specs[mode])
             ops.resample.launches = ops.resample_quant.launches = 0
             ops.resample.launches_philox = 0
-            alias_ops.mh_resample.launches = 0
+            alias_ops.mh_resample.launches = alias_ops.mh_resample.launches_philox = 0
             state, secs = _timed_run(sampler, run_cfg, corpus, seed=0, sweeps=sweeps)
             runs[f"{backend}_{mode}"] = {
                 "sweeps": sweeps, "s": round(secs, 4), "state": state, "cfg": run_cfg,
                 "launches": {"lda_gibbs.resample": ops.resample.launches,
                              "lda_gibbs.resample_quant": ops.resample_quant.launches,
                              "alias_mh.resample": alias_ops.mh_resample.launches},
-                "launches_philox": {"lda_gibbs.resample": ops.resample.launches_philox},
+                "launches_philox": {"lda_gibbs.resample": ops.resample.launches_philox,
+                                    "alias_mh.resample": alias_ops.mh_resample.launches_philox},
                 "perplexity": perplexity.perplexity(run_cfg, state, corpus),
             }
     for name, r in runs.items():
@@ -1679,6 +1832,9 @@ def phase_packed():
         sweep_ms[name] = statistics.median(times)
     timing = {m: quant_kernel_timing(runs[f"cuda_{m}"]["cfg"], corpus, runs[f"cuda_{m}"]["state"])
               for m in ("int8", "int4")}
+    ra = runs["alias_int8"]
+    alias_timing = alias_kernel_timing(ra["cfg"], corpus, ra["state"],
+                                       get_backend("alias").mh_steps)
     r8 = runs["cuda_int8"]
     out = {
         "phase": "packed", "tokens": corpus.num_tokens, "docs": cfg.num_docs,
@@ -1687,15 +1843,15 @@ def phase_packed():
                  for name, r in runs.items()},
         "expected_launches": want,
         "sweep_ms_median": sweep_ms,
-        "kernel": timing,
+        "kernel": timing, "alias_kernel": alias_timing,
         "sweep_breakdown_ms": packed_sweep_breakdown(r8["cfg"], corpus, r8["state"]),
     }
     out["profile_top_device_ms"], out["device_busy_ms_per_sweep"] = profile_sweeps(
         sampler, r8["cfg"], corpus, r8["state"])
     emit(out)
-    for name, r in runs.items():
-        if r["launches"] != want[name] or r["launches_philox"]["lda_gibbs.resample"] \
-                != want[name]["lda_gibbs.resample"]:  # the exact `cuda` run draws in the kernel
+    for name, r in runs.items():  # the `cuda` exact and `alias` runs draw in the kernel
+        if r["launches"] != want[name] or any(
+                r["launches_philox"][k] != want[name][k] for k in r["launches_philox"]):
             raise SystemExit(f"packed phase: {name} launched {r['launches']} "
                              f"(Philox {r['launches_philox']}), expected {want[name]}")
         if not math.isfinite(r["perplexity"]):
@@ -1708,6 +1864,9 @@ def phase_packed():
         if t["mismatch"]:
             raise SystemExit(f"lda_gibbs.resample_quant ({m}) disagrees with its plain "
                              f"version at the popular product: {t['mismatch']} tokens")
+    if alias_timing["mismatch"]:
+        raise SystemExit(f"alias_mh disagrees with its plain version on the packed int8 "
+                         f"tables: {alias_timing['mismatch']} tokens")
     return out, runs["cuda_int8"]["launches"]["lda_gibbs.resample_quant"] \
         + runs["cuda_int4"]["launches"]["lda_gibbs.resample_quant"]
 
@@ -2532,7 +2691,7 @@ def main() -> int:
     block_timing = kernel_timing(dataclasses.replace(cfg, w_bits=None), block, block_state,
                                  reps=200)
     emit({"phase": "main_path_kernel", "kernel": block_timing})
-    _, alias_handle = phase_main_path("alias")
+    alias_main, alias_handle = phase_main_path("alias")
     # The alias path's own shape: all of the case study's tokens, one sweep's
     # tables and draws from its fitted state.
     from repro_torch.api.backends import get_backend
@@ -2540,7 +2699,12 @@ def main() -> int:
     ah = alias_handle
     alias_block = alias_kernel_timing(ah.cfg, ah.model.corpus, ah.model.state,
                                       get_backend("alias").mh_steps, reps=200)
+    alias_block["bodies"] = alias_bodies_at(ah.cfg, ah.model.corpus, ah.model.state,
+                                            get_backend("alias").mh_steps)
     emit({"phase": "main_path_alias_kernel", "kernel": alias_block})
+    if alias_block["bodies"]["injected_differ"] or alias_block["bodies"]["philox_differ"]:
+        raise SystemExit(f"the alias_mh bodies disagree at the case study: "
+                         f"{alias_block['bodies']}")
     if alias_block["mismatch"]:
         raise SystemExit(f"alias_mh kernel disagrees with its plain version at the alias "
                          f"main-path shape: {alias_block['mismatch']} tokens")
@@ -2579,6 +2743,25 @@ def main() -> int:
                     for mode in ("injected", "philox")}}
                 for timing, n, n_philox in counted]
     zk = zoo["kernel"]
+    # alias_mh.resample by shape and draw mode: the case study on `alias`
+    # (the main path), the popular product's int32 tables (`large_fit` and
+    # `packed`'s exact `alias` run) and its packed int8 tables (`packed`).
+    runs = packed["runs"]
+    alias_counted = (
+        (alias_block, alias_main["launches"]["alias_mh.resample"],
+         alias_main["launches_philox"]["alias_mh.resample"]),
+        (a, large["launches"]["alias_mh.resample"] + runs["alias_exact"]["launches"][
+            "alias_mh.resample"],
+         large["launches_philox"]["alias_mh.resample"] + runs["alias_exact"][
+             "launches_philox"]["alias_mh.resample"]),
+        (packed["alias_kernel"], runs["alias_int8"]["launches"]["alias_mh.resample"],
+         runs["alias_int8"]["launches_philox"]["alias_mh.resample"]))
+    alias_by_shape = [{"shape": timing["shape"], "body": timing["body"],
+                       "launches_injected": n - n_philox, "launches_philox": n_philox,
+                       **{mode: {key: timing[mode][key] for key in timed}
+                          for mode in ("injected", "philox")}}
+                      for timing, n, n_philox in alias_counted]
+    zak = zoo_alias["kernel"]
     emit({"kernels": [{
         "name": "lda_gibbs.resample",
         "route": "cuda",
@@ -2597,27 +2780,30 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/alias_mh/csrc/alias_mh.cu",
         "replaces": "src/repro/kernels/alias_mh/kernel.py:206",
-        "launches": large["launches"]["alias_mh.resample"],
+        "launches": sum(n for _, n, _ in alias_counted),
+        "launches_philox": sum(n for _, _, n in alias_counted),
         "max_abs_err": max(alias_kern["max_abs_err"], alias_block["max_abs_err"],
-                           a["max_abs_err"]),
-        "ms": a["ms"],
-        "plain_ms": a["plain_ms"],
-        "bound_ms": a["bound_ms"],
-        "bound_by": a["bound_by"],
+                           a["max_abs_err"], packed["alias_kernel"]["max_abs_err"]),
+        **{key: a["philox"][key] for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
         "library_ms": None,
-        "shape": f"N={a['n']} K={a['k']} D={a['d']} V={a['v']} w_bits={a['w_bits']} "
-                 f"S={a['mh_steps']}",
+        "shape": a["shape"] + " draws=philox",
+        "by_shape": alias_by_shape,
     }, {
         "name": "alias_mh.resample_many",
         "route": "cuda",
         "source": "src/repro_torch/kernels/alias_mh/csrc/alias_mh.cu",
         "replaces": "src/repro/kernels/alias_mh/kernel.py:269",
         "launches": zoo_alias["launches"]["alias_mh.resample_many"],
+        "launches_philox": zoo_alias["launches_philox"]["alias_mh.resample_many"],
         "max_abs_err": max(batched_kern["alias_mh.resample_many"]["max_abs_err"],
-                           zoo_alias["kernel"]["max_abs_err"]),
-        **{key: zoo_alias["kernel"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                           zak["max_abs_err"]),
+        **{key: zak["philox"][key]
+           for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-        "shape": zoo_alias["kernel"]["shape"],
+        "shape": zak["shape"] + " draws=philox",
+        "injected": {key: zak["injected"][key] for key in timed},
+        "philox": {key: zak["philox"][key] for key in timed},
     }, {
         "name": "lda_gibbs.resample_many",
         "route": "cuda",

@@ -212,18 +212,27 @@ def run_many(cfg: LDAConfig, states: LDAState, corpora: Corpus,
     """`num_sweeps` AliasLDA sweeps over M stacked models (stored units in
     and out), one `kernels.alias_mh.ops.mh_sweep_many` launch each.
 
-    Model i has `lengths[i]` real tokens (default: every slot) and draws
-    from `gens[i]` exactly as `_BaseSampler.run`'s `alias` sweeps draw
-    for it alone: `sweep_draws` at its own length, never at the padded one,
-    copied into its rows of (M, S, N) buffers allocated once for the run
-    (the padding keeps j = 0, u_prop = 0, u_acc = 1 and weight 0). So a
-    batched run is M sequential `alias` runs from the same generators.
+    Model i has `lengths[i]` real tokens (default: every slot) and consumes
+    `gens[i]` exactly as `_BaseSampler.run`'s `alias` sweeps do for it alone,
+    so a batched run is M sequential `alias` runs from the same generators.
+    On the card a sweep's draws are made in the kernel: row i of the (M, 2)
+    key table is `philox_key(gens[i])`, the key the single-model sweep takes,
+    and a token's draw depends only on its index within its model. Off the
+    card model i draws `sweep_draws` at its own length, never at the padded
+    one, into its rows of (M, S, N) buffers allocated once for the run (the
+    padding keeps j = 0, u_prop = 0, u_acc = 1 and weight 0).
     """
     from repro_torch.kernels.alias_mh import ops as kops
+    from repro_torch.kernels.lda_gibbs.ops import philox_keys
 
     m, n = corpora.docs.shape
-    lengths = [n] * m if lengths is None else list(lengths)
     dev = corpora.device
+    if dev.type == "cuda":
+        for _ in range(num_sweeps):
+            states = kops.mh_sweep_many(cfg, states, corpora, philox=philox_keys(gens, dev),
+                                        mh_steps=mh_steps)
+        return states
+    lengths = [n] * m if lengths is None else list(lengths)
     j_prop = torch.zeros((m, mh_steps, n), dtype=torch.int32, device=dev)
     u_prop = torch.zeros((m, mh_steps, n), dtype=torch.float32, device=dev)
     u_acc = torch.ones((m, mh_steps, n), dtype=torch.float32, device=dev)

@@ -98,6 +98,26 @@ def _i64(x: int) -> int:
     return x - (1 << 64) if x >= 1 << 63 else x
 
 
+def philox_plain(seed, offset, c0: torch.Tensor, i: torch.Tensor, *, tag: int,
+                 device=None) -> torch.Tensor:
+    """Philox4x32-10 words of counters (c0, i, offset_lo, offset_hi) under
+    key (seed_lo, seed_hi ^ tag), the layout both kernels draw from.
+    `seed` and `offset` are ints, or (M,) int64 tensors of the same bits, one
+    pair a model (a leading (M,) axis on the result); `c0` and `i` are int64
+    tensors broadcast against each other -> (*lead, *shape, 4) uint32 words
+    held in int64."""
+    seed = torch.as_tensor(_i64(seed) if isinstance(seed, int) else seed,
+                           dtype=torch.int64, device=device)
+    offset = torch.as_tensor(_i64(offset) if isinstance(offset, int) else offset,
+                             dtype=torch.int64, device=seed.device)
+    lead, shape = tuple(seed.shape), torch.broadcast_shapes(c0.shape, i.shape)
+    seed, offset = (x.reshape(lead + (1,) * len(shape)) for x in (seed, offset))
+    counter = torch.stack(torch.broadcast_tensors(
+        c0.to(seed.device), i.to(seed.device), offset & _U32, (offset >> 32) & _U32), -1)
+    key = torch.stack(torch.broadcast_tensors(seed & _U32, ((seed >> 32) & _U32) ^ tag), -1)
+    return philox4x32_10_plain(counter, key)
+
+
 def philox_gumbel_plain(seed, offset, n: int, k: int, *, start: int = 0,
                         device=None) -> torch.Tensor:
     """The Philox mode's noise in eager PyTorch: g(i, t) for tokens i in
@@ -106,20 +126,11 @@ def philox_gumbel_plain(seed, offset, n: int, k: int, *, start: int = 0,
     seed_hi ^ PHILOX_KEY_TAG); u = (x >> 8) * 2^-24 takes `gumbel_`'s
     transform. `seed` and `offset` are ints -> (n, k), or (M,) int64 tensors
     of the same bits, one pair a model -> (M, n, k)."""
-    seed = torch.as_tensor(_i64(seed) if isinstance(seed, int) else seed,
-                           dtype=torch.int64, device=device)
-    offset = torch.as_tensor(_i64(offset) if isinstance(offset, int) else offset,
-                             dtype=torch.int64, device=seed.device)
-    lead = tuple(seed.shape)
-    seed, offset = seed.reshape(*lead, 1, 1), offset.reshape(*lead, 1, 1)
-    i = torch.arange(start, start + n, dtype=torch.int64, device=seed.device)[:, None]
-    c = torch.arange((k + 3) // 4, dtype=torch.int64, device=seed.device)[None, :]
-    counter = torch.stack(torch.broadcast_tensors(
-        c, i, offset & _U32, (offset >> 32) & _U32), -1)
-    key = torch.stack(torch.broadcast_tensors(seed & _U32, ((seed >> 32) & _U32) ^ PHILOX_KEY_TAG),
-                      -1)
-    g = philox_words_to_gumbel(philox4x32_10_plain(counter, key))
-    return g.reshape(*lead, n, -1)[..., :k].contiguous()
+    i = torch.arange(start, start + n, dtype=torch.int64)[:, None]
+    c = torch.arange((k + 3) // 4, dtype=torch.int64)[None, :]
+    g = philox_words_to_gumbel(philox_plain(seed, offset, c, i, tag=PHILOX_KEY_TAG,
+                                            device=device))
+    return g.reshape(*g.shape[:-2], -1)[..., :k].contiguous()
 
 
 def philox_words_to_gumbel(words: torch.Tensor) -> torch.Tensor:
@@ -248,14 +259,20 @@ def _check(docs, words, z, weights, n_dt, n_wt, n_t, noise, w_bits,
             or n_dt.shape[-1] != k or n_wt.shape[-1] != k or n_t.shape != (*lead, k):
         pre = "M," if many else ""
         raise ValueError(f"count tables must be ({pre}D,{k}), ({pre}V,{k}), ({pre}{k},)")
-    if philox is None:
-        return
+    if philox is not None:
+        check_philox_key(philox, lead, ref.device, many)
+
+
+def check_philox_key(philox, lead: tuple, device, many: bool) -> None:
+    """A Philox key as the kernels take it: a (seed, offset) pair of uint64
+    ints for one model, a contiguous (M, 2) int64 table on `device` (`lead`
+    = (M,)) for M."""
     if many:
         if not isinstance(philox, torch.Tensor) or philox.dtype != torch.int64 \
-                or philox.shape != (*lead, 2) or philox.device != ref.device \
+                or philox.shape != (*lead, 2) or philox.device != device \
                 or not philox.is_contiguous():
             raise ValueError(f"the Philox key must be a contiguous int64 tensor of shape "
-                             f"{(*lead, 2)} on {ref.device}")
+                             f"{(*lead, 2)} on {device}")
     elif not (isinstance(philox, tuple) and len(philox) == 2
               and all(isinstance(x, int) and 0 <= x < 1 << 64 for x in philox)):
         raise ValueError("the Philox key must be a (seed, offset) pair of uint64 ints")

@@ -12,11 +12,14 @@ except near-ties, where CUDA's `logf` and PyTorch's `log` could differ by
 an ulp: a top-2 margin of score + noise below 1e-5 for lda_gibbs, an
 accept margin |log u - log a| below 1e-5 in some round for alias_mh.
 A batched launch equals the single-model launches on each model's own
-rows exactly: both entries run the same kernel body. The Philox mode
-(noise drawn in the kernel) is held to the same near-tie rule against the
-plain version on `philox_gumbel_plain`'s noise; its Philox words equal
-cuRAND's exactly, and a `batched` sweep equals the single `cuda` sweeps
-from cloned generators exactly. chunk_scan and
+rows exactly: both entries run the same kernel body. The Philox modes
+(noise or MH draws made in the kernel) are held to the same near-tie rules
+against the plain versions on `philox_gumbel_plain`'s noise and
+`philox_mh_draws_plain`'s draws (alias_mh also exempts a proposal margin
+|u_prop - thresh| below 1e-5, and runs both of its bodies, direct and log
+tables); their Philox words equal cuRAND's exactly, and a `batched` sweep
+equals the single `cuda` sweeps, a batched `alias` sweep the single `alias`
+sweeps, from cloned generators exactly. chunk_scan and
 decode_attn sum in other orders than their plain versions: float32 within
 3e-5 (chunk_scan, the reference's own tolerance; 1e-4 past 1,000 tokens,
 where 64 chunks of state carry) and 2e-5 (decode_attn); bf16 outputs within
@@ -491,6 +494,154 @@ def test_wrappers_refuse_bad_philox_arguments_on_card(card):
             ops.resample_many(*stack[:7], philox=bad, w_bits=8, **HP)
     with pytest.raises(ValueError, match=r"z must be \(M, N\)"):
         ops.resample_many(*(a[0] for a in stack[:7]), philox=good, w_bits=8, **HP)
+
+
+# -- the alias_mh kernel's Philox mode and its two bodies -----------------------
+
+
+def _alias_margins_ok(got, want, args, draws, w_bits):
+    """Differences only at near-ties (accept or proposal margin below
+    NEAR_TIE in some round) and never on a frozen token."""
+    acc, prop = alias_ops.margins(*args[:11], *draws, w_bits=w_bits, **HP)
+    diff = got != want
+    near = (acc < NEAR_TIE) | (prop < NEAR_TIE)
+    return bool((near[diff]).all()) and bool((args[3][diff] > 0).all())
+
+
+@pytest.mark.cuda
+def test_alias_kernel_philox_words_equal_curand_on_card(card):
+    from repro_torch.kernels.alias_mh import kernel as alias_kernel
+
+    rng = np.random.default_rng(1)
+    ctr = rng.integers(0, 2 ** 32, (4096, 4), dtype=np.uint64)
+    key = rng.integers(0, 2 ** 32, (4096, 2), dtype=np.uint64)
+    ctr[0], key[0] = 0, 0
+    ctr[1], key[1] = 2 ** 32 - 1, 2 ** 32 - 1
+    as_i32 = lambda a: torch.tensor(a.astype(np.uint32).view(np.int32), device=card)  # noqa: E731
+    ours, theirs = alias_kernel.philox_words(as_i32(ctr), as_i32(key))
+    assert torch.equal(ours, theirs)
+    want = ops.philox4x32_10_plain(torch.tensor(ctr.astype(np.int64)),
+                                   torch.tensor(key.astype(np.int64)))
+    assert torch.equal(ours.cpu().to(torch.int64) & 0xFFFFFFFF, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["auto", "direct", "tables"])
+@pytest.mark.parametrize("many", [False, True])
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("k,n,s", [(12, 4099, 4), (12, 40001, 2), (33, 4099, 3),
+                                   (200, 4099, 4), (1000, 1031, 2)])
+def test_alias_both_draw_modes_and_bodies_match_plain_on_card(card, k, n, s, w_bits, many,
+                                                             body):
+    from repro_torch.kernels.alias_mh import kernel as alias_kernel
+
+    if many:
+        args = _stack_inputs(3, n, k, w_bits, seed=k + s, device=card, mh_steps=s)
+        key = torch.tensor([[2 ** 62 + 5, 8], [-3, 2 ** 40], [11, 0]], device=card)
+        launch, plain = alias_kernel.launch_many, alias_ops.mh_resample_many_plain
+    else:
+        args = _alias_inputs(n, k, w_bits, seed=k + s, device=card, mh_steps=s)
+        key = (2 ** 64 - 3, 2 ** 33 + 12)
+        launch, plain = alias_kernel.launch, alias_ops.mh_resample_plain
+    draws = alias_ops.philox_draws(args[2], args[6], key, s)
+    raw = dict(alpha=HP["alpha"], beta=HP["beta"], beta_bar=HP["beta_bar"],
+               scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1), body=body)
+    for kernel_draws, extra, plain_draws in (
+            (args[11:], {}, args[11:]),
+            ((None, None, None), dict(philox=key, mh_steps=s), draws)):
+        got = torch.empty_like(args[2])
+        launch(*args[:11], *kernel_draws, got, **raw, **extra)
+        torch.cuda.synchronize()
+        want = plain(*args[:11], *plain_draws, w_bits=w_bits, **HP)
+        assert _alias_margins_ok(got, want, args, plain_draws, w_bits)
+        frozen = args[3] == 0
+        assert torch.equal(got[frozen], args[2][frozen])
+        assert int((got != args[2]).sum()) > 0  # the chains move
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+def test_alias_sweep_on_card_draws_in_the_kernel(card, w_bits):
+    rng = np.random.default_rng(3)
+    n, d, v, k = 5000, 80, 400, 12
+    cfg = types.LDAConfig(num_topics=k, vocab_size=v, num_docs=d, w_bits=w_bits)
+    cpu = types.corpus_from_numpy(rng.integers(0, d, n), rng.integers(0, v, n),
+                                  rng.uniform(0.1, 1.0, n), device="cpu")
+    state = codec.rebuild_state(cfg, cpu, torch.as_tensor(rng.integers(0, k, n),
+                                                         dtype=torch.int32))
+    gen = torch.Generator(device=card).manual_seed(2 ** 63 + 9)
+    twin = torch.Generator(device=card)
+    twin.set_state(gen.get_state())
+    seed, offset = gen.initial_seed(), gen.get_offset()
+    before = (alias_ops.mh_resample.launches, alias_ops.mh_resample.launches_philox)
+    first = alias_ops.mh_sweep(cfg, state.to(card), cpu.to(card), gen, 4)
+    second = alias_ops.mh_sweep(cfg, state.to(card), cpu.to(card), gen, 4)
+    assert (alias_ops.mh_resample.launches, alias_ops.mh_resample.launches_philox) == \
+        (before[0] + 2, before[1] + 2)
+    assert gen.get_offset() == offset + 8
+    assert torch.equal(first.z, alias_ops.mh_sweep(cfg, state.to(card), cpu.to(card), twin, 4).z)
+    assert not torch.equal(first.z, second.z)
+    # The CPU sweep on the plain Philox draws of the same key.
+    draws = alias_ops.philox_mh_draws_plain(seed, offset, n, 4, k)
+    want = alias_ops.mh_sweep(cfg, state, cpu, None, 4, draws=draws)
+    real = codec.decode_state(cfg, state)
+    args = (cpu.docs, cpu.words, state.z, cpu.weights, state.n_dt, state.n_wt, state.n_t,
+            *alias.sweep_tables(cfg, real.n_dt, real.n_wt))
+    assert _alias_margins_ok(first.z.cpu(), want.z, args, draws, w_bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("k", [12, 128])
+def test_batched_alias_sweep_equals_single_alias_sweeps_on_card(card, k, w_bits):
+    rng = np.random.default_rng(k)
+    lengths = [1500, 977, 1500, 1203]
+    d, v = 60, 300
+    cfgs, corpora, states = [], [], []
+    for n_i in lengths:
+        cfg = types.LDAConfig(num_topics=k, vocab_size=v, num_docs=d, w_bits=w_bits)
+        c = types.corpus_from_numpy(rng.integers(0, d, n_i), rng.integers(0, v, n_i),
+                                    rng.uniform(0.1, 1.0, n_i), device=card)
+        cfgs.append(cfg)
+        corpora.append(c)
+        states.append(codec.rebuild_state(cfg, c, torch.as_tensor(
+            rng.integers(0, k, n_i), dtype=torch.int32, device=card)))
+    bcfg = batch.batch_cfg(cfgs, d)
+    n_pad = max(lengths)
+    stacked = batch.stack_corpora(corpora, n_pad)
+    stacked_states = batch.stack_states(bcfg, states, n_pad)
+    gens = [torch.Generator(device=card).manual_seed(100 + i) for i in range(len(lengths))]
+    twins = []
+    for g in gens:
+        t = torch.Generator(device=card)
+        t.set_state(g.get_state())
+        twins.append(t)
+    before = (alias_ops.mh_resample_many.launches, alias_ops.mh_resample_many.launches_philox,
+              alias_ops.mh_resample.launches)
+    got = alias.run_many(bcfg, stacked_states, stacked, gens, 2, 4, lengths)
+    assert (alias_ops.mh_resample_many.launches, alias_ops.mh_resample_many.launches_philox,
+            alias_ops.mh_resample.launches) == (before[0] + 2, before[1] + 2, before[2])
+    for i, (cfg, c, st, twin) in enumerate(zip(cfgs, corpora, states, twins)):
+        for _ in range(2):
+            st = alias_ops.mh_sweep(cfg, st, c, twin, 4)
+        assert torch.equal(got.z[i, : lengths[i]], st.z), i
+        assert twin.get_offset() == gens[i].get_offset()
+
+
+@pytest.mark.cuda
+def test_alias_wrappers_refuse_bad_philox_arguments_on_card(card):
+    args = _alias_inputs(256, 12, 8, seed=1, device=card)
+    with pytest.raises(ValueError, match="not both"):
+        alias_ops.mh_resample(*args, philox=(1, 0), mh_steps=4, w_bits=8, **HP)
+    with pytest.raises(ValueError, match="mh_steps >= 1"):
+        alias_ops.mh_resample(*args[:11], philox=(1, 0), w_bits=8, **HP)
+    with pytest.raises(ValueError, match="key must be a"):
+        alias_ops.mh_resample(*args[:11], philox=(1.5, 0), mh_steps=4, w_bits=8, **HP)
+    stack = _stack_inputs(3, 256, 12, 8, seed=2, device=card, mh_steps=2)
+    good = torch.zeros((3, 2), dtype=torch.int64, device=card)
+    for bad in (good.cpu(), good[:2], good.to(torch.int32), good.t().contiguous().t()):
+        with pytest.raises(ValueError, match="key must be a contiguous int64"):
+            alias_ops.mh_resample_many(*stack[:11], philox=bad, mh_steps=2, w_bits=8, **HP)
 
 
 # -- the packed-table entry (lda_gibbs_resample_quant) -------------------------
