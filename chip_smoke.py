@@ -9,7 +9,7 @@ Phases:
                  (one nvcc per source, all started together)
   1. kernels     each kernel against its plain PyTorch version on the card,
                  over a grid of shapes and count formats (and, for alias_mh,
-                 MH round counts; for lda_gibbs's exact entries and both
+                 MH round counts; for every lda_gibbs entry and both
                  alias_mh entries, both noise or draw modes: injected, and
                  Philox drawn in the kernel, against the plain version on
                  `ops.philox_noise` / `ops.philox_draws`; alias_mh records the
@@ -70,17 +70,21 @@ Phases:
                  bounds and time
   7. packed      the packed-table path at the popular product, uncut: 30
                  sweeps on `cuda` with `QuantSpec.int8(w_bits=8)` and with
-                 `int4` (30 lda_gibbs.resample_quant launches each, no exact
+                 `int4` (30 lda_gibbs.resample_quant launches each, all in
+                 the Philox mode, and 30 pack-kernel launches; no exact
                  launch; the exact run's 30 in the Philox mode), 100 on
                  `alias` exact and with int8 (100 alias_mh launches each, all
                  Philox; the kernel on the int8 run's tables in both modes),
                  each training perplexity beside the exact run from the same
                  seed (int8 within 5%; int4 reported); sweep times, stages
-                 (noise, table quantization, kernel, rebuild) and the quant
-                 kernel against its bound and plain version
+                 (key, table build, kernel in each mode, rebuild), the quant
+                 kernel in both modes against its bounds and plain version,
+                 and the pack kernel against its bound and plain version
   8. packed_case_study
                  the case study fit 100 sweeps on `cuda` with int8 and int4
-                 tables, on the card and on the CPU: perplexity within 5%
+                 tables, on the card (100 Philox quant launches and 100 pack
+                 launches each) and on the CPU: perplexity within 5%; the
+                 quant kernel in both modes and the pack kernel at its shape
   9. stream      the streaming tier: a 600 s burst stream with a concept
                  shift (16 products, about 5,850 reviews) routed onto 2
                  in-process servers on the card, micro-batched drain-updates,
@@ -109,10 +113,12 @@ Phases:
                  logits' scale (bf16 on both sides)
 Phase 1 also holds both batched kernels against their plain versions over M
 in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 x both
-noise or draw modes (x S in {2, 4} for alias_mh), and the packed-table entry
-over K in {12, 128, 1000} x int8/int4 x stored n_dt f32/`w_bits` 8 at N =
-65,536; chunk_scan over both modes x float32/bf16 x s0 given/absent at
-Zamba2's prefill shape (B 2, S 4096, H 80, dk = dv = 64, chunk 32), RWKV6's
+noise or draw modes (x S in {2, 4} for alias_mh), the packed-table entry in
+both noise modes over K in {12, 128, 1000} x int8/int4 x stored n_dt
+f32/`w_bits` 8 (K 12 at N 262,147 and 40,009, both of its bodies; K 128 and
+1000 at 65,536), and the pack kernel bit for bit at V 10,000; chunk_scan
+over both modes x float32/bf16 x s0 given/absent at Zamba2's prefill shape
+(B 2, S 4096, H 80, dk = dv = 64, chunk 32), RWKV6's
 (H 32, chunk 64), two ragged lengths and dk != dv, and the Mamba2 entry (w
 (B, S, H), k and q (B, S, dk): the one the served prefill runs) at Zamba2's
 prefill, at B 1, at the ragged chunks 25 and 60, dk 128 at chunk 64 and rows
@@ -127,15 +133,20 @@ each with its ms, plain ms, bound, its split (P, CUDA launches a call) and
 (decode_attn) the masked `F.scaled_dot_product_attention` as `library_ms` (a
 yardstick the port never calls).
 
-Every kernel's `ms` is CUDA events over raw launches. The exact lda_gibbs
+Every kernel's `ms` is CUDA events over raw launches. The lda_gibbs
 entries and both alias_mh entries give beside it `graph_ms`, device time
 with no host gaps (launches captured in a CUDA graph, replayed between CUDA
 events), and `wrapper_ms`, CUDA events through the wrapper. The kernels
-line's `lda_gibbs.resample` and `alias_mh.resample` entries give their
-launches by shape and noise or draw mode (`by_shape`), counted where the
-wrapper launches (`launches`, `launches_philox`): alias_mh.resample's are
-the case study's on `alias`, the popular product's on int32 tables
-(`large_fit` and `packed`'s exact `alias` run) and on packed int8 tables.
+line's `lda_gibbs.resample`, `lda_gibbs.resample_quant` and
+`alias_mh.resample` entries give their launches by shape and noise or draw
+mode (`by_shape`), counted where the wrapper launches (`launches`,
+`launches_philox`): alias_mh.resample's are the case study's on `alias`,
+the popular product's on int32 tables (`large_fit` and `packed`'s exact
+`alias` run) and on packed int8 tables; resample_quant's the popular
+product's int8 and int4 runs (`packed`) and the case study's
+(`packed_case_study`). `lda_gibbs.pack_word_table`, the packed sweep's
+table build, is no TPU kernel (the reference quantizes with jnp before its
+Pallas call); its row names the jnp function it replaces.
 
 Prints one JSON line per phase, then the kernels line, then
 `{"ok": true, "device": {...}}` as the last line. Any failure raises and
@@ -307,7 +318,7 @@ def compare(args, *, alpha, beta, beta_bar, w_bits, many=False, bits=None, philo
         z_k = kernel(*args, **hp).flatten()
     else:
         z_k = kernel(*args[:-1], None, philox=philox, **hp).flatten()
-        args = (*args[:-1], ops.philox_noise(args[2], args[6], philox))
+        args = (*args[:-1], ops.philox_noise(args[2], args[-2], philox))
     torch.cuda.synchronize()
     z_p = plain(*args, **hp).flatten()
     scores = scores_fn(*args, **hp)
@@ -1646,40 +1657,73 @@ def _quant_inputs(n, k, w_bits, bits, seed):
     return (docs, words, z, weights, n_dt, codes, scales, n_t, noise)
 
 
+def pack_check(v, k, w_bits, bits, seed):
+    """The pack kernel (`ops.pack_word_table` on a card table) against
+    `ops.pack_word_table_plain` on the same stored (V, K) counts: entries
+    of the codes and bits of the scales that differ (0 and 0 to pass)."""
+    import torch
+
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.kernels.lda_gibbs import ops
+
+    cfg = LDAConfig(num_topics=k, vocab_size=v, num_docs=1, w_bits=w_bits,
+                    quant=QuantSpec("int8" if bits == 8 else "int4_packed", w_bits=w_bits))
+    n_wt = _random_inputs(1, k, w_bits, d=1, v=v, seed=seed)[5]
+    codes, scales = ops.pack_word_table(cfg, n_wt)
+    want_codes, want_scales = ops.pack_word_table_plain(cfg, n_wt)
+    torch.cuda.synchronize()
+    return (int((codes != want_codes).sum()),
+            int((scales.view(torch.int32) != want_scales.view(torch.int32)).sum()))
+
+
 def phase_quant_kernel():
-    """The packed-table entry against its plain version: K in {12, 128,
-    1000} x int8/int4 x stored n_dt f32/`w_bits` 8, N = 65,536."""
+    """The packed-table entry in both noise modes (injected; Philox drawn in
+    the kernel, against the plain version on `ops.philox_noise`) against its
+    plain version: K 12 at 262,147 tokens (a thread a token, log tables from
+    the codes) and 40,009 (16 lanes a token), K 128 and 1000 at 65,536 (a
+    warp a token) x int8/int4 x stored n_dt f32/`w_bits` 8; then the pack
+    kernel against `ops.pack_word_table_plain`, bit for bit, at V 10,000."""
     hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * 10000)
-    cases = []
+    cases, packs = [], []
     for k in (12, 128, 1000):
+        for n in (262147, 40009) if k == 12 else (65536,):
+            for bits in (8, 4):
+                for w_bits in (None, 8):
+                    args = _quant_inputs(n, k, w_bits, bits, seed=k * 13 + bits + n)
+                    for mode, philox in (("injected", None),
+                                         ("philox", (2 ** 64 - 1 - n, 4 * k + bits))):
+                        bad, near_flip, near, gap = compare(args, w_bits=w_bits, bits=bits,
+                                                            philox=philox, **hp)
+                        cases.append({"k": k, "bits": bits, "n": n, "w_bits": w_bits,
+                                      "noise": mode, "mismatch": bad,
+                                      "near_tie_flips": near_flip, "near_ties": near,
+                                      "max_abs_err": gap})
         for bits in (8, 4):
             for w_bits in (None, 8):
-                args = _quant_inputs(65536, k, w_bits, bits, seed=k * 13 + bits)
-                bad, near_flip, near, gap = compare(args, w_bits=w_bits, bits=bits, **hp)
-                cases.append({"k": k, "bits": bits, "n": 65536, "w_bits": w_bits,
-                              "mismatch": bad, "near_tie_flips": near_flip,
-                              "near_ties": near, "max_abs_err": gap})
-    out = {
-        "phase": "kernels",
-        "kernels": ["lda_gibbs.resample_quant"],
-        "mismatches": sum(c["mismatch"] for c in cases),
-        "near_tie_flips": sum(c["near_tie_flips"] for c in cases),
-        "near_ties": sum(c["near_ties"] for c in cases),
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "cases": cases,
-    }
+                codes_differ, scales_differ = pack_check(10000, k, w_bits, bits, seed=k + bits)
+                packs.append({"k": k, "v": 10000, "bits": bits, "w_bits": w_bits,
+                              "codes_differ": codes_differ, "scales_differ": scales_differ})
+    out = _summary(["lda_gibbs.resample_quant", "lda_gibbs.pack_word_table"], cases,
+                   pack_differ=sum(p["codes_differ"] + p["scales_differ"] for p in packs),
+                   pack_cases=packs)
     emit(out)
     if out["mismatches"]:
         raise SystemExit(f"lda_gibbs.resample_quant disagrees with its plain version: "
                          f"{out['mismatches']} tokens")
+    if out["pack_differ"]:
+        raise SystemExit(f"the pack kernel differs from its plain version: {packs}")
     return out
 
 
 def quant_kernel_timing(cfg, corpus, state, reps=50):
-    """The packed-table entry at a sweep's inputs: agreement with its plain
-    version, the raw kernel's mean ms (CUDA events over launches on
-    validated inputs), the wrapper's, the plain version's, and the byte
-    bound of these inputs."""
+    """The packed-table entry in both noise modes at a sweep's inputs (the
+    stale table packed by the pack kernel): agreement with its plain
+    version, its ms (CUDA events over raw launches; `graph_ms`, the same
+    launches replayed from a CUDA graph; `wrapper_ms`, CUDA events through
+    `ops.resample_quant`), the plain version's ms (in the Philox mode with
+    its draw), and the bound from these inputs (the Philox mode's without
+    the noise row)."""
     import torch
 
     from repro_torch.core import codec
@@ -1691,37 +1735,82 @@ def quant_kernel_timing(cfg, corpus, state, reps=50):
     noise = ops.gumbel((n, k), torch.Generator(device="cuda").manual_seed(123), "cuda")
     codes, scales = ops.pack_word_table(cfg, state.n_wt)
     args = (corpus.docs, corpus.words, state.z, corpus.weights, state.n_dt, codes, scales,
-            state.n_t, noise)
-    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
-    bad, near_flip, near, gap = compare(args, bits=bits, **hp)
+            state.n_t)
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits, bits=bits)
+    raw_hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, bits=bits,
+                  scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
     z_out = torch.empty_like(state.z)
-    scale = 1.0 if w_bits is None else 2.0 ** -(w_bits + 1)
-    ms = cuda_ms(lambda: kernel.launch_quant(*args, z_out, bits=bits, alpha=cfg.alpha,
-                                             beta=cfg.beta, beta_bar=cfg.beta_bar,
-                                             scale=scale), reps * 4)
-    wrapper_ms = cuda_ms(lambda: ops.resample_quant(*args, bits=bits, **hp), reps)
-    plain_ms = cuda_ms(lambda: ops.resample_quant_plain(*args, bits=bits, **hp),
-                       max(3, reps // 10))
     table_bytes = sum(t.numel() * t.element_size()
                       for t in (codes, scales, state.n_dt, state.n_t))
-    moved = n * (4 * 4 + 4 * k + 4) + table_bytes  # ids/z/weight + noise + out; tables once
-    ops_count = n * k * 12  # 3 logs (~4 ops each) per token-topic
-    bound_ms = max(moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S) * 1e3
-    return {
-        "n": n, "k": k, "d": state.n_dt.shape[0], "v": codes.shape[0], "bits": bits,
-        "w_bits": w_bits, "mismatch": bad, "near_tie_flips": near_flip, "near_ties": near,
-        "max_abs_err": gap, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-        "bytes": moved, "table_bytes": table_bytes, "bound_ms": bound_ms,
-        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops_count / F32_OPS_PER_S
-        else "operations",
-        "shape": f"N={n} K={k} D={state.n_dt.shape[0]} V={codes.shape[0]} bits={bits} "
-                 f"w_bits={w_bits}",
-    }
+    out = {"n": n, "k": k, "d": state.n_dt.shape[0], "v": codes.shape[0], "bits": bits,
+           "w_bits": w_bits, "table_bytes": table_bytes,
+           "shape": f"N={n} K={k} D={state.n_dt.shape[0]} V={codes.shape[0]} bits={bits} "
+                    f"w_bits={w_bits}"}
+    for mode, philox in (("injected", None), ("philox", PHILOX_TIMING_KEY)):
+        g = noise if philox is None else None
+        bad, near_flip, near, gap = compare((*args, noise), philox=philox, **hp)
+
+        def raw(g=g, philox=philox):
+            kernel.launch_quant(*args, g, z_out, philox=philox or (0, 0), **raw_hp)
+
+        def wrapper(g=g, philox=philox):
+            return ops.resample_quant(*args, g, philox=philox, **hp)
+
+        def plain(philox=philox):  # in the Philox mode its draw included
+            g = noise if philox is None else ops.philox_noise(state.z, state.n_t, philox)
+            return ops.resample_quant_plain(*args, g, **hp)
+
+        moved, bound_ms, bound_by = lda_bound(n, 0, k, table_bytes, philox is not None)
+        out[mode] = {
+            "mismatch": bad, "near_tie_flips": near_flip, "near_ties": near,
+            "max_abs_err": gap, "ms": cuda_ms(raw, reps * 4), "graph_ms": graph_ms(raw),
+            "wrapper_ms": cuda_ms(wrapper, reps), "plain_ms": cuda_ms(plain, max(3, reps // 10)),
+            "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    out["mismatch"] = out["injected"]["mismatch"] + out["philox"]["mismatch"]
+    out["max_abs_err"] = max(out["injected"]["max_abs_err"], out["philox"]["max_abs_err"])
+    return out
+
+
+def pack_timing(cfg, n_wt, reps=200):
+    """The pack kernel at a packed sweep's stored word table: its ms (CUDA
+    events over raw launches, and by CUDA graph), the plain version's, and
+    the bound (the stored table read once, codes and scales written once)."""
+    import torch
+
+    from repro_torch.core import codec
+    from repro_torch.kernels.lda_gibbs import kernel, ops
+
+    bits = cfg.quant_spec.bits
+    w_bits = codec.codec_for(cfg).spec.w_bits
+    codes, scales = ops.pack_word_table(cfg, n_wt)
+    want_codes, want_scales = ops.pack_word_table_plain(cfg, n_wt)
+    differ = int((codes != want_codes).sum()) + int(
+        (scales.view(torch.int32) != want_scales.view(torch.int32)).sum())
+    scale = 1.0 if w_bits is None else 2.0 ** -(w_bits + 1)
+
+    def raw():
+        kernel.pack_rows(n_wt, codes, scales, bits=bits, scale=scale)
+
+    moved = n_wt.numel() * n_wt.element_size() + codes.numel() + scales.numel() * 4
+    v, k = n_wt.shape
+    # Operations: a decode, a clip and a max a count; a division, a round
+    # and a clamp a code (a byte of packing for int4); one division a row.
+    ops_count = v * k * 6 + v
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S
+    return {"shape": f"V={v} K={k} bits={bits} w_bits={w_bits}", "differ": differ,
+            "max_abs_err": float(differ), "ms": cuda_ms(raw, reps), "graph_ms": graph_ms(raw),
+            "plain_ms": cuda_ms(lambda: ops.pack_word_table_plain(cfg, n_wt), reps // 4),
+            "bytes": moved, "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def packed_sweep_breakdown(cfg, corpus, state, reps=20):
     """Mean ms of each stage of one packed `cuda` sweep, by CUDA events: the
-    noise draw, the per-sweep table quantization, the kernel, the rebuild."""
+    Philox key (host only: the kernel draws the noise), the stale table's
+    build (the pack kernel; the plain version beside it), the resample in
+    the Philox mode the sweep takes (and the injected mode's (N, K) draw and
+    resample beside it), the rebuild."""
     import torch
 
     from repro_torch.core import codec
@@ -1731,18 +1820,24 @@ def packed_sweep_breakdown(cfg, corpus, state, reps=20):
     shape = (corpus.num_tokens, cfg.num_topics)
     noise = ops.gumbel(shape, gen, "cuda")
     codes, scales = ops.pack_word_table(cfg, state.n_wt)
+    args = (corpus.docs, corpus.words, state.z, corpus.weights, state.n_dt, codes, scales,
+            state.n_t)
     hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
               bits=cfg.quant_spec.bits, w_bits=codec.codec_for(cfg).spec.w_bits)
-
-    def resample():
-        return ops.resample_quant(corpus.docs, corpus.words, state.z, corpus.weights,
-                                  state.n_dt, codes, scales, state.n_t, noise, **hp)
-
-    z_new = resample()
+    z_new = ops.sweep_resample(cfg, state, corpus, gen)
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        ops.philox_key(gen)
+    key_host_ms = time.perf_counter() - t0  # seconds over 1000 calls = ms a call
     return {
-        "noise": cuda_ms(lambda: ops.gumbel(shape, gen, "cuda"), reps),
-        "quantize_table": cuda_ms(lambda: ops.pack_word_table(cfg, state.n_wt), reps),
-        "kernel": cuda_ms(resample, reps),
+        "key_host_ms": key_host_ms,
+        "pack_table": cuda_ms(lambda: ops.pack_word_table(cfg, state.n_wt), reps),
+        "pack_table_plain": cuda_ms(lambda: ops.pack_word_table_plain(cfg, state.n_wt), reps),
+        "resample_philox": cuda_ms(
+            lambda: ops.resample_quant(*args, philox=ops.philox_key(gen), **hp), reps),
+        "noise_injected_draw": cuda_ms(lambda: ops.gumbel(shape, gen, "cuda"), reps),
+        "resample_injected": cuda_ms(lambda: ops.resample_quant(*args, noise, **hp), reps),
+        "sweep_resample": cuda_ms(lambda: ops.sweep_resample(cfg, state, corpus, gen), reps),
         "rebuild": cuda_ms(lambda: codec.rebuild_state(cfg, corpus, z_new), reps),
     }
 
@@ -1761,10 +1856,11 @@ def _timed_run(sampler, cfg, corpus, seed, sweeps):
 
 def phase_packed():
     """The packed-table path at the popular product (uncut widths): 30
-    sweeps on `cuda` with int8 and with int4 tables (one quant launch a
-    sweep, no exact launch), 100 on `alias` with int8 (one alias_mh launch
-    a sweep), each fit's training perplexity beside the exact fit from the
-    same seed; then the quant kernel at this shape and the packed sweep's
+    sweeps on `cuda` with int8 and with int4 tables (one pack launch and one
+    quant launch in the Philox mode a sweep, no exact launch), 100 on
+    `alias` with int8 (one alias_mh launch a sweep), each fit's training
+    perplexity beside the exact fit from the same seed; then the quant
+    kernel and the pack kernel at this shape and the packed sweep's
     stages."""
     import torch
 
@@ -1787,31 +1883,36 @@ def phase_packed():
         for mode in modes:
             run_cfg = cfg if mode == "exact" else dataclasses.replace(cfg, quant=specs[mode])
             ops.resample.launches = ops.resample_quant.launches = 0
-            ops.resample.launches_philox = 0
+            ops.resample.launches_philox = ops.resample_quant.launches_philox = 0
+            ops.pack_word_table.launches = 0
             alias_ops.mh_resample.launches = alias_ops.mh_resample.launches_philox = 0
             state, secs = _timed_run(sampler, run_cfg, corpus, seed=0, sweeps=sweeps)
             runs[f"{backend}_{mode}"] = {
                 "sweeps": sweeps, "s": round(secs, 4), "state": state, "cfg": run_cfg,
                 "launches": {"lda_gibbs.resample": ops.resample.launches,
                              "lda_gibbs.resample_quant": ops.resample_quant.launches,
+                             "lda_gibbs.pack_word_table": ops.pack_word_table.launches,
                              "alias_mh.resample": alias_ops.mh_resample.launches},
-                "launches_philox": {"lda_gibbs.resample": ops.resample.launches_philox,
-                                    "alias_mh.resample": alias_ops.mh_resample.launches_philox},
+                "launches_philox": {
+                    "lda_gibbs.resample": ops.resample.launches_philox,
+                    "lda_gibbs.resample_quant": ops.resample_quant.launches_philox,
+                    "alias_mh.resample": alias_ops.mh_resample.launches_philox},
                 "perplexity": perplexity.perplexity(run_cfg, state, corpus),
             }
     for name, r in runs.items():
         exact = runs[name.split("_")[0] + "_exact"]["perplexity"]
         r["rel_gap_to_exact"] = abs(r["perplexity"] - exact) / exact
-    want = {"cuda_exact": {"lda_gibbs.resample": 30, "lda_gibbs.resample_quant": 0,
-                           "alias_mh.resample": 0},
-            "cuda_int8": {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 30,
-                          "alias_mh.resample": 0},
-            "cuda_int4": {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 30,
-                          "alias_mh.resample": 0},
-            "alias_exact": {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 0,
-                            "alias_mh.resample": 100},
-            "alias_int8": {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 0,
-                           "alias_mh.resample": 100}}
+    # Every launch of a sweep in the Philox mode; a packed `cuda` sweep packs
+    # its table once (the `alias` sweep fake-quantizes it for its tables).
+    none = {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 0,
+            "lda_gibbs.pack_word_table": 0, "alias_mh.resample": 0}
+    want = {"cuda_exact": {**none, "lda_gibbs.resample": 30},
+            "cuda_int8": {**none, "lda_gibbs.resample_quant": 30,
+                          "lda_gibbs.pack_word_table": 30},
+            "cuda_int4": {**none, "lda_gibbs.resample_quant": 30,
+                          "lda_gibbs.pack_word_table": 30},
+            "alias_exact": {**none, "alias_mh.resample": 100},
+            "alias_int8": {**none, "alias_mh.resample": 100}}
     for name in ("cuda_int8", "cuda_int4", "alias_int8"):
         _check_state(runs[name]["cfg"], corpus, runs[name]["state"])
 
@@ -1832,6 +1933,8 @@ def phase_packed():
         sweep_ms[name] = statistics.median(times)
     timing = {m: quant_kernel_timing(runs[f"cuda_{m}"]["cfg"], corpus, runs[f"cuda_{m}"]["state"])
               for m in ("int8", "int4")}
+    packing = {m: pack_timing(runs[f"cuda_{m}"]["cfg"], runs[f"cuda_{m}"]["state"].n_wt)
+               for m in ("int8", "int4")}
     ra = runs["alias_int8"]
     alias_timing = alias_kernel_timing(ra["cfg"], corpus, ra["state"],
                                        get_backend("alias").mh_steps)
@@ -1843,7 +1946,7 @@ def phase_packed():
                  for name, r in runs.items()},
         "expected_launches": want,
         "sweep_ms_median": sweep_ms,
-        "kernel": timing, "alias_kernel": alias_timing,
+        "kernel": timing, "pack_kernel": packing, "alias_kernel": alias_timing,
         "sweep_breakdown_ms": packed_sweep_breakdown(r8["cfg"], corpus, r8["state"]),
     }
     out["profile_top_device_ms"], out["device_busy_ms_per_sweep"] = profile_sweeps(
@@ -1864,17 +1967,22 @@ def phase_packed():
         if t["mismatch"]:
             raise SystemExit(f"lda_gibbs.resample_quant ({m}) disagrees with its plain "
                              f"version at the popular product: {t['mismatch']} tokens")
+        if packing[m]["differ"]:
+            raise SystemExit(f"the pack kernel ({m}) differs from its plain version at the "
+                             f"popular product: {packing[m]['differ']} entries")
     if alias_timing["mismatch"]:
         raise SystemExit(f"alias_mh disagrees with its plain version on the packed int8 "
                          f"tables: {alias_timing['mismatch']} tokens")
-    return out, runs["cuda_int8"]["launches"]["lda_gibbs.resample_quant"] \
-        + runs["cuda_int4"]["launches"]["lda_gibbs.resample_quant"]
+    return out
 
 
 def phase_packed_case_study():
     """The quickstart case study (29,232 tokens) fit 100 sweeps on `cuda`
-    with int8 and with int4 tables, on the card and on the CPU (the plain
-    version, one thread): training perplexity within 5%."""
+    with int8 and with int4 tables, on the card (one pack launch and one
+    quant launch in the Philox mode a sweep) and on the CPU (the plain
+    versions, one thread, `torch.rand` noise): training perplexity within
+    5%; then the quant kernel and the pack kernel at the card run's
+    state."""
     import torch
 
     from repro_torch.api import VedaliaService
@@ -1893,7 +2001,8 @@ def phase_packed_case_study():
             prep = VedaliaService(device=device).prepare(
                 corp.reviews, base_vocab=QUICKSTART["vocab_size"], num_topics=12, w_bits=8)
             cfg = dataclasses.replace(prep.cfg, quant=spec)
-            ops.resample_quant.launches = 0
+            ops.resample_quant.launches = ops.resample_quant.launches_philox = 0
+            ops.resample.launches = ops.pack_word_table.launches = 0
             gen = torch.Generator(device=device).manual_seed(0)
             t0 = time.perf_counter()
             state = get_backend("cuda").run(cfg, prep.corpus, gen, 100)
@@ -1901,16 +2010,30 @@ def phase_packed_case_study():
                 torch.cuda.synchronize()
             res[device] = {"s": round(time.perf_counter() - t0, 4),
                            "launches": ops.resample_quant.launches,
+                           "launches_philox": ops.resample_quant.launches_philox,
+                           "exact_launches": ops.resample.launches,
+                           "pack_launches": ops.pack_word_table.launches,
                            "perplexity": perplexity.perplexity(cfg, state, prep.corpus)}
+            if device == "cuda":
+                card = (cfg, prep.corpus, state)
         res["tokens"] = prep.corpus.num_tokens
+        res["kernel"] = quant_kernel_timing(*card, reps=200)
+        res["pack_kernel"] = pack_timing(card[0], card[2].n_wt)
         res["rel_diff"] = abs(res["cuda"]["perplexity"] - res["cpu"]["perplexity"]) \
             / res["cpu"]["perplexity"]
         out["runs"][mode] = res
     emit(out)
     for mode, res in out["runs"].items():
-        if res["cuda"]["launches"] != 100 or res["cpu"]["launches"] != 0:
-            raise SystemExit(f"packed case study ({mode}) launched {res['cuda']['launches']} "
-                             f"on the card and {res['cpu']['launches']} on the CPU")
+        launched = {dev: tuple(res[dev][key] for key in ("launches", "launches_philox",
+                                                         "pack_launches", "exact_launches"))
+                    for dev in ("cuda", "cpu")}
+        if launched != {"cuda": (100, 100, 100, 0), "cpu": (0, 0, 0, 0)}:
+            raise SystemExit(f"packed case study ({mode}) launched (quant, Philox, pack, exact) "
+                             f"{launched}, expected 100, 100, 100, 0 on the card and none on "
+                             f"the CPU")
+        if res["kernel"]["mismatch"] or res["pack_kernel"]["differ"]:
+            raise SystemExit(f"packed case study ({mode}): the quant kernel or the pack kernel "
+                             f"disagrees with its plain version")
         if not math.isfinite(res["cuda"]["perplexity"]) or res["rel_diff"] > PPX_BAND:
             raise SystemExit(f"packed case study ({mode}): card {res['cuda']['perplexity']} "
                              f"vs CPU {res['cpu']['perplexity']}")
@@ -2716,8 +2839,8 @@ def main() -> int:
           "reviews": sum(len(rs) for rs in sets), "generate_s": round(time.perf_counter() - t0, 3)})
     zoo = phase_zoo(sets)
     zoo_alias = phase_zoo_alias(sets)
-    packed, quant_launches = phase_packed()
-    phase_packed_case_study()
+    packed = phase_packed()
+    case_study = phase_packed_case_study()
     phase_stream()
     serve = phase_hybrid_serve()
     phase_hybrid_parity()
@@ -2762,6 +2885,30 @@ def main() -> int:
                           for mode in ("injected", "philox")}}
                       for timing, n, n_philox in alias_counted]
     zak = zoo_alias["kernel"]
+    # lda_gibbs.resample_quant and the pack kernel by shape: the popular
+    # product's packed `cuda` runs (`packed`, 30 sweeps each) and the case
+    # study's (`packed_case_study`, 100 each), one quant launch (and one
+    # pack launch) a sweep.
+    quant_counted = [(packed["kernel"][m], packed["pack_kernel"][m], runs[f"cuda_{m}"]["launches"])
+                     for m in ("int8", "int4")]
+    quant_counted += [(r["kernel"], r["pack_kernel"],
+                       {"lda_gibbs.resample_quant": r["cuda"]["launches"],
+                        "lda_gibbs.pack_word_table": r["cuda"]["pack_launches"]})
+                      for r in case_study["runs"].values()]
+    quant_philox = [runs[f"cuda_{m}"]["launches_philox"]["lda_gibbs.resample_quant"]
+                    for m in ("int8", "int4")]
+    quant_philox += [r["cuda"]["launches_philox"] for r in case_study["runs"].values()]
+    quant_by_shape = [{"shape": timing["shape"],
+                       "launches_injected": n["lda_gibbs.resample_quant"] - n_philox,
+                       "launches_philox": n_philox,
+                       **{mode: {key: timing[mode][key] for key in timed}
+                          for mode in ("injected", "philox")}}
+                      for (timing, _, n), n_philox in zip(quant_counted, quant_philox)]
+    pack_by_shape = [{"shape": p["shape"], "launches": n["lda_gibbs.pack_word_table"],
+                      **{key: p[key] for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                                 "bound_by")}}
+                     for _, p, n in quant_counted]
+    q, pk = packed["kernel"]["int8"], packed["pack_kernel"]["int8"]
     emit({"kernels": [{
         "name": "lda_gibbs.resample",
         "route": "cuda",
@@ -2819,21 +2966,35 @@ def main() -> int:
         "shape": zk["shape"] + " noise=philox",
         "injected": {key: zk["injected"][key] for key in timed},
         "philox": {key: zk["philox"][key] for key in timed},
-    }] + [{
+    }, {
         "name": "lda_gibbs.resample_quant",
         "route": "cuda",
         "source": "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu",
         "replaces": "src/repro/kernels/lda_gibbs/kernel.py:183",
-        "launches": quant_launches,
+        "launches": sum(n["lda_gibbs.resample_quant"] for _, _, n in quant_counted),
+        "launches_philox": sum(quant_philox),
         "max_abs_err": max(quant_kern["max_abs_err"],
-                           *(t["max_abs_err"] for t in packed["kernel"].values())),
-        "ms": q["ms"],
-        "plain_ms": q["plain_ms"],
-        "bound_ms": q["bound_ms"],
-        "bound_by": q["bound_by"],
+                           *(t["max_abs_err"] for t, _, _ in quant_counted)),
+        **{key: q["philox"][key] for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
         "library_ms": None,
-        "shape": q["shape"],
-    } for q in (packed["kernel"]["int8"],)] + [{
+        "shape": q["shape"] + " noise=philox",
+        "by_shape": quant_by_shape,
+    }, {
+        # Not a TPU kernel: the reference quantizes the stale table with jnp
+        # (`quantize_rows_jnp`, `pack_nibbles_jnp`) before its Pallas call.
+        "name": "lda_gibbs.pack_word_table",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu",
+        "replaces": "src/repro/core/quant.py:233",
+        "launches": sum(n["lda_gibbs.pack_word_table"] for _, _, n in quant_counted),
+        "max_abs_err": max([float(quant_kern["pack_differ"])]
+                           + [p["max_abs_err"] for _, p, _ in quant_counted]),
+        **{key: pk[key] for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": pk["shape"],
+        "by_shape": pack_by_shape,
+    }] + [{
         "name": name,
         "route": "cuda",
         "source": f"src/repro_torch/kernels/{name}/csrc/{source}.cu",

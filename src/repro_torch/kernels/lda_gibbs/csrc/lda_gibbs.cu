@@ -17,7 +17,7 @@
 // with s = 2^-(w_bits+1) for int32 fixed-point counts and s = 1 for float32
 // counts; tokens of weight <= 0 keep z.
 //
-// Noise. The exact entries take g in one of two modes:
+// Noise. Every entry takes g in one of two modes:
 //   injected  an (N, K) / (M, N, K) float32 input, as the TPU kernel takes
 //             it (the parity tests and the blocked `torch` sweep use it);
 //   Philox    drawn here: u(i, t) is word t & 3 of Philox4x32-10 with
@@ -26,8 +26,10 @@
 //             model; u = (x >> 8) * 2^-24 and g = -log(-log(max(u, FLT_MIN))).
 //             The tag keeps the stream apart from PyTorch's own Philox draws
 //             on the same generator; (seed, offset) come from the sweep's
-//             generator, one pair per model in the batched entry.
-// The quant entry takes injected noise only.
+//             generator, one pair per model in the batched entry. The quant
+//             entry draws the same g(i, t) as the single-model entry under
+//             the same key, so an exact and a packed sweep share their noise
+//             (the reference draws both at one width from one key).
 //
 // What bounds it: bytes, counted once. Per token it reads 16 B of
 // ids/assignment/weight and writes 4 B; the injected mode adds the K*4 B
@@ -39,7 +41,9 @@
 // topic, which on the H100 takes longer than the noise row's read (a sweep
 // still gains: no separate draw, no (N, K) buffer).
 //
-// Exact entries, K <= 32, from 2^17 tokens: one thread a token, templated
+// One body serves every entry; the quant entry reads its word row from the
+// packed table (`WordRows`), the others from the stored counts.
+// K <= 32, from 2^17 tokens: one thread a token, templated
 // on a K bucket (16 or 32, the tail masked). A thread loads its token's ids (coalesced across
 // the warp), then its rows (16-byte vectors when K % 4 == 0 and the tables
 // are 16-byte aligned: K = 12 is 3 vectors a row) and injected noise, all
@@ -67,7 +71,7 @@
 // ids -> rows -> three logs -> a butterfly), so the card has enough
 // threads and each one little to do. In the Philox mode lane t takes word
 // t & 3 of its chunk's Philox call.
-// Exact entries, K > 32: a warp a token; lane l scores topic chunks
+// K > 32: a warp a token; lane l scores topic chunks
 // 4c .. 4c+3 for c = l, l + 32, ... (one Philox call a chunk), then a
 // butterfly picks the maximum with ties to the lower topic.
 //
@@ -76,10 +80,20 @@
 // nibble first) for int4 — and a (V,) float32 scale table; topic t reads
 // code[w, t] (int4: byte t>>1, low nibble for even t) and scale[w] by the
 // token's word id and scores against float(code) * scale, the reference's
-// `codes.astype(f32) * scales` product. It keeps the earlier design: a
-// group of G lanes (8, 16 or 32, the least that covers K) a token, each
-// lane scanning topics lane, lane+G, ..., a butterfly within the group, and
-// warps walking the tokens in a grid-stride loop over at most 2,112 blocks.
+// `codes.astype(f32) * scales` product. Its log table is
+// lw[v, t] = log(float(code[v, t]) * scale[v] + beta), the same logf of the
+// same float the plain version takes; the token kernel reads code[w, z] and
+// scale[w] for its own topic only. Codes are read a byte at a time (the
+// rows are a few bytes and stay in L1/L2).
+//
+// Packing (`pack_rows_kernel`, entry `lda_gibbs_pack_word_table`): a packed
+// sweep's stale word table in one launch, a warp a row: decode the stored
+// counts, the row's maximum by shuffles, scale = max / levels by IEEE
+// division, codes = clamp(rint(x / safe), 0, levels) (half to even), int4
+// nibbles low first with a zero nibble padding odd K: bit for bit the
+// eager `quantize_rows_torch` + `pack_nibbles_torch`. It writes no log
+// table: the quant entry takes (codes, scales) as every caller hands them
+// and builds its own, reading the codes once more (a tenth of a megabyte).
 //
 // Build without fast math and with -fmad=false: `logf` (not `__logf`) and
 // unfused multiply-subtract keep the scores within an ulp of the reference.
@@ -91,7 +105,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;         // quant entry and the K > 32 path
+constexpr int kThreads = 256;         // the K > 32 path, the log tables, packing
 constexpr int kTokenThreads = 128;    // the K <= 32 path, a thread a token
 constexpr int kGroupThreads = 256;    // the K <= 32 path, few tokens
 constexpr int kWarpTokens = 4;        // tokens a warp takes in the K > 32 path
@@ -146,7 +160,7 @@ __device__ __forceinline__ void philox_gumbel4(const NoiseKey& nk, unsigned c,
 }
 
 // ---------------------------------------------------------------------------
-// Shared pieces of the exact entries.
+// Pieces every entry shares.
 
 template <typename T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
@@ -170,6 +184,37 @@ __device__ __forceinline__ void load4(const T* __restrict__ row, int c, int k, b
     }
   }
 }
+
+// Word-topic count t of a packed row: an 8-bit code, or the t-th nibble
+// (low first), times the row's scale.
+template <int kCodeBits>
+__device__ __forceinline__ float word_count(const uint8_t* row, int t, float s) {
+  if constexpr (kCodeBits == 4) {
+    const unsigned b = row[t >> 1];
+    return static_cast<float>((t & 1) ? (b >> 4) : (b & 0xFu)) * s;
+  } else {
+    return static_cast<float>(row[t]) * s;
+  }
+}
+
+// The word-topic table in real units: the stored (V, K) counts times
+// `scale` (kCodeBits 0: the exact entries), or a packed (V, Kc) code table
+// with one scale a row (kCodeBits 8, or 4 nibble-packed).
+template <typename T, int kCodeBits>
+struct WordRows {
+  const T* n_wt;          // the model's stored counts (kCodeBits 0)
+  const uint8_t* codes;   // the packed table (kCodeBits 8 or 4)
+  const float* w_scales;  // (V,) row scales (kCodeBits 8 or 4)
+
+  __device__ __forceinline__ float count(long long w, int t, int k, float scale) const {
+    if constexpr (kCodeBits == 0) {
+      return static_cast<float>(n_wt[w * k + t]) * scale;
+    } else {
+      const long long kc = kCodeBits == 4 ? (k + 1) / 2 : k;
+      return word_count<kCodeBits>(codes + w * kc, t, w_scales[w]);
+    }
+  }
+};
 
 // Model m's tables, totals, tokens and noise (64-bit offsets), and its key.
 template <typename T, bool kBatched>
@@ -276,30 +321,35 @@ __device__ __forceinline__ void score4_logs(int c, int k, int zi, float lzd, flo
 // One sweep's log tables of the count rows, without self-exclusion:
 // ld = log(max(n_dt*s, 0) + alpha) over all M*D*K entries, then
 // lw = log(max(n_wt*s, 0) + beta) over M*V*K (the terms score4 takes for
-// t != z, bit for bit: x - 0 is x).
-template <typename T>
+// t != z, bit for bit: x - 0 is x); from a packed table (one model),
+// lw = log(max(code*scale, 0) + beta).
+template <typename T, int kCodeBits>
 __global__ void __launch_bounds__(kThreads)
-log_rows_kernel(const T* __restrict__ n_dt, const T* __restrict__ n_wt, long long dk,
-                long long vk, float alpha, float beta, float scale, float* __restrict__ ld,
-                float* __restrict__ lw) {
+log_rows_kernel(const T* __restrict__ n_dt, const WordRows<T, kCodeBits> wr, long long dk,
+                long long vk, int k, float alpha, float beta, float scale,
+                float* __restrict__ ld, float* __restrict__ lw) {
   for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; j < dk + vk;
        j += static_cast<long long>(gridDim.x) * blockDim.x) {
     if (j < dk) {
       ld[j] = logf(fmaxf(static_cast<float>(n_dt[j]) * scale, 0.0f) + alpha);
+    } else if constexpr (kCodeBits == 0) {
+      lw[j - dk] = logf(fmaxf(static_cast<float>(wr.n_wt[j - dk]) * scale, 0.0f) + beta);
     } else {
-      lw[j - dk] = logf(fmaxf(static_cast<float>(n_wt[j - dk]) * scale, 0.0f) + beta);
+      const long long jw = j - dk;
+      lw[jw] = logf(fmaxf(wr.count(jw / k, static_cast<int>(jw % k), k, scale), 0.0f) + beta);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Exact entries, K <= 32: a thread a token, CPL chunks of 4 topics.
+// K <= 32: a thread a token, CPL chunks of 4 topics.
 
-template <typename T, int CPL, bool kBatched, bool kPhilox>
+template <typename T, int CPL, bool kBatched, bool kPhilox, int kCodeBits>
 __global__ void __launch_bounds__(kTokenThreads)
 resample_token_kernel(const int32_t* __restrict__ docs_, const int32_t* __restrict__ words_,
                       const int32_t* __restrict__ z_, const float* __restrict__ weights_,
                       const T* __restrict__ n_dt_, const T* __restrict__ n_wt_,
+                      const uint8_t* __restrict__ codes, const float* __restrict__ w_scales,
                       const T* __restrict__ n_t_, const float* __restrict__ noise_,
                       const float* __restrict__ work,
                       const unsigned long long* __restrict__ keys,
@@ -309,6 +359,7 @@ resample_token_kernel(const int32_t* __restrict__ docs_, const int32_t* __restri
   constexpr int KB = 4 * CPL;  // the K bucket
   const ModelView<T, kBatched> mv(docs_, words_, z_, weights_, n_dt_, n_wt_, n_t_, noise_,
                                   z_out_, work, keys, seed, offset, n, d, v, k);
+  const WordRows<T, kCodeBits> wr{mv.n_wt, codes, w_scales};
   __shared__ float tot[KB];
   __shared__ float ltot[KB];
   stage_totals(mv.n_t, k, scale, beta_bar, tot, ltot);
@@ -329,7 +380,7 @@ resample_token_kernel(const int32_t* __restrict__ docs_, const int32_t* __restri
   if (live) {
     const long long od = static_cast<long long>(di) * k, ow = static_cast<long long>(wd) * k;
     own_d = static_cast<float>(mv.n_dt[od + zi]) * scale;
-    own_w = static_cast<float>(mv.n_wt[ow + zi]) * scale;
+    own_w = wr.count(wd, zi, k, scale);
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
       if (4 * c < k) {
@@ -363,15 +414,16 @@ resample_token_kernel(const int32_t* __restrict__ docs_, const int32_t* __restri
 }
 
 // ---------------------------------------------------------------------------
-// Exact entries, K <= 32, few tokens: G lanes a token (16, or 32 above K
-// 16), lane t scoring topic t from the count rows as the reference writes
+// K <= 32, few tokens: G lanes a token (16, or 32 above K 16), lane t
+// scoring topic t from the count rows (or codes) as the reference writes
 // it, then a butterfly within the group.
 
-template <typename T, int G, bool kBatched, bool kPhilox>
+template <typename T, int G, bool kBatched, bool kPhilox, int kCodeBits>
 __global__ void __launch_bounds__(kGroupThreads)
 resample_group_kernel(const int32_t* __restrict__ docs_, const int32_t* __restrict__ words_,
                       const int32_t* __restrict__ z_, const float* __restrict__ weights_,
                       const T* __restrict__ n_dt_, const T* __restrict__ n_wt_,
+                      const uint8_t* __restrict__ codes, const float* __restrict__ w_scales,
                       const T* __restrict__ n_t_, const float* __restrict__ noise_,
                       const unsigned long long* __restrict__ keys,
                       unsigned long long seed, unsigned long long offset,
@@ -379,6 +431,7 @@ resample_group_kernel(const int32_t* __restrict__ docs_, const int32_t* __restri
                       float alpha, float beta, float beta_bar, float scale) {
   const ModelView<T, kBatched> mv(docs_, words_, z_, weights_, n_dt_, n_wt_, n_t_, noise_,
                                   z_out_, nullptr, keys, seed, offset, n, d, v, k);
+  const WordRows<T, kCodeBits> wr{mv.n_wt, codes, w_scales};
   const int t = threadIdx.x % G;
   const long long i = static_cast<long long>(blockIdx.x) * (kGroupThreads / G) + threadIdx.x / G;
   const bool valid = i < n;
@@ -393,8 +446,7 @@ resample_group_kernel(const int32_t* __restrict__ docs_, const int32_t* __restri
     const float own = t == zi ? wi : 0.0f;
     const float rd = fmaxf(static_cast<float>(mv.n_dt[static_cast<long long>(di) * k + t]) *
                            scale - own, 0.0f);
-    const float rw = fmaxf(static_cast<float>(mv.n_wt[static_cast<long long>(wd) * k + t]) *
-                           scale - own, 0.0f);
+    const float rw = fmaxf(wr.count(wd, t, k, scale) - own, 0.0f);
     const float tt = fmaxf(static_cast<float>(mv.n_t[t]) * scale - own, 1e-9f);
     float g;
     if constexpr (kPhilox) {
@@ -424,13 +476,14 @@ resample_group_kernel(const int32_t* __restrict__ docs_, const int32_t* __restri
 }
 
 // ---------------------------------------------------------------------------
-// Exact entries, K > 32: a warp a token, kWarpTokens tokens a warp.
+// K > 32: a warp a token, kWarpTokens tokens a warp.
 
-template <typename T, bool kBatched, bool kPhilox>
+template <typename T, bool kBatched, bool kPhilox, int kCodeBits>
 __global__ void __launch_bounds__(kThreads)
 resample_warp_kernel(const int32_t* __restrict__ docs_, const int32_t* __restrict__ words_,
                      const int32_t* __restrict__ z_, const float* __restrict__ weights_,
                      const T* __restrict__ n_dt_, const T* __restrict__ n_wt_,
+                     const uint8_t* __restrict__ codes, const float* __restrict__ w_scales,
                      const T* __restrict__ n_t_, const float* __restrict__ noise_,
                      const unsigned long long* __restrict__ keys,
                      unsigned long long seed, unsigned long long offset,
@@ -438,6 +491,7 @@ resample_warp_kernel(const int32_t* __restrict__ docs_, const int32_t* __restric
                      float alpha, float beta, float beta_bar, float scale, int vec) {
   const ModelView<T, kBatched> mv(docs_, words_, z_, weights_, n_dt_, n_wt_, n_t_, noise_,
                                   z_out_, nullptr, keys, seed, offset, n, d, v, k);
+  const WordRows<T, kCodeBits> wr{mv.n_wt, codes, w_scales};
   extern __shared__ float smem[];  // (K,) totals, then (K,) their logs
   float* tot = smem;
   float* ltot = smem + k;
@@ -456,14 +510,21 @@ resample_warp_kernel(const int32_t* __restrict__ docs_, const int32_t* __restric
       continue;
     }
     const T* row_d = mv.n_dt + static_cast<long long>(mv.docs[i]) * k;
-    const T* row_w = mv.n_wt + static_cast<long long>(mv.words[i]) * k;
+    const long long wd = mv.words[i];
     const float lz = logf(fmaxf(tot[zi] - wi, 1e-9f) + beta_bar);
     float best = -CUDART_INF_F;
     int best_t = 0x7fffffff;
     for (int c = lane; c < chunks; c += 32) {
       float a[4], b[4], e[4];
       load4(row_d, c, k, vec, scale, a);
-      load4(row_w, c, k, vec, scale, b);
+      if constexpr (kCodeBits == 0) {
+        load4(mv.n_wt + wd * k, c, k, vec, scale, b);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          b[q] = 4 * c + q < k ? wr.count(wd, 4 * c + q, k, scale) : 0.0f;
+        }
+      }
       if constexpr (kPhilox) {
         philox_gumbel4(mv.nk, c, static_cast<unsigned>(i), e);
       } else {
@@ -488,23 +549,23 @@ resample_warp_kernel(const int32_t* __restrict__ docs_, const int32_t* __restric
 // group of lanes a token (one topic a lane) cuts each token's serial chain.
 bool few_tokens(int m, int n) { return static_cast<long long>(m) * n < (1 << 17); }
 
-// Floats of scratch an exact call takes: the sweep's log tables of n_dt and
-// n_wt (M*(D+V)*K) when a thread takes a token, else 0 (the count rows are
-// read as they are). The tables pay when a model's tokens pass about half
-// its D + V rows: they save 2K - 2 logs a token for (D + V) * K a call.
+// Floats of scratch a call takes: the sweep's log tables of n_dt and n_wt
+// (M*(D+V)*K) when a thread takes a token, else 0 (the count rows are read
+// as they are). The tables pay when a model's tokens pass about half its
+// D + V rows: they save 2K - 2 logs a token for (D + V) * K a call.
 long long workspace_floats(int m, int n, int d, int v, int k) {
   if (k > 32 || few_tokens(m, n)) return 0;
   return static_cast<long long>(m) * (static_cast<long long>(d) + v) * k;
 }
 
-template <typename T, bool kBatched, bool kPhilox>
-cudaError_t launch_exact(const int32_t* docs, const int32_t* words, const int32_t* z,
-                         const float* weights, const void* n_dt, const void* n_wt,
-                         const void* n_t, const float* noise, float* work,
-                         const unsigned long long* keys, unsigned long long seed,
-                         unsigned long long offset, int32_t* z_out, int m, int n, int d,
-                         int v, int k, float alpha, float beta, float beta_bar, float scale,
-                         int vec, cudaStream_t stream) {
+template <typename T, bool kBatched, bool kPhilox, int kCodeBits>
+cudaError_t launch_body(const int32_t* docs, const int32_t* words, const int32_t* z,
+                        const float* weights, const void* n_dt, const void* n_wt,
+                        const uint8_t* codes, const float* w_scales, const void* n_t,
+                        const float* noise, float* work, const unsigned long long* keys,
+                        unsigned long long seed, unsigned long long offset, int32_t* z_out,
+                        int m, int n, int d, int v, int k, float alpha, float beta,
+                        float beta_bar, float scale, int vec, cudaStream_t stream) {
   const T* dt = static_cast<const T*>(n_dt);
   const T* wt = static_cast<const T*>(n_wt);
   const T* tt = static_cast<const T*>(n_t);
@@ -512,26 +573,30 @@ cudaError_t launch_exact(const int32_t* docs, const int32_t* words, const int32_
   do {                                                                                    \
     const dim3 grid(static_cast<unsigned>((n + kTokenThreads - 1) / kTokenThreads),       \
                     static_cast<unsigned>(m));                                            \
-    resample_token_kernel<T, CPL, kBatched, kPhilox>                                      \
-        <<<grid, kTokenThreads, 0, stream>>>(docs, words, z, weights, dt, wt, tt, noise,  \
-                                             work, keys, seed, offset, z_out, n, d, v, k, \
-                                             alpha, beta, beta_bar, scale, vec);          \
+    resample_token_kernel<T, CPL, kBatched, kPhilox, kCodeBits>                           \
+        <<<grid, kTokenThreads, 0, stream>>>(docs, words, z, weights, dt, wt, codes,      \
+                                             w_scales, tt, noise, work, keys, seed, offset, \
+                                             z_out, n, d, v, k, alpha, beta, beta_bar,    \
+                                             scale, vec);                                 \
   } while (0)
 #define LDA_GROUP_LAUNCH(G)                                                               \
   do {                                                                                    \
     const long long per = kGroupThreads / (G);                                            \
     const dim3 grid(static_cast<unsigned>((n + per - 1) / per), static_cast<unsigned>(m)); \
-    resample_group_kernel<T, G, kBatched, kPhilox><<<grid, kGroupThreads, 0, stream>>>(   \
-        docs, words, z, weights, dt, wt, tt, noise, keys, seed, offset, z_out, n, d, v, k, \
-        alpha, beta, beta_bar, scale);                                                    \
+    resample_group_kernel<T, G, kBatched, kPhilox, kCodeBits>                             \
+        <<<grid, kGroupThreads, 0, stream>>>(docs, words, z, weights, dt, wt, codes,      \
+                                             w_scales, tt, noise, keys, seed, offset,     \
+                                             z_out, n, d, v, k, alpha, beta, beta_bar,    \
+                                             scale);                                      \
   } while (0)
   const bool few = few_tokens(m, n);
   if (workspace_floats(m, n, d, v, k) > 0) {
     const long long dk = static_cast<long long>(m) * d * k, vk = static_cast<long long>(m) * v * k;
     long long blocks = (dk + vk + kThreads - 1) / kThreads;
     if (blocks > 132 * 8) blocks = 132 * 8;
-    log_rows_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        dt, wt, dk, vk, alpha, beta, scale, work, work + dk);
+    log_rows_kernel<T, kCodeBits><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        dt, WordRows<T, kCodeBits>{wt, codes, w_scales}, dk, vk, k, alpha, beta, scale, work,
+        work + dk);
   }
   if (k <= 16) {
     if (few) LDA_GROUP_LAUNCH(16); else LDA_TOKEN_LAUNCH(4);
@@ -541,9 +606,9 @@ cudaError_t launch_exact(const int32_t* docs, const int32_t* words, const int32_
     const long long per = static_cast<long long>(kThreads / 32) * kWarpTokens;
     const dim3 grid(static_cast<unsigned>((n + per - 1) / per), static_cast<unsigned>(m));
     const size_t smem = 2 * static_cast<size_t>(k) * sizeof(float);
-    resample_warp_kernel<T, kBatched, kPhilox><<<grid, kThreads, smem, stream>>>(
-        docs, words, z, weights, dt, wt, tt, noise, keys, seed, offset, z_out, n, d, v, k,
-        alpha, beta, beta_bar, scale, vec);
+    resample_warp_kernel<T, kBatched, kPhilox, kCodeBits><<<grid, kThreads, smem, stream>>>(
+        docs, words, z, weights, dt, wt, codes, w_scales, tt, noise, keys, seed, offset, z_out,
+        n, d, v, k, alpha, beta, beta_bar, scale, vec);
   }
 #undef LDA_GROUP_LAUNCH
 #undef LDA_TOKEN_LAUNCH
@@ -557,176 +622,79 @@ cudaError_t check_shape(int m, int d, int v, int k) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-template <bool kBatched>
-cudaError_t run_exact(const int32_t* docs, const int32_t* words, const int32_t* z,
-                      const float* weights, const void* n_dt, const void* n_wt,
-                      const void* n_t, int counts_int, const float* noise, float* work,
-                      const unsigned long long* keys, unsigned long long seed,
-                      unsigned long long offset, int32_t* z_out, int m, int n, int d, int v,
-                      int k, float alpha, float beta, float beta_bar, float scale,
-                      void* stream) {
+// Every entry: the exact ones (kCodeBits 0, `n_wt` the stored counts) and
+// the quant entry (one model, `codes` and `w_scales` the packed table).
+template <bool kBatched, int kCodeBits>
+cudaError_t run(const int32_t* docs, const int32_t* words, const int32_t* z,
+                const float* weights, const void* n_dt, const void* n_wt, const uint8_t* codes,
+                const float* w_scales, const void* n_t, int counts_int, const float* noise,
+                float* work, const unsigned long long* keys, unsigned long long seed,
+                unsigned long long offset, int32_t* z_out, int m, int n, int d, int v, int k,
+                float alpha, float beta, float beta_bar, float scale, void* stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
   if (check_shape(m, d, v, k) != cudaSuccess) return cudaErrorInvalidValue;
   if (kBatched && !noise && !keys) return cudaErrorInvalidValue;
   if (!work && workspace_floats(m, n, d, v, k) > 0) return cudaErrorInvalidValue;
   // Rows (and the totals, the noise and the log tables) as 16-byte vectors
   // when K % 4 == 0 and every base address is 16-byte aligned: then every
-  // row of K entries is too.
+  // row of K entries is too. (A packed word table is read a byte at a
+  // time; its `n_wt` is NULL.)
   const int vec = k % 4 == 0 && aligned16(n_dt) && aligned16(n_wt) && aligned16(n_t) &&
                   (!noise || aligned16(noise)) && (!work || aligned16(work));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LDA_RUN(T, PHILOX)                                                                 \
-  launch_exact<T, kBatched, PHILOX>(docs, words, z, weights, n_dt, n_wt, n_t, noise, work,  \
-                                    keys, seed, offset, z_out, m, n, d, v, k, alpha, beta,  \
-                                    beta_bar, scale, vec, s)
+  launch_body<T, kBatched, PHILOX, kCodeBits>(docs, words, z, weights, n_dt, n_wt, codes,  \
+                                              w_scales, n_t, noise, work, keys, seed,      \
+                                              offset, z_out, m, n, d, v, k, alpha, beta,   \
+                                              beta_bar, scale, vec, s)
   if (counts_int) return noise ? LDA_RUN(int32_t, false) : LDA_RUN(int32_t, true);
   return noise ? LDA_RUN(float, false) : LDA_RUN(float, true);
 #undef LDA_RUN
 }
 
 // ---------------------------------------------------------------------------
-// Quant entry: the earlier group-of-lanes body, with a packed word table.
+// The packed sweep's stale word table: a warp a row of the stored (V, K)
+// counts -> its codes and scale, bit for bit the eager
+// `quantize_rows_torch` (+ `pack_nibbles_torch` for int4).
 
-// Word-topic count t of a packed row: an 8-bit code, or the t-th nibble,
-// times the row's scale.
 template <int kCodeBits>
-__device__ __forceinline__ float word_count(const uint8_t* row, int t, float s) {
-  if constexpr (kCodeBits == 4) {
-    const unsigned b = row[t >> 1];
-    return static_cast<float>((t & 1) ? (b >> 4) : (b & 0xFu)) * s;
-  } else {
-    return static_cast<float>(row[t]) * s;
-  }
-}
-
-// T: the stored n_dt / n_t type (float or int32 fixed point, scaled by
-// `scale`); the word table is uint8 codes with one float scale a row.
-template <typename T, int kCodeBits, int G>
-__global__ void __launch_bounds__(kThreads)
-gibbs_resample_quant_kernel(const int32_t* __restrict__ docs,
-                            const int32_t* __restrict__ words,
-                            const int32_t* __restrict__ z,
-                            const float* __restrict__ weights,
-                            const T* __restrict__ n_dt,
-                            const uint8_t* __restrict__ n_wt,
-                            const float* __restrict__ w_scales,
-                            const T* __restrict__ n_t,
-                            const float* __restrict__ noise,
-                            int32_t* __restrict__ z_out,
-                            int n, int k, float alpha, float beta,
-                            float beta_bar, float scale) {
-  // Row stride of the word table: K entries, or K/2 bytes rounded up.
-  const int kw = kCodeBits == 4 ? (k + 1) / 2 : k;
-  extern __shared__ float tot[];  // (K,) topic totals in real units
-  for (int t = threadIdx.x; t < k; t += blockDim.x) {
-    tot[t] = static_cast<float>(n_t[t]) * scale;
-  }
-  __syncthreads();
-
-  constexpr int kGroupsPerWarp = 32 / G;
-  const int lane = threadIdx.x & 31;
-  const int sub = lane % G;          // lane within the token's group
-  const int group = lane / G;        // token slot within the warp
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int num_warps = (gridDim.x * blockDim.x) >> 5;
-
-  for (long long base = static_cast<long long>(warp) * kGroupsPerWarp; base < n;
-       base += static_cast<long long>(num_warps) * kGroupsPerWarp) {
-    const long long i = base + group;
-    const bool valid = i < n;
-    float best = -CUDART_INF_F;
-    int best_t = 0x7fffffff;
-    int zi = 0;
-    int di = 0;
-    int wd = 0;
-    float wi = 0.0f;
-    if (valid) {  // all four loads in flight together, ahead of the branch below
-      zi = z[i];
-      wi = weights[i];
-      di = docs[i];
-      wd = words[i];
-    }
-    if (valid) {  // weight-0 tokens keep z below
-      const T* row_d = n_dt + static_cast<long long>(di) * k;
-      const uint8_t* row_w = n_wt + static_cast<long long>(wd) * kw;
-      const float ws = w_scales[wd];
-      const float* g = noise + i * k;
-      for (int t = sub; t < k; t += G) {
-        const float own = (t == zi) ? wi : 0.0f;
-        const float rd = fmaxf(static_cast<float>(row_d[t]) * scale - own, 0.0f);
-        const float rw = fmaxf(word_count<kCodeBits>(row_w, t, ws) - own, 0.0f);
-        const float tt = fmaxf(tot[t] - own, 1e-9f);
-        const float logit = (logf(rd + alpha) + logf(rw + beta)) - logf(tt + beta_bar);
-        const float val = logit + g[t];
-        if (val > best) {  // strict: the first maximum of this lane's topics
-          best = val;
-          best_t = t;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-      const int ot = __shfl_xor_sync(0xffffffffu, best_t, off);
-      if (ov > best || (ov == best && ot < best_t)) {
-        best = ov;
-        best_t = ot;
-      }
-    }
-    if (valid && sub == 0) {
-      z_out[i] = (wi > 0.0f) ? best_t : zi;
-    }
-  }
-}
-
-template <typename T, int kCodeBits, int G>
-cudaError_t launch_quant(const int32_t* docs, const int32_t* words, const int32_t* z,
-                         const float* weights, const void* n_dt, const uint8_t* codes,
-                         const float* w_scales, const void* n_t, const float* noise,
-                         int32_t* z_out, int n, int k, float alpha, float beta,
-                         float beta_bar, float scale, cudaStream_t stream) {
-  constexpr int kTokensPerBlock = (kThreads / 32) * (32 / G);
-  long long blocks = (static_cast<long long>(n) + kTokensPerBlock - 1) / kTokensPerBlock;
-  // Enough blocks to fill the card several times over; the grid-stride
-  // loop covers the rest and amortizes the n_t staging.
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  const size_t smem = static_cast<size_t>(k) * sizeof(float);
-  gibbs_resample_quant_kernel<T, kCodeBits, G><<<static_cast<unsigned>(blocks), kThreads, smem,
-                                                 stream>>>(
-      docs, words, z, weights, static_cast<const T*>(n_dt), codes, w_scales,
-      static_cast<const T*>(n_t), noise, z_out, n, k, alpha, beta, beta_bar, scale);
-  return cudaGetLastError();
+__device__ __forceinline__ unsigned code_of(float x, float safe) {
+  constexpr float kLevels = kCodeBits == 4 ? 15.0f : 255.0f;
+  // clamp(round_half_even(x / safe), 0, levels), x >= 0: IEEE division.
+  return static_cast<unsigned>(fminf(fmaxf(rintf(__fdiv_rn(x, safe)), 0.0f), kLevels));
 }
 
 template <typename T, int kCodeBits>
-cudaError_t dispatch_quant(const int32_t* docs, const int32_t* words, const int32_t* z,
-                           const float* weights, const void* n_dt, const uint8_t* codes,
-                           const float* w_scales, const void* n_t, const float* noise,
-                           int32_t* z_out, int n, int k, float alpha, float beta,
-                           float beta_bar, float scale, cudaStream_t s) {
-  if (k <= 8)
-    return launch_quant<T, kCodeBits, 8>(docs, words, z, weights, n_dt, codes, w_scales, n_t,
-                                         noise, z_out, n, k, alpha, beta, beta_bar, scale, s);
-  if (k <= 16)
-    return launch_quant<T, kCodeBits, 16>(docs, words, z, weights, n_dt, codes, w_scales, n_t,
-                                          noise, z_out, n, k, alpha, beta, beta_bar, scale, s);
-  return launch_quant<T, kCodeBits, 32>(docs, words, z, weights, n_dt, codes, w_scales, n_t,
-                                        noise, z_out, n, k, alpha, beta, beta_bar, scale, s);
-}
-
-template <int kCodeBits>
-cudaError_t run_quant(const int32_t* docs, const int32_t* words, const int32_t* z,
-                      const float* weights, const void* n_dt, const uint8_t* codes,
-                      const float* w_scales, const void* n_t, int counts_int,
-                      const float* noise, int32_t* z_out, int n, int k, float alpha,
-                      float beta, float beta_bar, float scale, cudaStream_t s) {
-  return counts_int
-             ? dispatch_quant<int32_t, kCodeBits>(docs, words, z, weights, n_dt, codes,
-                                                  w_scales, n_t, noise, z_out, n, k, alpha,
-                                                  beta, beta_bar, scale, s)
-             : dispatch_quant<float, kCodeBits>(docs, words, z, weights, n_dt, codes,
-                                                w_scales, n_t, noise, z_out, n, k, alpha,
-                                                beta, beta_bar, scale, s);
+__global__ void __launch_bounds__(kThreads)
+pack_rows_kernel(const T* __restrict__ n_wt, uint8_t* __restrict__ codes,
+                 float* __restrict__ scales, int v, int k, float scale) {
+  constexpr float kLevels = kCodeBits == 4 ? 15.0f : 255.0f;
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= v) return;  // uniform across the warp
+  const T* x = n_wt + row * k;
+  // Real units, negatives clipped: max(n * s, 0) (n * 2^-(w_bits+1) is the
+  // decode's quotient exactly).
+  auto real = [&](int t) { return fmaxf(static_cast<float>(x[t]) * scale, 0.0f); };
+  float mx = 0.0f;
+  for (int t = lane; t < k; t += 32) mx = fmaxf(mx, real(t));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float s = __fdiv_rn(mx, kLevels);
+  const float safe = s > 0.0f ? s : 1.0f;
+  if (lane == 0) scales[row] = s;
+  if constexpr (kCodeBits == 4) {
+    const int kc = (k + 1) / 2;
+    for (int j = lane; j < kc; j += 32) {
+      const unsigned lo = code_of<4>(real(2 * j), safe);
+      const unsigned hi = 2 * j + 1 < k ? code_of<4>(real(2 * j + 1), safe) : 0u;
+      codes[row * kc + j] = static_cast<uint8_t>(lo | (hi << 4));
+    }
+  } else {
+    for (int t = lane; t < k; t += 32) {
+      codes[row * k + t] = static_cast<uint8_t>(code_of<8>(real(t), safe));
+    }
+  }
 }
 
 __global__ void philox_words_kernel(const uint32_t* __restrict__ ctr,
@@ -772,10 +740,10 @@ extern "C" int lda_gibbs_resample(const int32_t* docs, const int32_t* words,
                                   unsigned long long offset, int32_t* z_out, int n, int d,
                                   int v, int k, float alpha, float beta,
                                   float beta_bar, float scale, void* stream) {
-  return static_cast<int>(run_exact<false>(docs, words, z, weights, n_dt, n_wt, n_t,
-                                           counts_int, noise, work, nullptr, seed, offset,
-                                           z_out, 1, n, d, v, k, alpha, beta, beta_bar, scale,
-                                           stream));
+  return static_cast<int>(run<false, 0>(docs, words, z, weights, n_dt, n_wt, nullptr,
+                                        nullptr, n_t, counts_int, noise, work, nullptr, seed,
+                                        offset, z_out, 1, n, d, v, k, alpha, beta, beta_bar,
+                                        scale, stream));
 }
 
 // M stacked models: ids/z/weights (m, n), n_dt (m, d, k), n_wt (m, v, k),
@@ -787,32 +755,55 @@ extern "C" int lda_gibbs_resample_batched(
     int counts_int, const float* noise, float* work, const unsigned long long* keys,
     int32_t* z_out, int m, int n, int d, int v, int k, float alpha, float beta,
     float beta_bar, float scale, void* stream) {
-  return static_cast<int>(run_exact<true>(docs, words, z, weights, n_dt, n_wt, n_t,
-                                          counts_int, noise, work, keys, 0, 0, z_out, m, n, d,
-                                          v, k, alpha, beta, beta_bar, scale, stream));
+  return static_cast<int>(run<true, 0>(docs, words, z, weights, n_dt, n_wt, nullptr, nullptr,
+                                       n_t, counts_int, noise, work, keys, 0, 0, z_out, m, n,
+                                       d, v, k, alpha, beta, beta_bar, scale, stream));
 }
 
-// One model with a packed word table: ids/z/weights (n,), n_dt (D, k) and
-// n_t (k,) stored as above (`counts_int`, `scale`), `codes` (V, k) uint8 for
-// bits = 8 or (V, ceil(k/2)) nibble-packed for bits = 4, `w_scales` (V,)
-// float32, noise (n, k).
+// One model with a packed word table: ids/z/weights (n,), n_dt (d, k) and
+// n_t (k,) stored as above (`counts_int`, `scale`), `codes` (v, k) uint8 for
+// bits = 8 or (v, ceil(k/2)) nibble-packed for bits = 4, `w_scales` (v,)
+// float32, and noise (n, k) — or, with noise NULL, Philox noise under
+// (seed, offset), the draw `lda_gibbs_resample` makes under that key.
+// `work`: `lda_gibbs_workspace(1, n, d, v, k)` floats.
 extern "C" int lda_gibbs_resample_quant(
     const int32_t* docs, const int32_t* words, const int32_t* z,
     const float* weights, const void* n_dt, const uint8_t* codes,
     const float* w_scales, const void* n_t, int counts_int, int bits,
-    const float* noise, int32_t* z_out, int n, int k, float alpha, float beta,
-    float beta_bar, float scale, void* stream) {
-  if (n <= 0) return 0;
-  if (check_shape(1, 0, 0, k) != cudaSuccess || (bits != 8 && bits != 4))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* noise, float* work, unsigned long long seed, unsigned long long offset,
+    int32_t* z_out, int n, int d, int v, int k, float alpha, float beta, float beta_bar,
+    float scale, void* stream) {
+  if (bits != 8 && bits != 4) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      bits == 8 ? run_quant<8>(docs, words, z, weights, n_dt, codes, w_scales, n_t,
-                               counts_int, noise, z_out, n, k, alpha, beta, beta_bar,
-                               scale, s)
-                : run_quant<4>(docs, words, z, weights, n_dt, codes, w_scales, n_t,
-                               counts_int, noise, z_out, n, k, alpha, beta, beta_bar,
-                               scale, s));
+      bits == 8 ? run<false, 8>(docs, words, z, weights, n_dt, nullptr, codes, w_scales, n_t,
+                                counts_int, noise, work, nullptr, seed, offset, z_out, 1, n, d,
+                                v, k, alpha, beta, beta_bar, scale, stream)
+                : run<false, 4>(docs, words, z, weights, n_dt, nullptr, codes, w_scales, n_t,
+                                counts_int, noise, work, nullptr, seed, offset, z_out, 1, n, d,
+                                v, k, alpha, beta, beta_bar, scale, stream));
+}
+
+// A packed sweep's word table from the stored (v, k) counts `n_wt`
+// (`counts_int` as above, `scale` to real units): `codes` (v, k) uint8 for
+// bits = 8 or (v, ceil(k/2)) nibble-packed for bits = 4, `scales` (v,).
+extern "C" int lda_gibbs_pack_word_table(const void* n_wt, int counts_int, int bits,
+                                         uint8_t* codes, float* scales, int v, int k,
+                                         float scale, void* stream) {
+  if (v <= 0) return 0;
+  if (k <= 0 || (bits != 8 && bits != 4)) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(v) + kThreads / 32 - 1) /
+                                                (kThreads / 32));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LDA_PACK(T, BITS)                                                                 \
+  pack_rows_kernel<T, BITS><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(n_wt), codes, \
+                                                         scales, v, k, scale)
+  if (counts_int) {
+    if (bits == 8) LDA_PACK(int32_t, 8); else LDA_PACK(int32_t, 4);
+  } else {
+    if (bits == 8) LDA_PACK(float, 8); else LDA_PACK(float, 4);
+  }
+#undef LDA_PACK
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Test entry: the kernels' Philox4x32-10 and cuRAND's `curand_Philox4x32_10`

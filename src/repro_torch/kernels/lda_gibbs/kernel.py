@@ -1,9 +1,10 @@
 """Load and launch the Hopper Gibbs-resample kernel (`csrc/lda_gibbs.cu`):
-`launch` for one model, `launch_many` for M stacked models (each with
-injected noise or Philox noise drawn in the kernel), `launch_quant` for one
-model whose word-topic table is packed (int8 or int4 codes with per-row
-scales), and `philox_words`, a test entry holding the kernels' Philox
-against cuRAND's.
+`launch` for one model, `launch_many` for M stacked models, `launch_quant`
+for one model whose word-topic table is packed (int8 or int4 codes with
+per-row scales) — each with injected noise or Philox noise drawn in the
+kernel —, `pack_rows`, which builds a packed sweep's word table from the
+stored counts, and `philox_words`, a test entry holding the kernels'
+Philox against cuRAND's.
 
 The source is built at first use by `repro_torch.kernels._build` (nvcc for
 ``sm_90a`` into ``build/repro_torch/``, a plain C interface loaded with
@@ -50,9 +51,11 @@ def _lib() -> ctypes.CDLL:
     lib.lda_gibbs_resample_batched.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, i, i, i, i,
                                                i, f, f, f, f, p]
     lib.lda_gibbs_resample_batched.restype = ctypes.c_int
-    lib.lda_gibbs_resample_quant.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, i, i,
-                                             f, f, f, f, p]
+    lib.lda_gibbs_resample_quant.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, u64, u64, p,
+                                             i, i, i, i, f, f, f, f, p]
     lib.lda_gibbs_resample_quant.restype = ctypes.c_int
+    lib.lda_gibbs_pack_word_table.argtypes = [p, i, i, p, p, i, i, f, p]
+    lib.lda_gibbs_pack_word_table.restype = ctypes.c_int
     lib.lda_gibbs_philox_words.argtypes = [p, p, p, p, i, p]
     lib.lda_gibbs_philox_words.restype = ctypes.c_int
     return lib
@@ -119,21 +122,40 @@ def launch_many(docs, words, z, weights, n_dt, n_wt, n_t, noise, z_out, *,
 
 def launch_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, z_out, *,
                  bits: int, alpha: float, beta: float, beta_bar: float,
-                 scale: float) -> None:
+                 scale: float, philox: tuple[int, int] = (0, 0)) -> None:
     """Launch over one model with a packed word table — `codes` (V, K)
     uint8 for bits 8, (V, ceil(K/2)) nibble-packed for bits 4, `scales`
     (V,) float32 — and stored n_dt/n_t (`scale` converts them to real
-    units) on PyTorch's current stream. Arguments are validated by the
+    units) on PyTorch's current stream, with injected `noise` (N, K) or,
+    when it is None, Philox noise under `philox` = (seed, offset): the
+    noise `launch` draws under that key. Arguments are validated by the
     caller (`ops.resample_quant`); raises if the launch is refused."""
-    n, k = noise.shape
+    n, k = z.shape[0], n_t.shape[0]
+    d, v = n_dt.shape[0], codes.shape[0]
+    work = _workspace(1, n, d, v, k, z.device)
     err = _lib().lda_gibbs_resample_quant(
         docs.data_ptr(), words.data_ptr(), z.data_ptr(), weights.data_ptr(),
         n_dt.data_ptr(), codes.data_ptr(), scales.data_ptr(), n_t.data_ptr(),
-        int(n_dt.dtype == torch.int32), bits, noise.data_ptr(), z_out.data_ptr(),
-        n, k, alpha, beta, beta_bar, scale,
+        int(n_dt.dtype == torch.int32), bits, _ptr(noise), _ptr(work), philox[0], philox[1],
+        z_out.data_ptr(), n, d, v, k, alpha, beta, beta_bar, scale,
         torch.cuda.current_stream(z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lda_gibbs_resample_quant launch failed: CUDA error {err}")
+
+
+def pack_rows(n_wt: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, *, bits: int,
+              scale: float) -> None:
+    """Pack the stored (V, K) word table `n_wt` (`scale` converts it to real
+    units) into `codes` (V, K) uint8 for bits 8, (V, ceil(K/2)) for bits 4,
+    and `scales` (V,) float32, in one launch on PyTorch's current stream.
+    Arguments are validated by the caller (`ops.pack_word_table`); raises if
+    the launch is refused."""
+    v, k = n_wt.shape
+    err = _lib().lda_gibbs_pack_word_table(
+        n_wt.data_ptr(), int(n_wt.dtype == torch.int32), bits, codes.data_ptr(),
+        scales.data_ptr(), v, k, scale, torch.cuda.current_stream(n_wt.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lda_gibbs_pack_word_table launch failed: CUDA error {err}")
 
 
 def philox_words(counters: torch.Tensor, keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -13,11 +13,11 @@ Unlike the TPU wrapper, nothing is padded or pre-gathered: the kernel
 takes the full count tables and the token ids and gathers rows itself.
 
 Noise comes in two modes. Injected: an (N, K) Gumbel tensor, as the TPU
-kernel takes it (the parity tests, the blocked `torch` sweep and the packed
-sweep). Philox: `philox=(seed, offset)` and no noise tensor; the kernel draws
-g(i, t) itself from Philox4x32-10 (`philox_gumbel_plain` is the same draw
-in eager PyTorch, and the plain version a CPU tensor takes). `philox_key`
-takes one sweep's key from a CUDA generator without a device sync.
+kernel takes it (the parity tests and the blocked `torch` sweep). Philox:
+`philox=(seed, offset)` and no noise tensor; the kernel draws g(i, t) itself
+from Philox4x32-10 (`philox_gumbel_plain` is the same draw in eager
+PyTorch, and the plain version a CPU tensor takes). `philox_key` takes one
+sweep's key from a CUDA generator without a device sync.
 
 `sweep` is the single-launch sweep of the `cuda` backend: one `resample`
 over all N tokens (Philox noise on the card, `torch.rand` Gumbel noise on
@@ -34,9 +34,14 @@ and model m draws what its single-model call would under its own key.
 `resample_quant` is the packed-table variant (a `cfg.quant` of mode int8
 or int4_packed): the word-topic table arrives as uint8 codes (nibble-packed
 for int4) with one float32 scale per row, which the kernel gathers by word
-id and dequantizes; doc-topic counts and totals stay exact. `sweep_resample`
-takes it for a packed spec, quantizing the stale (V, K) table once a sweep
-(`core.quant.quantize_rows_torch`), as the reference's packed sweep does.
+id and dequantizes; doc-topic counts and totals stay exact. It takes the
+same two noise modes, and under one Philox key it draws the noise
+`resample` draws. `sweep_resample` takes it for a packed spec, quantizing
+the stale (V, K) table once a sweep as the reference's packed sweep does:
+`pack_word_table` launches one kernel on the card (counted in
+``pack_word_table.launches``) and runs `pack_word_table_plain`
+(`core.quant.quantize_rows_torch` + `pack_nibbles_torch`) on the CPU; the
+two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -359,71 +364,119 @@ def resample_quant_plain(docs, words, z, weights, n_dt, codes, scales, n_t, nois
 
 
 def _check_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, bits,
-                 w_bits) -> None:
+                 w_bits, philox=None) -> None:
     """What the packed-table entry takes: `_check`'s arguments with the
     word table replaced by (V, Kc) uint8 codes and (V,) float32 scales."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    if noise.dim() != 2:
+    if noise is not None and noise.dim() != 2:
         raise ValueError("noise must be (N, K)")
     if codes.dim() != 2 or codes.dtype != torch.uint8:
         raise ValueError("codes must be a (V, Kc) uint8 table")
-    k = noise.shape[-1]
+    ref, ref_name = (z, "z") if noise is None else (noise, "noise")
+    k = n_t.shape[-1] if noise is None else noise.shape[-1]
     kc = k if bits == 8 else (k + 1) // 2
     if codes.shape[1] != kc:
         raise ValueError(f"codes must have {kc} columns for K={k} at {bits} bits")
     if scales.dtype != torch.float32 or scales.shape != (codes.shape[0],):
         raise ValueError(f"scales must be float32 of shape ({codes.shape[0]},)")
     for name, t in (("codes", codes), ("scales", scales)):
-        if t.device != noise.device:
-            raise ValueError(f"{name} is on {t.device}, noise on {noise.device}")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, {ref_name} on {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     # The exact arguments as `_check` sees them, with a word table of the
     # counts' own type standing in for the codes (it is not read).
     stand_in = torch.empty((0, k), dtype=n_dt.dtype, device=n_dt.device)
-    _check(docs, words, z, weights, n_dt, stand_in, n_t, noise, w_bits)
+    _check(docs, words, z, weights, n_dt, stand_in, n_t, noise, w_bits, philox=philox)
 
 
-def resample_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, *,
+def resample_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise=None, *,
                    alpha: float, beta: float, beta_bar: float, bits: int,
-                   w_bits: Optional[int] = None) -> torch.Tensor:
+                   w_bits: Optional[int] = None,
+                   philox: Optional[tuple[int, int]] = None) -> torch.Tensor:
     """New topic per token (N,) int32 from ids (N,), the stored doc-topic
     table (D, K) and totals (K,) — int32 fixed point when `w_bits` is set,
     else float32 — the packed word table (`codes` (V, K) uint8 for bits 8,
     (V, ceil(K/2)) nibble-packed for bits 4, `scales` (V,) float32) and
-    Gumbel noise (N, K). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    either Gumbel noise (N, K) or a Philox key `philox` = (seed, offset),
+    under which the kernel draws what `resample` draws under it. CPU tensors
+    take the plain version (`resample_quant_plain`, on `philox_gumbel_plain`'s
+    noise in Philox mode); CUDA tensors launch the kernel."""
     hp = dict(alpha=alpha, beta=beta, beta_bar=beta_bar, bits=bits, w_bits=w_bits)
-    if noise.device.type == "cpu":
+    dev = (z if noise is None else noise).device
+    if dev.type == "cpu":
+        if noise is None:
+            _check_quant(docs, words, z, weights, n_dt, codes, scales, n_t, None, bits, w_bits,
+                         philox=philox)
+            noise = philox_noise(z, n_t, philox)
+        elif philox is not None:
+            raise ValueError("pass either noise or a Philox key, not both or neither")
         return resample_quant_plain(docs, words, z, weights, n_dt, codes, scales, n_t,
                                     noise, **hp)
-    if noise.device.type != "cuda":
-        raise ValueError(f"no lda_gibbs kernel for device {noise.device}")
-    _check_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, bits, w_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"no lda_gibbs kernel for device {dev}")
+    _check_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, bits, w_bits,
+                 philox=philox)
     from repro_torch.kernels.lda_gibbs import kernel
 
     z_out = torch.empty_like(z)
     kernel.launch_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, z_out,
                         bits=bits, alpha=float(alpha), beta=float(beta),
-                        beta_bar=float(beta_bar), scale=_scale(w_bits))
+                        beta_bar=float(beta_bar), scale=_scale(w_bits),
+                        philox=philox or (0, 0))
     resample_quant.launches += 1
+    if noise is None:
+        resample_quant.launches_philox += 1
     return z_out
 
 
-#: Packed-table kernel launches so far (CUDA tensors only).
+#: Packed-table kernel launches so far (CUDA tensors only), and those of
+#: them in the Philox mode.
 resample_quant.launches = 0
+resample_quant.launches_philox = 0
 
 
-def pack_word_table(cfg: LDAConfig, n_wt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """A packed sweep's stale word table: the stored (V, K) counts decoded
-    and row-quantized to the spec's width (codes nibble-packed for int4),
-    with their (V,) scales."""
+def pack_word_table_plain(cfg: LDAConfig, n_wt: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`pack_word_table` in eager PyTorch: the stored (V, K) counts decoded
+    (`codec.decode_array`), row-quantized (`quant.quantize_rows_torch`) and,
+    for int4, nibble-packed (`quant.pack_nibbles_torch`)."""
     bits = cfg.quant_spec.bits
     codes, scales = quant.quantize_rows_torch(codec.decode_array(cfg, n_wt), bits)
     if bits == 4:
         codes = quant.pack_nibbles_torch(codes)
     return codes, scales
+
+
+def pack_word_table(cfg: LDAConfig, n_wt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A packed sweep's stale word table: the stored (V, K) counts decoded
+    and row-quantized to the spec's width (codes nibble-packed for int4),
+    with their (V,) scales. A CPU table takes `pack_word_table_plain`; a
+    CUDA table one launch of the pack kernel (`kernel.pack_rows`, counted in
+    ``pack_word_table.launches``), equal to it bit for bit."""
+    if n_wt.device.type == "cpu":
+        return pack_word_table_plain(cfg, n_wt)
+    if n_wt.device.type != "cuda":
+        raise ValueError(f"no lda_gibbs kernel for device {n_wt.device}")
+    bits = cfg.quant_spec.bits
+    w_bits = codec.codec_for(cfg).spec.w_bits
+    want = torch.float32 if w_bits is None else torch.int32
+    if n_wt.dtype != want or n_wt.dim() != 2 or not n_wt.is_contiguous():
+        raise ValueError(f"n_wt must be a contiguous 2-D {want} table (w_bits={w_bits})")
+    v, k = n_wt.shape
+    codes = torch.empty((v, k if bits == 8 else (k + 1) // 2), dtype=torch.uint8,
+                        device=n_wt.device)
+    scales = torch.empty(v, dtype=torch.float32, device=n_wt.device)
+    from repro_torch.kernels.lda_gibbs import kernel
+
+    kernel.pack_rows(n_wt, codes, scales, bits=bits, scale=_scale(w_bits))
+    pack_word_table.launches += 1
+    return codes, scales
+
+
+#: Pack-kernel launches so far (CUDA tables only).
+pack_word_table.launches = 0
 
 
 def sweep_resample(cfg: LDAConfig, state: LDAState, corpus: Corpus,
@@ -435,23 +488,23 @@ def sweep_resample(cfg: LDAConfig, state: LDAState, corpus: Corpus,
     `cfg.quant` (int8/int4_packed) the word-topic table is quantized once
     for the sweep (`pack_word_table`) and `resample_quant` scores against
     it; n_dt and n_t stay exact. `noise` (N, K) replaces the draw from
-    `gen`, so a test can replay the reference's. Without it, an exact sweep
-    on the card draws its noise in the kernel under `philox_key(gen)`, and
-    elsewhere (and a packed sweep everywhere) draws (N, K) `torch.rand`
-    Gumbel noise from `gen`: so with `noise=None` an exact and a packed
-    sweep on the card do not share draws."""
+    `gen`, so a test can replay the reference's. Without it, a sweep on the
+    card, exact or packed, draws its noise in the kernel under
+    `philox_key(gen)`, and a CPU sweep draws (N, K) `torch.rand` Gumbel
+    noise from `gen`: either way an exact and a packed sweep from one
+    generator state share their noise, as the reference's do from one key."""
     spec = cfg.quant_spec
     w_bits = codec.codec_for(cfg).spec.w_bits
     hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
     philox = None
-    if noise is None and not spec.packed and corpus.device.type == "cuda":
+    if noise is None and corpus.device.type == "cuda":
         philox = philox_key(gen)
     elif noise is None:
         noise = gumbel((corpus.num_tokens, cfg.num_topics), gen, corpus.device)
     if spec.packed:
         codes, scales = pack_word_table(cfg, state.n_wt)
         return resample_quant(corpus.docs, corpus.words, state.z, corpus.weights,
-                              state.n_dt, codes, scales, state.n_t, noise,
+                              state.n_dt, codes, scales, state.n_t, noise, philox=philox,
                               bits=spec.bits, **hp)
     return resample(corpus.docs, corpus.words, state.z, corpus.weights,
                     state.n_dt, state.n_wt, state.n_t, noise, philox=philox, **hp)

@@ -17,9 +17,14 @@ rows exactly: both entries run the same kernel body. The Philox modes
 against the plain versions on `philox_gumbel_plain`'s noise and
 `philox_mh_draws_plain`'s draws (alias_mh also exempts a proposal margin
 |u_prop - thresh| below 1e-5, and runs both of its bodies, direct and log
-tables); their Philox words equal cuRAND's exactly, and a `batched` sweep
+tables; the packed-table lda_gibbs entry runs both of its bodies); their
+Philox words equal cuRAND's exactly, and a `batched` sweep
 equals the single `cuda` sweeps, a batched `alias` sweep the single `alias`
-sweeps, from cloned generators exactly. chunk_scan and
+sweeps, from cloned generators exactly. The pack kernel's codes and scales
+equal the eager quantization's bit for bit, and on a lossless packed table
+(every scale 1) the packed-table entry equals the exact entry under one
+Philox key exactly, as a packed sweep equals an exact one from one
+generator. chunk_scan and
 decode_attn sum in other orders than their plain versions: float32 within
 3e-5 (chunk_scan, the reference's own tolerance; 1e-4 past 1,000 tokens,
 where 64 chunks of state carry) and 2e-5 (decode_attn); bf16 outputs within
@@ -712,6 +717,174 @@ def test_packed_cuda_sweep_launches_the_quant_entry_and_matches_cpu(card, mode):
                                         beta=cfg.beta, beta_bar=cfg.beta_bar,
                                         bits=cfg.quant_spec.bits, w_bits=8)
     _assert_same_but_near_ties(got.z.cpu(), want.z, scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n", [4099, 2 ** 17 + 5])
+@pytest.mark.parametrize("k", [12, 33, 200])
+def test_quant_both_noise_modes_match_plain_on_card(card, k, n, bits, w_bits):
+    # K <= 32: 4,099 tokens take a group of lanes a token, 2^17 + 5 a thread
+    # a token and the log tables (lw from the codes); K > 32 a warp a token.
+    args = _quant_inputs(n, k, w_bits, bits, seed=k + bits + 1, device=card)
+    hp = dict(HP, bits=bits, w_bits=w_bits)
+    key = (2 ** 64 - 5, 2 ** 34 + 8)
+    noise = ops.philox_noise(args[2], args[7], key)
+    counter = ops.resample_quant
+    for kernel_noise, kernel_key, plain_noise in ((args[8], None, args[8]), (None, key, noise)):
+        before = (counter.launches, counter.launches_philox)
+        got = ops.resample_quant(*args[:8], kernel_noise, philox=kernel_key, **hp)
+        torch.cuda.synchronize()
+        assert (counter.launches, counter.launches_philox) == (
+            before[0] + 1, before[1] + (kernel_key is not None))
+        want = ops.resample_quant_plain(*args[:8], plain_noise, **hp)
+        _assert_same_but_near_ties(got, want,
+                                   ops.perturbed_scores_quant(*args[:8], plain_noise, **hp))
+        frozen = args[3] == 0
+        assert torch.equal(got[frozen], args[2][frozen])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [1, 7, 12, 33, 128])
+def test_pack_kernel_equals_plain_on_card(card, k, bits, w_bits):
+    from repro_torch.core.quant import QuantSpec
+
+    rng = np.random.default_rng(k * bits)
+    v = 1001
+    x = rng.gamma(0.5, 3.0, (v, k)).astype(np.float32)
+    x[::7] = 0.0  # all-zero rows: scale 0, codes 0
+    x[1::5, 0] = x[1::5].max(axis=1)  # a repeated row maximum
+    x[3] = np.arange(k, dtype=np.float32) + 0.5  # half a step: half to even decides
+    x[4] = (np.arange(k, dtype=np.float32) % 3) * 0.5
+    x[5, -1] = -0.5  # clipped to 0
+    if w_bits is not None:
+        x = np.round(x * (1 << (w_bits + 1))).astype(np.int32)
+    cfg = types.LDAConfig(num_topics=k, vocab_size=v, num_docs=10, w_bits=w_bits,
+                          quant=QuantSpec("int8" if bits == 8 else "int4_packed", w_bits=w_bits))
+    table = torch.tensor(x, device=card)
+    before = ops.pack_word_table.launches
+    codes, scales = ops.pack_word_table(cfg, table)
+    torch.cuda.synchronize()
+    assert ops.pack_word_table.launches == before + 1
+    # Bit for bit the plain version on the card and on the CPU.
+    for want_codes, want_scales in (ops.pack_word_table_plain(cfg, table),
+                                    ops.pack_word_table_plain(cfg, table.cpu())):
+        assert codes.dtype == want_codes.dtype and codes.shape == want_codes.shape
+        assert scales.dtype == want_scales.dtype and scales.shape == want_scales.shape
+        assert torch.equal(codes.cpu(), want_codes.cpu())
+        assert torch.equal(scales.view(torch.int32).cpu(), want_scales.view(torch.int32).cpu())
+
+
+def _lossless_inputs(n, k, w_bits, bits, seed, device, d=60, v=300):
+    """Ids, z, weights and stored n_dt / n_wt / n_t whose word table packs
+    without loss: integer real counts, every row's maximum the code range."""
+    rng = np.random.default_rng(seed)
+    levels = (1 << bits) - 1
+    real = rng.integers(0, levels + 1, (v, k)).astype(np.float32)
+    real[np.arange(v), rng.integers(0, k, v)] = levels
+    n_dt = rng.gamma(0.6, 4.0, (d, k)).astype(np.float32)
+    n_t = real.sum(0)
+    n_wt = real
+    if w_bits is not None:
+        s = 1 << (w_bits + 1)
+        n_dt, n_wt, n_t = (np.round(x * s).astype(np.int32) for x in (n_dt, real, n_t))
+    weights = rng.uniform(0.05, 1.2, n).astype(np.float32)
+    weights[rng.random(n) < 0.1] = 0.0
+    arrays = (rng.integers(0, d, n).astype(np.int32), rng.integers(0, v, n).astype(np.int32),
+              rng.integers(0, k, n).astype(np.int32), weights, n_dt, n_wt, n_t)
+    return tuple(torch.tensor(a, device=device) for a in arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [12, 33])
+def test_lossless_packed_philox_resample_equals_exact_on_card(card, k, bits, w_bits):
+    # Both bodies at K 12 (4,099 tokens: a group of lanes a token, from the
+    # codes; 2^17 + 5: a thread a token, from lw built from the codes), the
+    # warp body at K 33; each against the exact entry under the same key.
+    from repro_torch.core.quant import QuantSpec
+
+    key = (12345, 2 ** 40 + 4)
+    for n in (4099, 2 ** 17 + 5):
+        docs, words, z, weights, n_dt, n_wt, n_t = _lossless_inputs(n, k, w_bits, bits,
+                                                                    seed=k + n, device=card)
+        cfg = types.LDAConfig(num_topics=k, vocab_size=n_wt.shape[0], num_docs=n_dt.shape[0],
+                              w_bits=w_bits, quant=QuantSpec(
+                                  "int8" if bits == 8 else "int4_packed", w_bits=w_bits))
+        codes, scales = ops.pack_word_table(cfg, n_wt)
+        assert torch.equal(scales, torch.ones_like(scales))
+        exact = ops.resample(docs, words, z, weights, n_dt, n_wt, n_t, philox=key,
+                             w_bits=w_bits, **HP)
+        packed = ops.resample_quant(docs, words, z, weights, n_dt, codes, scales, n_t,
+                                    philox=key, bits=bits, w_bits=w_bits, **HP)
+        torch.cuda.synchronize()
+        assert torch.equal(packed, exact), int((packed != exact).sum())
+        assert (packed != z).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("mode", ["int8", "int4_packed"])
+def test_packed_cuda_sweep_draws_in_the_kernel_on_card(card, mode, w_bits):
+    # A packed sweep on the card: one pack launch, one quant launch in the
+    # Philox mode, no exact launch; from one generator state it equals the
+    # exact sweep on a lossless table (the same key, the same noise).
+    from repro_torch.core.quant import QuantSpec
+
+    bits = 8 if mode == "int8" else 4
+    docs, words, z, weights, n_dt, n_wt, n_t = _lossless_inputs(5000, 12, w_bits, bits, seed=9,
+                                                                device=card)
+    corpus = types.Corpus(docs, words, weights)
+    state = types.LDAState(z, n_dt, n_wt, n_t)
+    fields = dict(num_topics=12, vocab_size=n_wt.shape[0], num_docs=n_dt.shape[0],
+                  w_bits=w_bits)
+    packed_cfg = types.LDAConfig(**fields, quant=QuantSpec(mode, w_bits=w_bits))
+    gen = torch.Generator(device=card).manual_seed(21)
+    twins = []
+    for _ in range(2):
+        t = torch.Generator(device=card)
+        t.set_state(gen.get_state())
+        twins.append(t)
+    counters = (ops.resample, ops.resample_quant, ops.pack_word_table)
+    before = [c.launches for c in counters] + [ops.resample_quant.launches_philox]
+    packed = ops.sweep_resample(packed_cfg, state, corpus, gen)
+    torch.cuda.synchronize()
+    after = [c.launches for c in counters] + [ops.resample_quant.launches_philox]
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 1]
+    exact = ops.sweep_resample(types.LDAConfig(**fields), state, corpus, twins[0])
+    assert torch.equal(packed, exact)
+    assert gen.get_offset() == twins[0].get_offset()
+    key = ops.philox_key(twins[1])
+    codes, scales = ops.pack_word_table(packed_cfg, n_wt)
+    assert torch.equal(packed, ops.resample_quant(
+        docs, words, z, weights, n_dt, codes, scales, n_t, philox=key, bits=bits,
+        w_bits=w_bits, alpha=packed_cfg.alpha, beta=packed_cfg.beta,
+        beta_bar=packed_cfg.beta_bar))
+
+
+@pytest.mark.cuda
+def test_quant_wrappers_refuse_bad_philox_arguments_on_card(card):
+    args = _quant_inputs(256, 12, 8, 8, seed=1, device=card)
+    with pytest.raises(ValueError, match="not both"):
+        ops.resample_quant(*args, philox=(1, 0), bits=8, w_bits=8, **HP)
+    with pytest.raises(ValueError, match="key must be a"):
+        ops.resample_quant(*args[:8], philox=(1.5, 0), bits=8, w_bits=8, **HP)
+    with pytest.raises(ValueError, match="codes is on cpu, z on cuda"):
+        ops.resample_quant(*args[:5], args[5].cpu(), *args[6:8], philox=(1, 0), bits=8,
+                           w_bits=8, **HP)
+    from repro_torch.core.quant import QuantSpec
+
+    cfg = types.LDAConfig(num_topics=12, vocab_size=300, num_docs=60, w_bits=8,
+                          quant=QuantSpec.int8(w_bits=8))
+    table = torch.zeros((300, 12), dtype=torch.float32, device=card)
+    with pytest.raises(ValueError, match="n_wt must be a contiguous 2-D torch.int32"):
+        ops.pack_word_table(cfg, table)
+    with pytest.raises(ValueError, match="n_wt must be a contiguous"):
+        ops.pack_word_table(cfg, table.to(torch.int32).t().contiguous().t())
 
 
 # -- chunk_scan ------------------------------------------------------------

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the Gibbs resample kernel's exact entries of one or more source
-trees on one CUDA card, one process a tree, in the order given.
+"""Time the Gibbs resample kernel's entries (exact and packed-table) of one
+or more source trees on one CUDA card, one process a tree, in the order
+given.
 
     python3 tools/lda_gibbs_ab.py [TREE ...]     (default: this checkout)
 
@@ -9,7 +10,8 @@ earlier commit unpacked with `git archive` under the git-ignored `build/`).
 Every tree's kernel is built first, all builds started together. Then each
 tree in turn, in a process of its own that imports that tree's
 `repro_torch`, launches `kernel.launch` / `kernel.launch_many` at four
-shapes, on inputs made from numpy seed 0:
+shapes and `kernel.launch_quant` at four more, on inputs made from numpy
+seed 0:
 
   single   N 600,193, K 12, D = V = 10,000, int32 fixed-point tables (the
            popular product of `chip_smoke.py`'s `scale` phase)
@@ -20,9 +22,14 @@ shapes, on inputs made from numpy seed 0:
            case study on the `torch` route)
   case     N 29,232, K 12, D 487, V 4,000, int32 tables (all of the case
            study's tokens in one launch, as the `cuda` route takes them)
+  quant8, quant4
+           `single` with its word table packed to int8 / int4 codes and row
+           scales (the popular product's packed `cuda` sweep)
+  case8, case4
+           `case` packed the same way (the case study's packed sweep)
 
-in the injected mode, which every tree's `launch` takes, and in the Philox
-mode where the tree's `launch` takes a `philox` key. Times are ms a launch:
+in the injected mode, which every tree's entries take, and in the Philox
+mode where the tree's `launch` (`launch_quant`) takes a `philox` key. Times are ms a launch:
 `ms` by CUDA events over 200 raw launches, `graph_ms` over 20 launches
 replayed from a CUDA graph (device time with no host gaps), as
 `chip_smoke.py` times them. Every tree's topics in the injected mode must
@@ -41,11 +48,32 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SHAPES = {"single": (1, 600_193, 10_000, 10_000, 8),
-          "batched": (32, 65_536, 1_024, 4_000, 8),
-          "block": (1, 4_096, 487, 4_000, None),
-          "case": (1, 29_232, 487, 4_000, 8)}  # m, n, d, v, w_bits
+SHAPES = {"single": (1, 600_193, 10_000, 10_000, 8, None),
+          "batched": (32, 65_536, 1_024, 4_000, 8, None),
+          "block": (1, 4_096, 487, 4_000, None, None),
+          "case": (1, 29_232, 487, 4_000, 8, None),
+          "quant8": (1, 600_193, 10_000, 10_000, 8, 8),
+          "quant4": (1, 600_193, 10_000, 10_000, 8, 4),
+          "case8": (1, 29_232, 487, 4_000, 8, 8),
+          "case4": (1, 29_232, 487, 4_000, 8, 4)}  # m, n, d, v, w_bits, packed bits
 K = 12
+
+
+def pack(real, bits: int):
+    """A real-unit (V, K) table row-quantized as the packed sweep does it:
+    scale = max / levels, codes = clip(rint(x / scale)) (0 for an all-zero
+    row), nibble-packed low first for 4 bits."""
+    import numpy as np
+
+    levels = np.float32((1 << bits) - 1)
+    x = np.maximum(real.astype(np.float32), np.float32(0))
+    scales = (x.max(axis=-1) / levels).astype(np.float32)
+    safe = np.where(scales > 0, scales, np.float32(1))[:, None]
+    codes = np.clip(np.rint(x / safe), 0, levels).astype(np.uint8)
+    if bits == 4:
+        codes = np.pad(codes, ((0, 0), (0, codes.shape[1] % 2)))
+        codes = (codes[:, 0::2] | (codes[:, 1::2] << 4)).astype(np.uint8)
+    return codes, scales
 
 
 def inputs(shape: str) -> dict:
@@ -54,7 +82,7 @@ def inputs(shape: str) -> dict:
     import numpy as np
     import torch
 
-    m, n, d, v, w_bits = SHAPES[shape]
+    m, n, d, v, w_bits, bits = SHAPES[shape]
     rng = np.random.default_rng(0)
     docs = np.sort(rng.integers(0, d, (m, n)), axis=1).astype(np.int32)
     words = ((rng.zipf(1.3, (m, n)) - 1) % v).astype(np.int32)
@@ -74,8 +102,15 @@ def inputs(shape: str) -> dict:
     keys = np.stack([np.arange(m) * 7919 + 5, np.arange(m) * 4 + 8], 1).astype(np.int64)
     t = [torch.tensor(a if m > 1 else a[0], device="cuda")
          for a in (docs, words, z, weights, n_dt, n_wt, n_t, noise)]
-    return dict(m=m, args=t[:7], noise=t[7], keys=torch.tensor(keys, device="cuda"),
-                hp=dict(alpha=0.1, beta=0.01, beta_bar=0.01 * v, scale=scale))
+    hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * v, scale=scale)
+    args = t[:7]
+    if bits is not None:
+        codes, scales = pack(n_wt[0] * np.float32(scale), bits)
+        args = [*t[:5], torch.tensor(codes, device="cuda"), torch.tensor(scales, device="cuda"),
+                t[6]]
+        hp["bits"] = bits
+    return dict(m=m, bits=bits, args=args, noise=t[7], keys=torch.tensor(keys, device="cuda"),
+                hp=hp)
 
 
 def cuda_ms(fn, reps: int = 200) -> float:
@@ -120,15 +155,17 @@ def worker(tree: Path, out: Path) -> dict:
 
     from repro_torch.kernels.lda_gibbs import kernel
 
-    philox = "philox" in inspect.signature(kernel.launch).parameters
+    philox = {name: "philox" in inspect.signature(getattr(kernel, name)).parameters
+              for name in ("launch", "launch_quant")}
     times, topics = {}, {}
     for shape in SHAPES:
         inp = inputs(shape)
         many = inp["m"] > 1
-        launch = kernel.launch_many if many else kernel.launch
+        launch = kernel.launch_many if many else (
+            kernel.launch if inp["bits"] is None else kernel.launch_quant)
         key = inp["keys"] if many else (5, 8)
         modes = (("injected", inp["noise"], {}),)
-        if philox:
+        if philox["launch" if inp["bits"] is None else "launch_quant"]:
             modes += (("philox", None, {"philox": key}),)
         for mode, noise, extra in modes:
             z_out = torch.empty_like(inp["args"][2])
