@@ -92,7 +92,34 @@ Phases:
                  at 300 s and restored from its JSON snapshot; every acked
                  review must be applied; staleness, reviews/s, launches and
                  the device's share of a profiled 40 s window
- 10. hybrid_serve
+ 10. offload     the Chital offload tier on 2 in-process servers on the card,
+                 `refit_policy="always"`: each stream replayed server-only,
+                 then with every refit leased by `offload.OffloadCoordinator`
+                 to a 1,000-device `DeviceFleet` (20% malicious: fabricate
+                 and corrupt; churn 0.05; stragglers 0.1 x 8); (a)
+                 `offload_gate`, the JAX package's `offload_bench.py` config
+                 exactly (4 products, 80 s, K 4), the fleet on `torch` (fits
+                 on the card) and on `sparse` (the phone's numpy sampler):
+                 >= 50% of refit sweep-work off the server, held-out
+                 perplexity within 2% of server-only, no phony model
+                 adopted, honest credit above malicious, a zero-sum ledger;
+                 (b) `offload_service`, the stream phase's widths (16
+                 products, K 12, `w_bits` 8, `auto`) cut to 120 s, the fleet
+                 on `torch`: the same gates with a 5% band, every lease
+                 adopted or fallen back, every view valid; both hold the
+                 refit task lists of the two replays equal; launches counted
+                 from 0 just before each replay (the `torch` route's blocks
+                 of up to 4096 tokens: servers' fits, updates, spot checks,
+                 fallback refines, and the `torch` fleet's fits; the
+                 server-only replays' coalesced `refine_batch` stacks); obs
+                 on in every replay, its spans giving each lease stage's
+                 seconds and the servers' measured refit seconds beside the
+                 sweep-work accounting; then, for each case, the Gibbs
+                 kernel against its plain version at the case's largest
+                 product's first block and at a block of its mean tokens a
+                 launch, and the batched kernel at the largest stack a
+                 server-only window coalesced
+ 11. hybrid_serve
                  the transformer zoo's serving path: the full zamba2-2.7b
                  (54 Mamba2 layers, d_model 2560, weights from seed 0) through
                  `Engine(cache_len=8192, max_batch=2)`: 2 x 4096-token prompts
@@ -106,7 +133,7 @@ Phases:
                  full model's prefill/decode consistency below 2%, at 512
                  tokens and at 4102 (past the 4096 window and not a multiple
                  of it: the ring tail must hold position p in slot p mod w)
- 11. hybrid_parity
+ 12. hybrid_parity
                  the card against the port on the CPU at full width and one
                  group's depth (6 Mamba2 layers + the shared block): prefill
                  logits and two teacher-forced decode steps within 4% of the
@@ -140,7 +167,11 @@ events), and `wrapper_ms`, CUDA events through the wrapper. The kernels
 line's `lda_gibbs.resample`, `lda_gibbs.resample_quant` and
 `alias_mh.resample` entries give their launches by shape and noise or draw
 mode (`by_shape`), counted where the wrapper launches (`launches`,
-`launches_philox`): alias_mh.resample's are the case study's on `alias`,
+`launches_philox`): lda_gibbs.resample's are the main path's blocks, the
+popular product's single launches and each offload case's blocks
+(lda_gibbs.resample_many's: the zoo's and each offload case's server-only
+stacks);
+alias_mh.resample's are the case study's on `alias`,
 the popular product's on int32 tables (`large_fit` and `packed`'s exact
 `alias` run) and on packed int8 tables; resample_quant's the popular
 product's int8 and int4 runs (`packed`) and the case study's
@@ -155,6 +186,7 @@ exits non-zero; without CUDA it exits 2 before doing anything.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -798,6 +830,20 @@ def kernel_timing(cfg, corpus, state, reps=50):
     out["mismatch"] = out["injected"]["mismatch"] + out["philox"]["mismatch"]
     out["max_abs_err"] = max(out["injected"]["max_abs_err"], out["philox"]["max_abs_err"])
     return out
+
+
+def first_block_timing(handle, n=4096):
+    """`kernel_timing` at a served `torch`-route model's own shape: its
+    first block of `n` tokens (the route's 4096 by default) against its
+    tables (the route hands the kernel real-unit, decoded float32
+    tables)."""
+    from repro_torch.core import codec
+    from repro_torch.core.types import Corpus, LDAState
+
+    cfg, corpus, state = handle.cfg, handle.model.corpus, handle.model.state
+    block = Corpus(*(t[:n].contiguous() for t in (corpus.docs, corpus.words, corpus.weights)))
+    block_state = LDAState(state.z[:n].contiguous(), *codec.decode_counts(cfg, state))
+    return kernel_timing(dataclasses.replace(cfg, w_bits=None), block, block_state, reps=200)
 
 
 def sweep_breakdown(cfg, corpus, state, reps=20):
@@ -2171,6 +2217,303 @@ def phase_stream():
     return out
 
 
+# -- phase 10b: the offload tier ---------------------------------------------------
+
+OFFLOAD_SHARDS = (0, 1)
+# A 1,000-device fleet, 20% malicious (half fabricate, half corrupt), churn
+# 0.05, stragglers 0.1 x 8: the JAX package's `benchmarks/offload_bench.py`.
+OFFLOAD_FLEET = dict(num_devices=1000, malicious_frac=0.2, fabricate_frac=0.5, churn_prob=0.05,
+                     straggler_frac=0.1, straggler_factor=8.0, seed=0)
+OFFLOAD_CASES = {
+    # (a) the JAX package's `benchmarks/offload_bench.py` config, exactly
+    "offload_gate": dict(
+        stream=dict(num_products=4, duration=80.0, rate=2.5, shape="burst", shift_at=20.0,
+                    seed=0),
+        server=dict(backend="jnp", num_sweeps=4, update_sweeps=1),
+        router=dict(capacity=256),
+        sched=dict(microbatch=6, min_fit_reviews=8, staleness_budget=8.0, refit_sweeps=6,
+                   fit_kwargs=dict(num_topics=4, base_vocab=120, num_sweeps=4)),
+        ppx_band=0.02),
+    # (b) the service's widths: the stream phase's config, its 600 s cut to 120 s
+    "offload_service": dict(
+        stream=dict(num_products=16, duration=120.0, rate=8.0, shape="burst", shift_at=60.0,
+                    vocab_size=800, num_topics=12, mean_tokens=60, seed=0),
+        server=dict(backend="auto"),
+        router=dict(capacity=128, policy="block"),
+        sched=dict(refit_sweeps=10,
+                   fit_kwargs=dict(num_topics=12, base_vocab=800, w_bits=8, num_sweeps=30)),
+        ppx_band=PPX_BAND),
+}
+OFFLOAD_COUNTERS = ("lda_gibbs.resample", "lda_gibbs.resample_many", "lda_gibbs.resample_quant",
+                    "alias_mh.resample", "alias_mh.resample_many")
+
+
+def _offload_counters():
+    from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.lda_gibbs import ops
+
+    return dict(zip(OFFLOAD_COUNTERS, (ops.resample, ops.resample_many, ops.resample_quant,
+                                       alias_ops.mh_resample, alias_ops.mh_resample_many)))
+
+
+# The server verbs a refit costs the server: the built-in path's `refine`
+# and `refine_batch`; a lease's `export_model`, `spot_check` (validation and
+# reverify), `adopt_state` and its fallback `refine`.
+REFIT_VERBS = ("refine", "refine_batch", "export_model", "spot_check", "adopt_state")
+# The obs spans a lease's stages are read from (its client-side calls and
+# the coordinator's and fleet's own spans), by stage.
+LEASE_SPANS = {"offload.lease": "lease", "client.export_model": "export",
+               "offload.device_fit": "device_fit", "offload.validate": "validation",
+               "offload.reverify": "reverify", "client.adopt_state": "adopt",
+               "client.refine": "fallback"}
+
+
+def span_seconds(spans):
+    """A replay's obs spans summed: `lease_stages` (each stage's seconds
+    and calls, by `LEASE_SPANS`) and `server_refit` (the servers' dispatch
+    spans of `REFIT_VERBS`, a `spot_check` filed under the coordinator span
+    it ran under: `validation` or `reverify`), with their total seconds."""
+    by_id = {sp.span_id: sp for sp in spans}
+
+    def server_stage(sp):
+        verb = sp.name.removeprefix("server.")
+        if verb != "spot_check":
+            return verb
+        while sp.parent_id in by_id:
+            sp = by_id[sp.parent_id]
+            if sp.name in ("offload.validate", "offload.reverify"):
+                return LEASE_SPANS[sp.name]
+        return verb
+
+    out = {"lease_stages": collections.defaultdict(lambda: {"s": 0.0, "calls": 0}),
+           "server_refit": collections.defaultdict(lambda: {"s": 0.0, "calls": 0})}
+    for sp in spans:
+        if sp.name in LEASE_SPANS:
+            key, stage = "lease_stages", LEASE_SPANS[sp.name]
+        elif sp.name.removeprefix("server.") in REFIT_VERBS:
+            key, stage = "server_refit", server_stage(sp)
+        else:
+            continue
+        out[key][stage]["s"] += sp.duration_s
+        out[key][stage]["calls"] += 1
+    out = {key: dict(stages) for key, stages in out.items()}
+    out["server_refit_s"] = sum(v["s"] for v in out["server_refit"].values())
+    return out
+
+
+def stack_size(b):
+    """A batch-engine stack's models, then its slots."""
+    return len(b["handles"]), b["corpora"].docs.numel()
+
+
+def offload_stream(device, case, events, executor=None):
+    """Replay `events` onto 2 in-process servers on `device` under
+    `refit_policy="always"` (a refit a micro-batch: the schedule depends on
+    the event times alone), with obs on. Returns the scheduler, its
+    clients, the refit task list (shard, product, tokens, sweeps) in order,
+    the largest stack a coalesced window handed `refine_batch` (restacked
+    by `zoo_buckets` as the window arrived; None when no window coalesced),
+    the held-out
+    perplexity of every product that has a reservoir, whether every view
+    syncs valid, the wall seconds, each kernel's launches (counted from 0
+    just before the replay) and `lda_gibbs.resample`'s tokens, and the
+    replay's spans summed by `span_seconds`."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.api import VedaliaClient, VedaliaServer
+    from repro_torch.kernels.lda_gibbs import ops
+    from repro_torch.obs import trace
+    from repro_torch.stream import IncrementalScheduler, StreamRouter, pump
+
+    class Scheduler(IncrementalScheduler):
+        """Records each refit task as the executor (or the built-in path)
+        receives it, and the largest stack of a coalesced window."""
+
+        tasks: list
+        stack: dict = None
+
+        def _execute_refits(self, sid, statuses, now):
+            self.tasks += [(sid, s.product_id, int(s.tokens_ingested), self.refit_sweeps)
+                           for s in statuses]
+            if self.refit_executor is None and len(statuses) > 1:
+                for b in zoo_buckets(self.clients[sid].server.service,
+                                     [s.handle_id for s in statuses]):
+                    if self.stack is None or stack_size(b) > stack_size(self.stack):
+                        self.stack = b
+            return super()._execute_refits(sid, statuses, now)
+
+    router = StreamRouter(list(OFFLOAD_SHARDS), **case["router"])
+    clients = {s: VedaliaClient(server=VedaliaServer(device=device, **case["server"]))
+               for s in OFFLOAD_SHARDS}
+    sched = Scheduler(clients, router, refit_policy="always", refit_executor=executor,
+                      **case["sched"])
+    sched.tasks = []
+    counters = _offload_counters()
+    for c in counters.values():
+        c.launches = c.launches_philox = 0
+    ops.resample.tokens = 0
+    trace.reset()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    with obs.scope(True):
+        t0 = time.perf_counter()
+        pump(events, router, sched, step_interval=2.0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    spans = trace.spans()
+    trace.reset()
+    if len(spans) >= trace.MAX_SPANS:
+        raise SystemExit(f"offload replay: the span buffer filled ({len(spans)} spans)")
+    launches = {name: c.launches for name, c in counters.items()}
+    launches_philox = {name: c.launches_philox for name, c in counters.items()}
+    heldout = {pid: float(clients[st.shard_id].perplexity(st.handle_id, reviews=st.heldout))
+               for pid, st in sched.products.items() if st.heldout}
+    views_valid = all(clients[st.shard_id].sync_view(st.handle_id).valid
+                      for st in sched.products.values())
+    return dict(sched=sched, clients=clients, tasks=sched.tasks, stack=sched.stack,
+                heldout=heldout, views_valid=views_valid, wall_s=wall_s, launches=launches,
+                launches_philox=launches_philox, resample_tokens=ops.resample.tokens,
+                **span_seconds(spans))
+
+
+def offload_run(device, name, case, events, base, fleet_backend):
+    """The same stream leased to the 1,000-device fleet on `fleet_backend`
+    ("torch", the reference bench's "jnp", or "sparse", the phone's
+    sampler) against the server-only replay `base`; emits the run and
+    fails on a missed gate."""
+    import numpy as np
+
+    from repro_torch.offload import DeviceFleet, FleetSpec, OffloadCoordinator
+
+    fleet = DeviceFleet(FleetSpec(**OFFLOAD_FLEET, backend=fleet_backend), device=device)
+    coord = OffloadCoordinator(fleet, spot_check_sweeps=2, seed=0)
+    run = offload_stream(device, case, events, executor=coord)
+    st, ledger = coord.stats, coord.marketplace.ledger
+    base_work = base["sched"].stats.refit_sweep_work
+    offloaded = 1.0 - st.server_sweep_work / base_work
+    shared = sorted(set(base["heldout"]) & set(run["heldout"]))
+    base_ppx = float(np.mean([base["heldout"][p] for p in shared]))
+    off_ppx = float(np.mean([run["heldout"][p] for p in shared]))
+    ppx_delta = abs(off_ppx - base_ppx) / base_ppx
+    credit = {kind: float(np.mean([ledger.get(d.device_id) for d in fleet.devices.values()
+                                   if d.honest == honest]))
+              for kind, honest in (("honest", True), ("malicious", False))}
+    server_s = run["server_refit_s"] / base["server_refit_s"]
+    out = {
+        "phase": name, "fleet_backend": fleet_backend, "events": len(events),
+        "products": len(run["sched"].products), "refits": st.tasks,
+        "server_only_refits": base["sched"].stats.refits, "task_lists_equal": run[
+            "tasks"] == base["tasks"],
+        "adopted": st.adopted, "adopted_phony": st.adopted_phony,
+        "fallback_unmatched": st.fallback_unmatched, "fallback_rejected": st.fallback_rejected,
+        "invalid_uploads": st.invalid_submissions, "churned": st.churned,
+        "lease_timeouts": st.lease_timeouts, "validations": st.validations,
+        "spot_checks": st.spot_checks, "offloaded_sweep_fraction": offloaded,
+        "server_sweep_work": st.server_sweep_work, "server_only_sweep_work": base_work,
+        "device_sweep_work": st.device_sweep_work,
+        # The server's measured seconds for refit work (its dispatch spans of
+        # `REFIT_VERBS`) in each replay, beside the sweep-work accounting.
+        "server_refit_s": {"server_only": base["server_refit_s"],
+                           "offloaded": run["server_refit_s"], "ratio": server_s,
+                           "measured_offloaded_fraction": 1.0 - server_s,
+                           "server_only_by_stage": base["server_refit"],
+                           "offloaded_by_stage": run["server_refit"]},
+        "heldout_ppx": {"server_only": base_ppx, "offloaded": off_ppx, "rel_delta": ppx_delta,
+                        "products": len(shared), "band": case["ppx_band"]},
+        "credit": {**credit, "ledger_total": ledger.total()},
+        "matched_rate": coord.marketplace.matched_rate(),
+        "verification_rate": coord.marketplace.verification_rate(),
+        "views_valid": run["views_valid"], "wall_s": run["wall_s"],
+        "lease_stages": run["lease_stages"], "server_only_wall_s": base["wall_s"],
+        "leases_per_s": st.tasks / run["wall_s"],
+        "launches": run["launches"], "launches_philox": run["launches_philox"],
+        "server_only_launches": base["launches"],
+        "server_only_launches_philox": base["launches_philox"],
+    }
+    emit(out)
+    failed = [msg for bad, msg in (
+        (st.tasks != base["sched"].stats.refits or run["tasks"] != base["tasks"],
+         "the refit task lists differ: the comparison is invalid"),
+        (offloaded < 0.5, f"only {offloaded:.1%} of refit sweep-work moved off the server"),
+        (ppx_delta > case["ppx_band"], f"held-out perplexity {ppx_delta:.2%} from server-only"),
+        (st.adopted_phony != 0, f"{st.adopted_phony} phony model(s) adopted"),
+        (not credit["honest"] > credit["malicious"], f"credit did not separate: {credit}"),
+        (abs(ledger.total()) > 1e-9, f"the ledger is not zero-sum: {ledger.total()}"),
+        (st.adopted == 0 or st.device_sweep_work <= 0, "the fleet adopted nothing"),
+        (st.adopted + st.fallbacks != st.tasks, "a lease was neither adopted nor fallen back"),
+        (not run["views_valid"], "a view failed to sync valid"),
+        (run["launches"]["lda_gibbs.resample"] == 0, "the offloaded run launched no kernel"),
+    ) if bad]
+    if failed:
+        raise SystemExit(f"{name} ({fleet_backend} fleet): " + "; ".join(failed))
+    return out, run
+
+
+def phase_offload(device="cuda"):
+    """The Chital offload tier on in-process servers on `device`: (a) the
+    JAX package's offload bench config with the fleet on `torch` and on
+    `sparse`, against one server-only replay; (b) the service's widths
+    with the fleet on `torch`. Returns the emitted runs and each case's
+    replays by name (`server_only` and the fleet backends)."""
+    from repro_torch.stream import StreamSpec, synthetic_events
+
+    runs, replays = {}, {}
+    for name, case in OFFLOAD_CASES.items():
+        events = synthetic_events(StreamSpec(**case["stream"]))
+        base = offload_stream(device, case, events)
+        replays[name] = {"server_only": base}
+        for backend in (("torch", "sparse") if name == "offload_gate" else ("torch",)):
+            runs[f"{name}_{backend}"], replays[name][backend] = offload_run(
+                device, name, case, events, base, backend)
+    return runs, replays
+
+
+def offload_kernels(replays):
+    """Each offload case's Gibbs kernels held against their plain versions
+    at the case's own shapes, and timed: `lda_gibbs.resample` at the
+    largest product's first block (the largest launch) and at a block of
+    the case's mean tokens a launch, from the last offloaded replay's
+    served state; `lda_gibbs.resample_many` at the largest stack the
+    server-only replay's coalesced windows handed `refine_batch`, from the
+    states it had then. Fails on a mismatch.
+    Returns, by case, the timings and the launches counted over its
+    replays."""
+    out = {}
+    for name, case_runs in replays.items():
+        base, last = case_runs["server_only"], list(case_runs.values())[-1]
+        largest = max(last["sched"].products.values(), key=lambda p: p.tokens_ingested)
+        handle = last["clients"][largest.shard_id].server.service.handles[largest.handle_id]
+        launches = {run: r["launches"]["lda_gibbs.resample"] for run, r in case_runs.items()}
+        tokens = sum(r["resample_tokens"] for r in case_runs.values())
+        per_launch = tokens / sum(launches.values())
+        first = first_block_timing(handle)
+        typical = first_block_timing(handle, n=max(1, round(per_launch)))
+        many = batched_kernel_timing(base["stack"])
+        corpora = sorted(p.tokens_ingested for p in last["sched"].products.values())
+        row = {
+            "case": name, "first_block": first, "typical_block": typical, "many": many,
+            "resample": {"launches": launches, "launches_philox": sum(
+                r["launches_philox"]["lda_gibbs.resample"] for r in case_runs.values()),
+                "tokens": tokens, "tokens_per_launch": per_launch,
+                "corpora_tokens": [corpora[0], corpora[len(corpora) // 2], corpora[-1]]},
+            "resample_many": {"launches": {run: r["launches"]["lda_gibbs.resample_many"]
+                                           for run, r in case_runs.items()},
+                              "launches_philox": sum(
+                                  r["launches_philox"]["lda_gibbs.resample_many"]
+                                  for r in case_runs.values()),
+                              "live_tokens": sum(base["stack"]["lengths"])},
+        }
+        emit({"phase": "offload_kernel", **row})
+        if first["mismatch"] or typical["mismatch"] or many["mismatch"]:
+            raise SystemExit(f"{name}: a Gibbs kernel disagrees with its plain version: "
+                             f"first block {first['mismatch']}, typical block "
+                             f"{typical['mismatch']}, stack {many['mismatch']}")
+        out[name] = row
+    return out
+
+
 # -- phase 1b: the transformer zoo's kernels ------------------------------------
 
 ZAMBA2_PREFILL = dict(b=2, s=4096, h=80, dk=64, dv=64)  # one Mamba2 layer's scan, 2 x 4096
@@ -2803,16 +3146,7 @@ def main() -> int:
     scan_kern = phase_chunk_scan_kernel()
     attn_kern = phase_decode_attn_kernel()
     main_out, handle = phase_main_path("jnp")
-    # The main path's own shape: one 4096-token block against its tables.
-    # The torch backend hands the kernel real-unit (decoded) float32 tables.
-    from repro_torch.core import codec
-    from repro_torch.core.types import Corpus, LDAState
-
-    cfg, corpus, state = handle.cfg, handle.model.corpus, handle.model.state
-    block = Corpus(*(t[:4096].contiguous() for t in (corpus.docs, corpus.words, corpus.weights)))
-    block_state = LDAState(state.z[:4096].contiguous(), *codec.decode_counts(cfg, state))
-    block_timing = kernel_timing(dataclasses.replace(cfg, w_bits=None), block, block_state,
-                                 reps=200)
+    block_timing = first_block_timing(handle)
     emit({"phase": "main_path_kernel", "kernel": block_timing})
     alias_main, alias_handle = phase_main_path("alias")
     # The alias path's own shape: all of the case study's tokens, one sweep's
@@ -2842,30 +3176,65 @@ def main() -> int:
     packed = phase_packed()
     case_study = phase_packed_case_study()
     phase_stream()
+    _, offload_replays = phase_offload()
+    offload = offload_kernels(offload_replays)
+    del offload_replays
     serve = phase_hybrid_serve()
     phase_hybrid_parity()
     t = scale["kernel"]
-    errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"]]
+    errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"],
+            *(r[key]["max_abs_err"] for r in offload.values()
+              for key in ("first_block", "typical_block"))]
     if block_timing["mismatch"]:
         raise SystemExit("kernel disagrees with its plain version at the main-path shape")
     a = large["kernel"]
     timed = ("ms", "graph_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     # Launches by shape and noise mode, as the wrapper counted them: the case
     # study's blocks on `torch` (the main path: ⌈N/4096⌉ a sweep, the last
-    # one N mod 4096 tokens), and the popular product's single launches on
-    # `cuda` (`scale` and `packed`'s exact run).
+    # one N mod 4096 tokens), the popular product's single launches on
+    # `cuda` (`scale` and `packed`'s exact run), and each offload case's
+    # `torch`-route blocks over its replays (servers' fits, updates of the
+    # new reviews, spot checks and fallback refines, and the `torch`
+    # fleet's fits: blocks of up to 4096 tokens), timed at the case's
+    # largest product's first block and at a block of its mean tokens a
+    # launch.
     cuda_exact = packed["runs"]["cuda_exact"]
     counted = (
         (block_timing, main_out["launches"]["lda_gibbs.resample"],
-         main_out["launches_philox"]["lda_gibbs.resample"]),
+         main_out["launches_philox"]["lda_gibbs.resample"], "main_path", {}),
         (t, scale["fit_launches"] + cuda_exact["launches"]["lda_gibbs.resample"],
-         scale["fit_launches_philox"] + cuda_exact["launches_philox"]["lda_gibbs.resample"]))
-    by_shape = [{"shape": timing["shape"], "launches_injected": n - n_philox,
-                 "launches_philox": n_philox,
+         scale["fit_launches_philox"] + cuda_exact["launches_philox"]["lda_gibbs.resample"],
+         "scale, packed", {}),
+        *((r["first_block"], sum(r["resample"]["launches"].values()),
+           r["resample"]["launches_philox"], name,
+           {"launches_by_run": r["resample"]["launches"],
+            "tokens_per_launch": r["resample"]["tokens_per_launch"],
+            "corpora_tokens": r["resample"]["corpora_tokens"],
+            "typical_block": {"shape": r["typical_block"]["shape"],
+                              **{mode: {key: r["typical_block"][mode][key] for key in timed}
+                                 for mode in ("injected", "philox")}}})
+          for name, r in offload.items()))
+    by_shape = [{"shape": timing["shape"], "phases": phases,
+                 "launches_injected": n - n_philox, "launches_philox": n_philox, **extra,
                  **{mode: {key: timing[mode][key] for key in timed}
                     for mode in ("injected", "philox")}}
-                for timing, n, n_philox in counted]
+                for timing, n, n_philox, phases, extra in counted]
+    # lda_gibbs.resample_many by shape: the zoo's larger bucket (its main
+    # path, `zoo`), and each offload case's server-only replay, whose
+    # coalesced refit windows go to `refine_batch`, timed at its largest
+    # window's stack.
     zk = zoo["kernel"]
+    many_counted = [(zk, zoo["launches"]["lda_gibbs.resample_many"],
+                     zoo["launches_philox"]["lda_gibbs.resample_many"], "zoo", {})]
+    many_counted += [(r["many"], sum(r["resample_many"]["launches"].values()),
+                      r["resample_many"]["launches_philox"], f"{name} (server-only replay)",
+                      {"launches_by_run": r["resample_many"]["launches"]})
+                     for name, r in offload.items()]
+    many_by_shape = [{"shape": timing["shape"], "phases": phases,
+                      "launches_injected": n - n_philox, "launches_philox": n_philox, **extra,
+                      **{mode: {key: timing[mode][key] for key in timed}
+                         for mode in ("injected", "philox")}}
+                     for timing, n, n_philox, phases, extra in many_counted]
     # alias_mh.resample by shape and draw mode: the case study on `alias`
     # (the main path), the popular product's int32 tables (`large_fit` and
     # `packed`'s exact `alias` run) and its packed int8 tables (`packed`).
@@ -2959,13 +3328,14 @@ def main() -> int:
         "launches": zoo["launches"]["lda_gibbs.resample_many"],
         "launches_philox": zoo["launches_philox"]["lda_gibbs.resample_many"],
         "max_abs_err": max(batched_kern["lda_gibbs.resample_many"]["max_abs_err"],
-                           zk["max_abs_err"]),
+                           *(timing["max_abs_err"] for timing, *_ in many_counted)),
         **{key: zk["philox"][key]
            for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "shape": zk["shape"] + " noise=philox",
         "injected": {key: zk["injected"][key] for key in timed},
         "philox": {key: zk["philox"][key] for key in timed},
+        "by_shape": many_by_shape,
     }, {
         "name": "lda_gibbs.resample_quant",
         "route": "cuda",

@@ -12,6 +12,10 @@ chosen by name:
           Metropolis–Hastings (`kernels.alias_mh.ops.mh_sweep`): one launch
           a sweep — the route of large fits; its `run_many` runs M stacked
           models with one batched MH launch a sweep
+  sparse  SparseLDA (Yao et al., 2009) sequential s/r/q-bucket sweep
+          (`core.sparse`) in numpy on the host — the paper's phone-side
+          sampler, the `device_kind="phone"` route; no kernel of
+          `repro_torch.kernels` runs in it
   batched M compatible product models stacked into one run (`core.batch`):
           one batched Gibbs launch a sweep for all M
           (`kernels.lda_gibbs.ops.sweep_many`) — the route of multi-model
@@ -20,8 +24,8 @@ chosen by name:
 The reference package's names stay valid as aliases — ``jnp`` is
 ``torch`` and ``pallas`` is ``cuda`` — so a reference client's requests
 keep their meaning. Backends the reference routes to but this package
-does not have yet (`sparse`, `pserver`, `distributed`) resolve, as the
-reference's own fallback does, to the oracle.
+does not have yet (`pserver`, `distributed`) resolve, as the reference's
+own fallback does, to the oracle.
 
 A backend with the stacked surface (`run_many(cfg, corpora, gens,
 num_sweeps, states=None, lengths=None)`: a leading (M,) axis on every
@@ -39,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from repro_torch.core.codec import encode_state
@@ -294,6 +299,56 @@ class AliasSampler(_BaseSampler):
             states = batch.init_many(cfg, corpora, gens, lengths)
         return alias.run_many(cfg, states, corpora, gens, num_sweeps, self.mh_steps,
                               lengths)
+
+
+@register_backend("sparse", SamplerCapabilities(device_kind="phone"))
+class SparseSampler(_BaseSampler):
+    """SparseLDA sequential s/r/q-bucket sweep (`core.sparse`).
+
+    The paper's phone-side sampler as a first-class backend: exact
+    sequential collapsed Gibbs in numpy, O(k_d + k_w) per token. Slow on
+    large corpora by design — it models the mobile device — and the
+    `device_kind="phone"` route of the `auto` selector. Its numpy seed is
+    one draw from the caller's generator, so the same generator state gives
+    the same chain; the state it returns is rebuilt from the final `z` on
+    the corpus's device.
+    """
+
+    def __init__(self, dense: bool = False):
+        self.dense = dense  # True => the O(k) MALLET-style baseline
+
+    def _sequential(self, cfg, state, corpus, gen, num_sweeps):
+        from repro_torch.core import codec, sparse
+
+        cls = sparse.DenseGibbsSampler if self.dense else sparse.SparseLDASampler
+        # Stored counts cross the boundary decoded, not rebuilt from
+        # (z, weights): for incremental updates the corpus freezes old
+        # tokens by zeroing their weights while their mass must keep
+        # participating in the conditional.
+        seed = int(torch.randint(0, np.iinfo(np.int32).max, (1,), generator=gen,
+                                 device=gen.device))
+        s = cls(
+            cfg,
+            codec.as_numpy(corpus.docs),
+            codec.as_numpy(corpus.words),
+            codec.as_numpy(state.z),
+            weights=codec.as_numpy(corpus.weights).astype(np.float64),
+            seed=seed,
+            counts=codec.decode_counts_np(cfg, state),
+        )
+        s.run(num_sweeps)
+        z = torch.as_tensor(s.z.astype(np.int32), device=corpus.device)
+        return codec.rebuild_state(cfg, corpus, z)
+
+    def sweep(self, cfg, state, corpus, gen):
+        return self._sequential(cfg, state, corpus, gen, 1)
+
+    def run(self, cfg, corpus, gen, num_sweeps, state=None):
+        if state is None:
+            state = encode_state(cfg, init_state(cfg, corpus, gen))
+        # One sampler instance for the whole run: counts and bucket caches
+        # are built once, not once per sweep.
+        return self._sequential(cfg, state, corpus, gen, num_sweeps)
 
 
 def _stack1(x):

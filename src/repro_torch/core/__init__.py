@@ -7,6 +7,7 @@ Layout (each module mirrors `repro.core` of the same name):
   codec.py       stored <-> real count conversions (`StateCodec`)
   gibbs.py       blocked parallel collapsed Gibbs (Gumbel-max)
   alias.py       AliasLDA stale alias tables + parallel MH
+  sparse.py      SparseLDA sequential s/r/q sampler in numpy (the phone's)
   batch.py       M compatible models stacked into one batched sweep
   rlda.py        RLDA model: tiers, bias correction, token augmentation
   quality.py     ψ_d logistic review-quality model

@@ -35,6 +35,7 @@ __all__ = [
     "spec_for",
     "decode_array",
     "decode_counts",
+    "decode_counts_np",
     "decode_state",
     "encode_state",
     "rebuild_state",
@@ -151,6 +152,12 @@ def decode_array(cfg: LDAConfig, x):
 def decode_counts(cfg: LDAConfig, state: LDAState):
     """Stored ``(n_dt, n_wt, n_t)`` -> real-valued float32 tensors."""
     return codec_for(cfg).decode_counts(state)
+
+
+def decode_counts_np(cfg: LDAConfig, state: LDAState):
+    """Stored counts -> float64 numpy arrays (the host-side samplers'
+    input, equal to the reference's `decode_counts_np`)."""
+    return codec_for(cfg).decode_counts_np(state)
 
 
 def decode_state(cfg: LDAConfig, state: LDAState) -> LDAState:

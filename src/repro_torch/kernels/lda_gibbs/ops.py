@@ -321,15 +321,17 @@ def resample(docs, words, z, weights, n_dt, n_wt, n_t, noise=None, *,
                   alpha=float(alpha), beta=float(beta), beta_bar=float(beta_bar),
                   scale=_scale(w_bits), philox=philox or (0, 0))
     resample.launches += 1
+    resample.tokens += z.numel()
     if noise is None:
         resample.launches_philox += 1
     return z_out
 
 
 #: Kernel launches so far (CUDA tensors only; the plain version never counts),
-#: and those of them in the Philox mode.
+#: those of them in the Philox mode, and the tokens the launches resampled.
 resample.launches = 0
 resample.launches_philox = 0
+resample.tokens = 0
 
 
 def perturbed_scores_quant(docs, words, z, weights, n_dt, codes, scales, n_t, noise, *,

@@ -77,10 +77,10 @@ REFIT_POLICIES = ("drift", "always", "never")
 #: A pluggable full-refit executor, called once per shard per scheduling
 #: window: ``(shard_id, client, statuses, num_sweeps, now) -> launches``.
 #: It must bring every status's served handle to a freshly-refit state by
-#: whatever means it owns (the reference package's offload tier leases the
-#: work to a device fleet and falls back to server-side `refine` on
-#: timeout; this package's offload tier is not ported yet) and return the
-#: number of wire launches it made. The scheduler still re-anchors and
+#: whatever means it owns (`repro_torch.offload.OffloadCoordinator` leases
+#: the work to a device fleet and falls back to server-side `refine` when
+#: the fleet yields nothing adoptable) and return the number of wire
+#: launches it made. The scheduler still re-anchors and
 #: re-baselines each product afterwards, so the drift guard is executor-
 #: agnostic.
 RefitExecutor = Callable[

@@ -62,6 +62,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.stream.scheduler, repro_torch.stream.snapshot\n"
         "from repro_torch.stream import IncrementalScheduler, StreamRouter, restore_server\n"
         "from repro_torch.core.quant import quantize_rows_torch, fake_quantize_rows\n"
+        "import repro_torch.core.sparse, repro_torch.chital, repro_torch.chital.runtime\n"
+        "import repro_torch.chital.simulator, repro_torch.offload\n"
+        "from repro_torch.offload import DeviceFleet, OffloadCoordinator\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -14,9 +14,10 @@ RLDA fit → refine → view over the wire (client → server), as
     chains cannot be tighter; that the chains are the same chain given
     the same noise is `test_torch_gibbs`'s replay test;
   * a reference client drives a port server over the string transport,
-    and a port client drives a reference server, on the exact sweep and on
-    `backend="alias"`, including the multi-model `fit_batch` /
-    `refine_batch` verbs (`auto` resolves them to `batched`);
+    and a port client drives a reference server, on the exact sweep, on
+    `backend="alias"` and on `backend="sparse"` (the phone's sampler),
+    including the multi-model `fit_batch` / `refine_batch` verbs (`auto`
+    resolves them to `batched`);
   * `backend="auto"` routes a fit of >= 100k tokens to `alias`, as the
     reference's router does, and AliasLDA at 100 sweeps lands within 0.3
     in log perplexity of the exact sweep at 30 (the reference's
@@ -69,7 +70,7 @@ def _invariants(server, handle_id):
 def test_port_client_server_main_path(corpus):
     client = VedaliaClient(device="cpu", backend="jnp")  # the reference's name, an alias
     info = client.hello()
-    assert info.backends == ["alias", "batched", "cuda", "torch"]
+    assert info.backends == ["alias", "batched", "cuda", "sparse", "torch"]
     fit = client.fit(corpus.reviews[:130], num_sweeps=10, seed=0, **FIT)
     assert fit.backend == "torch" and fit.sweeps_run == 10
     fit = client.refine(fit.handle_id, num_sweeps=10, seed=1)
@@ -229,12 +230,13 @@ def test_server_answers_every_verb():
 
 
 def test_backend_registry_aliases_and_routing():
-    assert backends.available_backends() == ["alias", "batched", "cuda", "torch"]
+    assert backends.available_backends() == ["alias", "batched", "cuda", "sparse", "torch"]
+    assert "sparse" in ref_api.available_backends()
     assert backends.canonical("jnp") == "torch" and backends.canonical("pallas") == "cuda"
     assert type(backends.get_backend("pallas")).__name__ == "CudaSampler"
     assert type(backends.get_backend("alias")).__name__ == "AliasSampler"
-    with pytest.raises(KeyError):
-        backends.get_backend("sparse")
+    assert type(backends.get_backend("sparse")).__name__ \
+        == type(ref_api.get_backend("sparse")).__name__ == "SparseSampler"
     caps = backends.backend_capabilities("alias")
     assert caps.proposal_based and caps.device_kind == "gpu"
     # The packed-table sweeps honor every mode, as the reference's do.
@@ -256,7 +258,8 @@ def test_backend_registry_aliases_and_routing():
     assert backends.select_backend(num_models=2, available=["torch"]) == "torch"
     assert type(backends.get_backend("batched")).__name__ == "BatchedSampler"
     assert backends.backend_capabilities("batched").device_kind == "gpu"
-    assert backends.select_backend(device_kind="phone") == "torch"
+    assert backends.select_backend(device_kind="phone") \
+        == ref_api.select_backend(device_kind="phone") == "sparse"
     assert backends.select_backend(device_kind="tpu") == "torch"
     assert backends.select_backend(num_tokens=200_000, available=["alias", "torch"]) == "alias"
     assert backends.select_backend(num_tokens=200_000, available=["cuda", "torch"]) == "torch"
@@ -315,6 +318,34 @@ def test_alias_round_trips_across_frameworks(corpus):
     assert fit.backend == "alias" and fit.sweeps_run == 8
     sync = client.sync_view(fit.handle_id, top_n=5)
     assert sync.valid and sync.topics
+
+
+def test_sparse_round_trips_across_frameworks():
+    """A reference client asks a port server for `backend="sparse"` (the
+    phone's sampler): the fit, an update and a refine run there, the view
+    syncs, and the exported state passes the reference client's spot check;
+    a port client does the same on a reference server."""
+    spec = dict(num_reviews=40, vocab_size=120, num_topics=4, seed=5)
+    fit_kw = dict(num_topics=4, base_vocab=120, w_bits=8)
+    server = VedaliaServer(device="cpu")
+    ref_client = ref_api.VedaliaClient(transport=server.handle_raw)
+    ref_revs = ref_reviews.generate(ref_reviews.SyntheticSpec(**spec)).reviews
+    fit = ref_client.fit(ref_revs[:30], num_sweeps=4, seed=0, backend="sparse", **fit_kw)
+    assert fit.backend == "sparse" and np.isfinite(fit.perplexity)
+    upd = ref_client.update(fit.handle_id, ref_revs[30:], backend="sparse")
+    assert upd.backend == "sparse" and np.isfinite(upd.perplexity)
+    fit = ref_client.refine(fit.handle_id, num_sweeps=2, seed=1, backend="sparse")
+    assert fit.backend == "sparse"
+    _invariants(server, fit.handle_id)
+    assert ref_client.sync_view(fit.handle_id, top_n=5).valid
+    exported = ref_client.export_model(fit.handle_id)
+    assert ref_client.spot_check(fit.handle_id, exported.state).valid
+
+    revs = reviews.generate(reviews.SyntheticSpec(**spec)).reviews
+    client = VedaliaClient(transport=ref_api.VedaliaServer().handle_raw)
+    fit = client.fit(revs, num_sweeps=4, seed=0, backend="sparse", **fit_kw)
+    assert fit.backend == "sparse" and np.isfinite(fit.perplexity)
+    assert client.sync_view(fit.handle_id, top_n=5).valid
 
 
 def test_auto_routes_a_large_fit_to_alias_and_refines_there():
