@@ -119,7 +119,34 @@ Phases:
                  product's first block and at a block of its mean tokens a
                  launch, and the batched kernel at the largest stack a
                  server-only window coalesced
- 11. hybrid_serve
+ 11. mesh        the mesh fit tiers (`pserver`, its W workers stacked on the
+                 card): (a) one worker on the reference bench's claim-1
+                 corpus (Zipf 1.3, 4,096 tokens, V 20,000, K 8, unit
+                 weights), 3 sweeps, bit for bit `core.gibbs.run` on
+                 `gibbs`, the `cuda` backend on `cuda`, the `alias` backend
+                 on `mh`, from cloned generators; (b) the claim-2 corpus (4 x
+                 80,000 tokens, V 20,000, K 16): sync bytes of 4 workers
+                 strictly under the replicated tier's, and the stacked W = 1
+                 and W = 4 times of 8 sweeps on `gibbs` and `cuda`
+                 (reported: one card cannot measure weak scaling); (c) the
+                 popular product over the wire on `pserver`, (4, 1) and
+                 (2, 2) stacked workers at staleness 2, 30 sweeps, `cuda` then
+                 `mh` (`w_bits` 8: a sync a sweep), and (2, 2) on both in
+                 float32 (whole staleness-2 windows): one batched launch a
+                 sweep (row 2 or row 5), all Philox, none other, the syncs
+                 counted by obs, the count invariants, perplexity within 5%
+                 of phase 3's exact fit (`cuda`) or 0.3 in log (`mh`); (d)
+                 the claim-4 planted corpus: (2, 2) at staleness 2 within 2%
+                 held-out perplexity of the oracle (`gibbs`; `cuda` and `mh`
+                 reported); (e) rows 1 and 4 against their plain versions
+                 on one worker's slab of (c)'s (2, 2) support shapes, both
+                 noise or draw modes, timed and bounded. Counts zeroed just
+                 before each run of the tier and read just after; each
+                 run's launches filed by shape, and every entry held
+                 against its plain version, in both modes, on the inputs of
+                 its first launch at each shape (one kernels-line row a run
+                 and shape)
+ 12. hybrid_serve
                  the transformer zoo's serving path: the full zamba2-2.7b
                  (54 Mamba2 layers, d_model 2560, weights from seed 0) through
                  `Engine(cache_len=8192, max_batch=2)`: 2 x 4096-token prompts
@@ -133,7 +160,7 @@ Phases:
                  full model's prefill/decode consistency below 2%, at 512
                  tokens and at 4102 (past the 4096 window and not a multiple
                  of it: the ring tail must hold position p in slot p mod w)
- 12. hybrid_parity
+ 13. hybrid_parity
                  the card against the port on the CPU at full width and one
                  group's depth (6 Mamba2 layers + the shared block): prefill
                  logits and two teacher-forced decode steps within 4% of the
@@ -168,12 +195,13 @@ line's `lda_gibbs.resample`, `lda_gibbs.resample_quant` and
 `alias_mh.resample` entries give their launches by shape and noise or draw
 mode (`by_shape`), counted where the wrapper launches (`launches`,
 `launches_philox`): lda_gibbs.resample's are the main path's blocks, the
-popular product's single launches and each offload case's blocks
-(lda_gibbs.resample_many's: the zoo's and each offload case's server-only
-stacks);
+popular product's single launches, each offload case's blocks and the
+mesh phase's by run and shape (lda_gibbs.resample_many's: the zoo's, each
+offload case's server-only stacks and the mesh phase's stacked workers);
 alias_mh.resample's are the case study's on `alias`,
 the popular product's on int32 tables (`large_fit` and `packed`'s exact
-`alias` run) and on packed int8 tables; resample_quant's the popular
+`alias` run), on packed int8 tables and the mesh phase's (alias_mh.resample_many's:
+the zoo's and the mesh phase's); resample_quant's the popular
 product's int8 and int4 runs (`packed`) and the case study's
 (`packed_case_study`). `lda_gibbs.pack_word_table`, the packed sweep's
 table build, is no TPU kernel (the reference quantizes with jnp before its
@@ -788,47 +816,20 @@ def kernel_timing(cfg, corpus, state, reps=50):
     import torch
 
     from repro_torch.core import codec
-    from repro_torch.kernels.lda_gibbs import kernel, ops
+    from repro_torch.kernels.lda_gibbs import ops
 
     n, k = corpus.num_tokens, cfg.num_topics
-    gen = torch.Generator(device="cuda").manual_seed(123)
-    noise = ops.gumbel((n, k), gen, "cuda")
-    counts = (state.n_dt, state.n_wt, state.n_t)
-    args = (corpus.docs, corpus.words, state.z, corpus.weights, *counts)
+    noise = ops.gumbel((n, k), torch.Generator(device="cuda").manual_seed(123), "cuda")
+    args = (corpus.docs, corpus.words, state.z, corpus.weights,
+            state.n_dt, state.n_wt, state.n_t)
     w_bits = codec.codec_for(cfg).spec.w_bits
     hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
-    raw_hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
-                  scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
-    table_bytes = sum(t.numel() * t.element_size() for t in counts)
-    z_out = torch.empty_like(state.z)
     out = {"n": n, "k": k, "d": state.n_dt.shape[0], "v": state.n_wt.shape[0],
            "w_bits": w_bits,
            "shape": f"N={n} K={k} D={state.n_dt.shape[0]} V={state.n_wt.shape[0]} "
                     f"w_bits={w_bits}",
            "gathered_bytes": n * (4 * 4 + 4 * k + 4 + 2 * 4 * k)}
-    for mode, philox in (("injected", None), ("philox", PHILOX_TIMING_KEY)):
-        g = noise if philox is None else None
-        bad, near_flip, near, gap = compare((*args, noise), philox=philox, **hp)
-
-        def raw(g=g, philox=philox):
-            kernel.launch(*args, g, z_out, philox=philox or (0, 0), **raw_hp)
-
-        def wrapper(g=g, philox=philox):
-            return ops.resample(*args, g, philox=philox, **hp)
-
-        def plain(philox=philox):  # in the Philox mode its draw included
-            g = noise if philox is None else ops.philox_noise(state.z, state.n_t, philox)
-            return ops.resample_plain(*args, g, **hp)
-
-        moved, bound_ms, bound_by = lda_bound(n, 0, k, table_bytes, philox is not None)
-        out[mode] = {
-            "mismatch": bad, "near_tie_flips": near_flip, "near_ties": near,
-            "max_abs_err": gap, "ms": cuda_ms(raw, reps * 4), "graph_ms": graph_ms(raw),
-            "wrapper_ms": cuda_ms(wrapper, reps), "plain_ms": cuda_ms(plain, max(3, reps // 10)),
-            "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
-        }
-    out["mismatch"] = out["injected"]["mismatch"] + out["philox"]["mismatch"]
-    out["max_abs_err"] = max(out["injected"]["max_abs_err"], out["philox"]["max_abs_err"])
+    out.update(_lda_timing(args, noise, PHILOX_TIMING_KEY, hp, False, n, 0, reps))
     return out
 
 
@@ -1294,7 +1295,7 @@ def batched_kernel_timing(b, reps=50):
     import torch
 
     from repro_torch.core import codec
-    from repro_torch.kernels.lda_gibbs import kernel, ops
+    from repro_torch.kernels.lda_gibbs import ops
 
     cfg, corpora, states = b["cfg"], b["corpora"], b["states"]
     m, n = corpora.docs.shape
@@ -1302,36 +1303,53 @@ def batched_kernel_timing(b, reps=50):
     noise = ops.gumbel((m, n, k), torch.Generator(device="cuda").manual_seed(123), "cuda")
     table = ops.philox_keys([torch.Generator(device="cuda").manual_seed(123 + i)
                             for i in range(m)], "cuda")
-    counts = (states.n_dt, states.n_wt, states.n_t)
-    args = (corpora.docs, corpora.words, states.z, corpora.weights, *counts)
-    w_bits = codec.codec_for(cfg).spec.w_bits
-    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
-    raw_hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
-                  scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
-    z_out = torch.empty_like(states.z)
+    args = (corpora.docs, corpora.words, states.z, corpora.weights,
+            states.n_dt, states.n_wt, states.n_t)
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar,
+              w_bits=codec.codec_for(cfg).spec.w_bits)
     live = int((corpora.weights > 0).sum())
-    table_bytes = sum(t.numel() * t.element_size() for t in counts)
     out = {"shape": _bucket_shape(b), "live_tokens": live}
-    for mode, philox in (("injected", None), ("philox", table)):
-        g = noise if philox is None else None
-        bad, near_flip, near, gap = compare((*args, noise), many=True, philox=philox, **hp)
+    out.update(_lda_timing(args, noise, table, hp, True, live, m * n - live, reps))
+    return out
 
-        def raw(g=g, philox=philox):
-            kernel.launch_many(*args, g, z_out, philox=philox, **raw_hp)
 
-        def wrapper(g=g, philox=philox):
-            return ops.resample_many(*args, g, philox=philox, **hp)
+def _lda_timing(args, noise, philox, hp, many, n_live, n_pad, reps):
+    """`batched_kernel_timing`'s body for one lda_gibbs entry (the batched
+    one with `many`): both noise modes on one sweep's ids and counts `args`
+    (7 tensors), the injected `noise` and the Philox key `philox`."""
+    import torch
 
-        def plain(philox=philox):  # in the Philox mode its draw included
-            g = noise if philox is None else ops.philox_noise(states.z, states.n_t, philox)
-            return ops.resample_many_plain(*args, g, **hp)
+    from repro_torch.kernels.lda_gibbs import kernel, ops
 
-        moved, bound_ms, bound_by = lda_bound(live, m * n - live, k, table_bytes,
-                                              philox is not None)
+    launch = kernel.launch_many if many else kernel.launch
+    wrapper = ops.resample_many if many else ops.resample
+    plain_fn = ops.resample_many_plain if many else ops.resample_plain
+    w_bits = hp["w_bits"]
+    raw_hp = dict(alpha=hp["alpha"], beta=hp["beta"], beta_bar=hp["beta_bar"],
+                  scale=1.0 if w_bits is None else 2.0 ** -(w_bits + 1))
+    z_out = torch.empty_like(args[2])
+    table_bytes = sum(t.numel() * t.element_size() for t in args[4:7])
+    k = args[6].shape[-1]
+    out = {}
+    for mode, key in (("injected", None), ("philox", philox)):
+        g = noise if key is None else None
+        bad, near_flip, near, gap = compare((*args, noise), many=many, philox=key, **hp)
+
+        def raw(g=g, key=key):
+            launch(*args, g, z_out, philox=key if many else (key or (0, 0)), **raw_hp)
+
+        def through(g=g, key=key):
+            return wrapper(*args, g, philox=key, **hp)
+
+        def plain(key=key):  # in the Philox mode its draw included
+            g = noise if key is None else ops.philox_noise(args[2], args[6], key)
+            return plain_fn(*args, g, **hp)
+
+        moved, bound_ms, bound_by = lda_bound(n_live, n_pad, k, table_bytes, key is not None)
         out[mode] = {
             "mismatch": bad, "near_tie_flips": near_flip, "near_ties": near,
             "max_abs_err": gap, "ms": cuda_ms(raw, reps * 4), "graph_ms": graph_ms(raw),
-            "wrapper_ms": cuda_ms(wrapper, reps), "plain_ms": cuda_ms(plain, max(3, reps // 10)),
+            "wrapper_ms": cuda_ms(through, reps), "plain_ms": cuda_ms(plain, max(3, reps // 10)),
             "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
         }
     out["mismatch"] = out["injected"]["mismatch"] + out["philox"]["mismatch"]
@@ -2514,6 +2532,523 @@ def offload_kernels(replays):
     return out
 
 
+# -- phase 11: the mesh fit tiers ------------------------------------------------
+
+MESH_V = 20_000  # the reference bench's vocabulary (`benchmarks/distributed_bench.py`)
+MESH_GRIDS = ((4, 1), (2, 2))
+MESH_STALENESS, MESH_SWEEPS, MESH_SCALING_SWEEPS = 2, 30, 8
+MESH_HELD = dict(n=8000, d=61, v=120, k=6, seed=5, warm=60, measured=36, chunk=6)
+
+
+def _mesh_wrappers():
+    """The kernel wrappers the mesh tiers' local engines launch, by kernels-line name."""
+    from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.lda_gibbs import ops
+
+    return {"lda_gibbs.resample": ops.resample, "lda_gibbs.resample_many": ops.resample_many,
+            "alias_mh.resample": alias_ops.mh_resample,
+            "alias_mh.resample_many": alias_ops.mh_resample_many}
+
+
+def _mesh_launchers():
+    """The raw launch each mesh wrapper makes, by kernels-line name:
+    (module, attribute)."""
+    from repro_torch.kernels.alias_mh import kernel as alias_kernel
+    from repro_torch.kernels.lda_gibbs import kernel
+
+    return {"lda_gibbs.resample": (kernel, "launch"),
+            "lda_gibbs.resample_many": (kernel, "launch_many"),
+            "alias_mh.resample": (alias_kernel, "launch"),
+            "alias_mh.resample_many": (alias_kernel, "launch_many")}
+
+
+def _launch_shape(args) -> tuple:
+    """What tells two launches of one entry apart: the shapes and dtypes of
+    the ids, counts and totals (the body the kernel picks follows from them)."""
+    return tuple((tuple(a.shape), str(a.dtype)) for a in args[:7])
+
+
+def mesh_counted(fn, tally, run):
+    """`fn()` with every mesh wrapper's counts zeroed just before and read
+    just after (the device synced): (its result, {name: [launches,
+    Philox launches]}); the counts are kept in `tally` under `run` and
+    added to its totals. Meanwhile each raw launch is filed by entry and
+    shape under `tally["shapes"][run]`, with its mode and the first
+    launch's inputs (cloned), so `mesh_launch_checks` can hold the kernel
+    at every shape the run gave it; the per-shape counts must add up to
+    the wrappers' counts."""
+    import torch
+
+    wrappers, launchers = _mesh_wrappers(), _mesh_launchers()
+    shapes = tally["shapes"].setdefault(run, {})
+
+    def keeping(name, launch):
+        def launch_and_keep(*args, **kw):
+            draws = args[7:8] if len(args) == 9 else args[11:14]
+            slot = shapes.setdefault((name, _launch_shape(args)), {"launches": [0, 0]})
+            if "inputs" not in slot:
+                slot["inputs"] = ([a.clone() if isinstance(a, torch.Tensor) else a
+                                   for a in args[:-1]],
+                                  {k: v.clone() if isinstance(v, torch.Tensor) else v
+                                   for k, v in kw.items()})
+            slot["launches"][0] += 1
+            slot["launches"][1] += draws[0] is None
+            return launch(*args, **kw)
+        return launch_and_keep
+
+    for f in wrappers.values():
+        f.launches = f.launches_philox = 0
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in launchers.items()}
+    for name, (mod, attr) in launchers.items():
+        setattr(mod, attr, keeping(name, saved[name]))
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, attr) in launchers.items():
+            setattr(mod, attr, saved[name])
+    counts = {name: [f.launches, f.launches_philox] for name, f in wrappers.items()}
+    for name, want in counts.items():
+        got = [sum(slot["launches"][i] for (n, _), slot in shapes.items() if n == name)
+               for i in (0, 1)]
+        if got != want:
+            raise SystemExit(f"mesh {run}: {name} counted {want}, its launches by shape {got}")
+    tally["by_run"][run] = counts
+    for name, (n, n_philox) in counts.items():
+        tally["total"][name][0] += n
+        tally["total"][name][1] += n_philox
+    return out, counts
+
+
+def zipf_corpus(n, d, seed, v=MESH_V):
+    """The reference bench's Zipf corpus on the card: words from a Zipf(1.3)
+    law below V, documents sorted, unit weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.types import Corpus
+
+    r = np.random.default_rng(seed)
+    w = r.zipf(1.3, size=4 * n) - 1
+    w = w[w < v][:n].astype(np.int32)
+    docs = np.sort(r.integers(0, d, n)).astype(np.int32)
+    return Corpus(torch.tensor(docs, device="cuda"), torch.tensor(w, device="cuda"),
+                  torch.ones(n, device="cuda"))
+
+
+def planted_corpus(n, d, v, k, seed):
+    """The reference bench's planted corpus (claim 4) on the card: 90% of
+    each topic's mass on its own vocab block, unit weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.types import Corpus
+
+    r = np.random.default_rng(seed)
+    blk = v // k
+    phi = np.full((k, v), 0.1 / v)
+    for t in range(k):
+        phi[t, t * blk:(t + 1) * blk] += 0.9 * r.dirichlet(np.full(blk, 0.5))
+    phi /= phi.sum(1, keepdims=True)
+    theta_c = r.dirichlet(np.full(k, 0.3), size=d).cumsum(1)
+    docs = r.integers(0, d, n).astype(np.int32)
+    zt = (r.random(n)[:, None] > theta_c[docs]).sum(1)
+    w = np.empty(n, np.int64)
+    for t in range(k):
+        m = zt == t
+        w[m] = np.searchsorted(phi[t].cumsum(), r.random(m.sum()))
+    return Corpus(torch.tensor(docs, device="cuda"),
+                  torch.tensor(np.minimum(w, v - 1).astype(np.int32), device="cuda"),
+                  torch.ones(n, device="cuda"))
+
+
+def _clone(gen):
+    import torch
+
+    g = torch.Generator(device=gen.device)
+    g.set_state(gen.get_state())
+    return g
+
+
+def _same_state(a, b):
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("z", "n_dt", "n_wt", "n_t"))
+
+
+def mesh_exactness(tally):
+    """(a) One worker on the bench's claim-1 corpus (Zipf 1.3, 4,096
+    tokens, 40 docs, V 20,000, K 8, unit weights), 3 sweeps from one
+    generator state: `gibbs` against `core.gibbs.run`, `cuda` against the
+    `cuda` backend and `mh` against the `alias` backend, bit for bit."""
+    import torch
+
+    from repro_torch.api.backends import get_backend
+    from repro_torch.core import gibbs
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.pserver import PServerFit
+
+    cfg = LDAConfig(num_topics=8, vocab_size=MESH_V, num_docs=40)
+    corpus = zipf_corpus(4096, 40, 7)
+    out = {}
+    for local, oracle in (("gibbs", lambda g: gibbs.run(cfg, corpus, g, 3)),
+                          ("cuda", lambda g: get_backend("cuda").run(cfg, corpus, g, 3)),
+                          ("mh", lambda g: get_backend("alias").run(cfg, corpus, g, 3))):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        twin = _clone(gen)
+        st, counts = mesh_counted(
+            lambda: PServerFit(local=local).run(cfg, corpus, gen, 3), tally, f"a_{local}")
+        out[local] = {"bit_exact": _same_state(st, oracle(twin)), "launches": counts}
+    return out
+
+
+def _timed_fit(ps, cfg, corpus, sweeps, tally, run):
+    """One warm-up sweep (plan, first launches), then `sweeps` timed by the
+    host clock around a synchronized run: (seconds, launches of the timed run)."""
+    import torch
+
+    ps.run(cfg, corpus, torch.Generator(device="cuda").manual_seed(0), 1)
+
+    def timed():
+        t0 = time.perf_counter()
+        ps.run(cfg, corpus, torch.Generator(device="cuda").manual_seed(1), sweeps)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return mesh_counted(timed, tally, run)
+
+
+def mesh_bytes_and_scaling(tally):
+    """(b) The bench's claim-2/3 corpora (1 x and 4 x 80,000 Zipf tokens,
+    50 docs a worker, V 20,000, K 16): the sync bytes of 4 stacked workers
+    against the replicated tier's (gate: strictly below), and the stacked
+    W = 1 and W = 4 fit times of 8 sweeps on each engine (one card cannot
+    measure weak scaling; reported, not gated)."""
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.pserver import PServerFit
+    from repro_torch.pserver.sync import replicated_sync_bytes_per_device, sync_bytes_per_device
+
+    n_per, d_per, k = 80_000, 50, 16
+    one, big = zipf_corpus(n_per, d_per, 1), zipf_corpus(4 * n_per, 4 * d_per, 2)
+    cfg1 = LDAConfig(num_topics=k, vocab_size=MESH_V, num_docs=d_per)
+    cfg4 = LDAConfig(num_topics=k, vocab_size=MESH_V, num_docs=4 * d_per)
+    plan = PServerFit(workers=(4, 1)).plan(cfg4, big)
+    ps_bytes = sync_bytes_per_device(plan.n_workers, plan.cap, k)
+    repl = replicated_sync_bytes_per_device(plan.n_workers, MESH_V, k)
+    scaling = {}
+    for local in ("gibbs", "cuda"):
+        t1, c1 = _timed_fit(PServerFit(local=local), cfg1, one, MESH_SCALING_SWEEPS, tally,
+                            f"b_{local}_1worker")
+        t4, c4 = _timed_fit(PServerFit(workers=(4, 1), local=local), cfg4, big,
+                            MESH_SCALING_SWEEPS, tally, f"b_{local}_4worker")
+        scaling[local] = {"t_1worker_s": t1, "t_4worker_4x_s": t4,
+                          "launches_1worker": c1, "launches_4worker": c4}
+    return {"sync_bytes": {"pserver_per_device": ps_bytes, "replicated_per_device": repl,
+                           "support_cap": plan.cap, "vocab": MESH_V, "workers": 4,
+                           "saving": repl / max(ps_bytes, 1)},
+            "scaling": scaling}
+
+
+def mesh_popular(exact_ppx, tally):
+    """(c) The popular product over the wire on `pserver`: stacked workers
+    on (4, 1) and (2, 2), staleness 2, 30 sweeps, on `cuda` then `mh`
+    (`w_bits` 8: one single-sweep program a sweep, the reference's rule, so
+    one sync a sweep), and once more on (2, 2) with float32 counts on each
+    engine (whole staleness-2 windows: 15 syncs, so `mh` accepts against a
+    cache up to two sweeps stale). Obs on for the sync counters;
+    10 more sweeps timed, and 5 of each (2, 2) `w_bits` run traced by
+    `torch.profiler` (device busy ms a sweep, top device ops).
+    Returns the runs and, by engine, the (2, 2) handle's server."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.api import VedaliaClient
+    from repro_torch.obs import metrics
+    from repro_torch.pserver.sync import replicated_sync_bytes_per_device
+
+    corp, _ = popular_reviews()
+    runs, servers = {}, {}
+    cases = [(grid, local, 8) for local in ("cuda", "mh") for grid in MESH_GRIDS]
+    cases += [((2, 2), local, None) for local in ("cuda", "mh")]
+    syncs = metrics.REGISTRY.get("vedalia_pserver_syncs_total")
+    sent = metrics.REGISTRY.get("vedalia_pserver_sync_bytes_total")
+    for grid, local, w_bits in cases:
+        name = f"{grid[0]}x{grid[1]}_{local}" + ("_f32" if w_bits is None else "")
+        client = VedaliaClient(device="cuda", backend="pserver", backend_opts={"pserver": dict(
+            workers=grid, staleness=MESH_STALENESS, local=local)})
+        obs.enable()
+        try:
+            before = (syncs.value(), sent.value())
+
+            def fit(client=client, w_bits=w_bits):
+                t0 = time.perf_counter()
+                res = client.fit(corp.reviews, num_topics=12, base_vocab=POPULAR["vocab_size"],
+                                 w_bits=w_bits, num_sweeps=MESH_SWEEPS, seed=0)
+                torch.cuda.synchronize()
+                return res, time.perf_counter() - t0
+
+            (res, fit_s), counts = mesh_counted(fit, tally, f"c_{name}")
+            n_syncs, n_bytes = syncs.value() - before[0], sent.value() - before[1]
+        finally:
+            obs.disable()
+        service = client.server.service
+        _check_invariants(service, res.handle_id)
+        handle = service.handles[res.handle_id]
+        sampler = service.sampler("pserver")
+        cfg, corpus = handle.cfg, handle.model.corpus
+        plan = sampler._fit.plan(cfg, corpus)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        state = handle.model.state
+        sweep_ms = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state = sampler.sweep(cfg, state, corpus, gen)
+            torch.cuda.synchronize()
+            sweep_ms.append((time.perf_counter() - t) * 1e3)
+        ppx = res.perplexity
+        many = "lda_gibbs.resample_many" if local == "cuda" else "alias_mh.resample_many"
+        runs[name] = {
+            "workers": list(grid), "local": local, "w_bits": w_bits, "tokens": corpus.num_tokens,
+            "support_cap": plan.cap, "t_local": plan.t_local, "d_local": plan.d_local,
+            "v_pad": plan.v_pad, "fit_30_s": fit_s, "fit_ms_per_sweep": fit_s * 1e3 / MESH_SWEEPS,
+            "sweep_ms_median": statistics.median(sweep_ms), "sweep_ms_min": min(sweep_ms),
+            "launches": counts, "expected": {many: [MESH_SWEEPS, MESH_SWEEPS]},
+            "syncs": n_syncs, "sync_bytes_counter": n_bytes,
+            "sync_bytes_per_device": n_bytes / max(n_syncs, 1),
+            "replicated_sync_bytes_per_device": replicated_sync_bytes_per_device(
+                plan.n_workers, cfg.vocab_size, cfg.num_topics),
+            "perplexity": ppx, "exact_perplexity": exact_ppx,
+            "rel_gap": abs(ppx - exact_ppx) / exact_ppx,
+            "log_gap": abs(math.log(ppx) - math.log(exact_ppx)),
+        }
+        want_syncs = MESH_SWEEPS // (1 if w_bits is not None else MESH_STALENESS)
+        others = {k: v for k, v in counts.items() if k != many and v[0]}
+        failed = [msg for bad, msg in (
+            (counts[many] != [MESH_SWEEPS, MESH_SWEEPS],
+             f"{many} launched {counts[many]}, expected {MESH_SWEEPS}, all Philox"),
+            (bool(others), f"other kernels launched: {others}"),
+            (n_syncs != want_syncs, f"{n_syncs} syncs counted, expected {want_syncs}"),
+            (not math.isfinite(ppx), f"perplexity {ppx}"),
+            (local == "cuda" and runs[name]["rel_gap"] > PPX_BAND,
+             f"perplexity {ppx} vs the exact fit's {exact_ppx}: over {PPX_BAND:.0%}"),
+            (local == "mh" and runs[name]["log_gap"] > LOG_PPX_BAND,
+             f"log perplexity {ppx} vs the exact fit's {exact_ppx}: over {LOG_PPX_BAND}"),
+        ) if bad]
+        if failed:
+            raise SystemExit(f"mesh (c) {name}: " + "; ".join(failed))
+        if grid == (2, 2) and w_bits is not None:
+            servers[local] = (sampler, cfg, corpus, handle.model.state)
+            runs[name]["profile_top_device_ms"], runs[name]["device_busy_ms_per_sweep"] = \
+                profile_sweeps(sampler, cfg, corpus, handle.model.state)
+    return runs, servers
+
+
+def mesh_heldout(tally):
+    """(d) The bench's claim-4 planted corpus (8,000 tokens, 61 docs, V 120,
+    K 6; a fifth held out): 60 warm sweeps of `core.gibbs.run`, then 36
+    measured in chunks of 6 from that state — (2, 2) at staleness 2 on
+    `gibbs` (gated: gap <= 2%), on `cuda` and on `mh` (whole windows on
+    float32 counts; reported) against the oracle;
+    held-out perplexity averaged over the chunks from 18 sweeps on."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import gibbs, perplexity
+    from repro_torch.core.types import Corpus, LDAConfig
+    from repro_torch.pserver import PServerFit
+
+    h = MESH_HELD
+    full = planted_corpus(h["n"], h["d"], h["v"], h["k"], h["seed"])
+    cut = h["n"] // 5
+    hold, train = (Corpus(*(t[s] for t in (full.docs, full.words, full.weights)))
+                   for s in (slice(0, cut), slice(cut, None)))
+    cfg = LDAConfig(num_topics=h["k"], vocab_size=h["v"], num_docs=h["d"])
+    warm = gibbs.run(cfg, train, torch.Generator(device="cuda").manual_seed(9), h["warm"])
+
+    def avg_heldout(run, seed):
+        st, ppxs, gen = warm, [], torch.Generator(device="cuda").manual_seed(seed)
+        for i in range(h["measured"] // h["chunk"]):
+            st = run(st, gen)
+            if (i + 1) * h["chunk"] >= h["measured"] // 2:
+                ppxs.append(perplexity.perplexity(cfg, st, hold))
+        return float(np.mean(ppxs))
+
+    p_oracle = avg_heldout(lambda st, g: gibbs.run(cfg, train, g, h["chunk"], state=st), 200)
+    out = {"oracle": p_oracle}
+    for local in ("gibbs", "cuda", "mh"):
+        ps = PServerFit(workers=(2, 2), staleness=MESH_STALENESS, local=local)
+        p, counts = mesh_counted(lambda ps=ps: avg_heldout(
+            lambda st, g: ps.run(cfg, train, g, h["chunk"], state=st), 100), tally, f"d_{local}")
+        out[local] = {"pserver_stale2": p, "gap": abs(p - p_oracle) / p_oracle,
+                      "launches": counts}
+    return out
+
+
+def mesh_kernels(servers, reps=50):
+    """(e) Rows 1 and 4 against their plain versions on worker 0's slab of
+    (c)'s (2, 2) support shapes (tokens t_local, doc rows (d_local, K),
+    support cache (cap, K)), both noise or draw modes, from each engine's
+    fitted state as `PServerFit.worker_inputs` lays it out: the single
+    entries at the width a worker of that grid would give them (rows 2 and
+    5 are checked at those shapes on their launches' own inputs, by
+    `mesh_launch_checks`). Timed and bounded as the other phases' kernels;
+    near-ties exempt and counted."""
+    import torch
+
+    from repro_torch.core import alias, codec
+    from repro_torch.kernels.lda_gibbs import ops
+
+    out = {}
+    for local, (sampler, cfg, corpus, state) in servers.items():
+        plan, inp = sampler._fit.worker_inputs(cfg, codec.decode_state(cfg, state), corpus)
+        t, k = plan.t_local, cfg.num_topics
+        one = tuple(inp[f][0] for f in ("docs", "words", "z", "wts", "n_dt", "cache", "n_t"))
+        hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=None)
+        live = int((one[3] > 0).sum())
+        gen = torch.Generator(device="cuda").manual_seed(123)
+        shape = (f"N={t} K={k} D={plan.d_local} V={plan.cap} (support; vocab "
+                 f"{cfg.vocab_size}) w_bits=None")
+        if local == "cuda":
+            out["lda_gibbs.resample"] = {
+                "shape": shape + " (worker 0)", "live_tokens": live,
+                **_lda_timing(one, ops.gumbel((t, k), gen, "cuda"), PHILOX_TIMING_KEY, hp,
+                              False, live, t - live, reps)}
+        else:
+            mh_steps = sampler._fit.mh_steps
+            tables = alias.sweep_tables(cfg, one[4], one[5])
+            out["alias_mh.resample"] = {
+                "shape": shape + f" S={mh_steps} (worker 0)", "live_tokens": live,
+                "body": alias_body(1, t, plan.d_local, plan.cap, k, mh_steps),
+                **_alias_timing((*one, *tables), alias.sweep_draws(gen, t, k, mh_steps, "cuda"),
+                                hp, ALIAS_TIMING_KEY, mh_steps, False, live, t - live, reps)}
+    return out
+
+
+def mesh_launch_check(name, inputs, kw, reps):
+    """One entry held against its plain version in both noise or draw modes,
+    and timed and bounded, on the inputs of a launch `mesh_counted` kept:
+    the mode it ran in replayed from its key (`ops.philox_noise`,
+    `philox_draws`), the other from a fixed key or from that noise."""
+    import torch
+
+    from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.lda_gibbs import ops
+
+    many = name.endswith("_many")
+    scale = kw["scale"]
+    w_bits = None if scale == 1.0 else round(-math.log2(scale)) - 1
+    hp = dict(alpha=kw["alpha"], beta=kw["beta"], beta_bar=kw["beta_bar"], w_bits=w_bits)
+    z, weights, n_t = inputs[2], inputs[3], inputs[6]
+    m = z.shape[0] if many else 1
+    n, k, d, v = z.shape[-1], n_t.shape[-1], inputs[4].shape[-2], inputs[5].shape[-2]
+    live = int((weights > 0).sum())
+    other_key = (ops.philox_keys([torch.Generator(device="cuda").manual_seed(123 + i)
+                                  for i in range(m)], "cuda") if many else None)
+    shape = (f"M={m} " if many else "") + f"N={n} K={k} D={d} V={v} (support rows) w_bits={w_bits}"
+    philox = kw.get("philox")
+    if name.startswith("lda_gibbs"):
+        noise = inputs[7]
+        if noise is None:
+            noise = ops.philox_noise(z, n_t, philox)
+        else:
+            philox = other_key if many else PHILOX_TIMING_KEY
+        return {"shape": shape, "live_tokens": live,
+                **_lda_timing(tuple(inputs[:7]), noise, philox, hp, many, live,
+                              z.numel() - live, reps)}
+    draws, mh_steps = tuple(inputs[11:14]), kw.get("mh_steps")
+    if draws[0] is None:
+        draws = alias_ops.philox_draws(z, n_t, philox, mh_steps)
+    else:
+        mh_steps = draws[0].shape[-2]
+        philox = other_key if many else ALIAS_TIMING_KEY
+    return {"shape": shape + f" S={mh_steps}", "live_tokens": live,
+            "body": alias_body(m, n, d, v, k, mh_steps),
+            **_alias_timing(tuple(inputs[:11]), draws, hp, philox, mh_steps, many, live,
+                            z.numel() - live, reps)}
+
+
+def mesh_launch_checks(tally, reps=20):
+    """Every shape each run of the phase launched an entry at, checked by
+    `mesh_launch_check` on the first such launch's inputs: one row a (run,
+    entry, shape) with the launches filed there ([all, Philox]). Emits
+    each row; the kept inputs are dropped as they are used."""
+    rows = []
+    for run, shapes in tally["shapes"].items():
+        for (name, _), slot in shapes.items():
+            args, kw = slot.pop("inputs")
+            r = {"run": run, "name": name, "launches": slot["launches"],
+                 **mesh_launch_check(name, args, kw, reps)}
+            del args
+            emit({"phase": "mesh_kernel", **{key: r[key] for key in (
+                "run", "name", "shape", "launches", "mismatch", "max_abs_err")},
+                  **{mode: {key: r[mode][key] for key in (
+                      "mismatch", "near_tie_flips", "near_ties", "ms", "graph_ms", "plain_ms",
+                      "bound_ms", "bound_by")} for mode in ("injected", "philox")}})
+            rows.append(r)
+    return rows
+
+
+def _mesh_counted_rows(mesh, name):
+    """The kernels line's by-shape rows of one entry from `phase_mesh`: one
+    a (run, shape) the phase launched it at, with its check and timing at
+    that launch's inputs and its launches there (all modes and Philox)."""
+    return [(r, *r["launches"], f"mesh ({r['run']})", {})
+            for r in mesh["launch_checks"] if r["name"] == name]
+
+
+def mesh_max_err(mesh, name):
+    """An entry's largest score gap over the phase's checks of it."""
+    timing = mesh["kernel_timings"].get(name)
+    return max([r["max_abs_err"] for r in mesh["launch_checks"] if r["name"] == name]
+               + ([timing["max_abs_err"]] if timing else []))
+
+
+def phase_mesh(exact_ppx):
+    """The mesh fit tiers on the card (`pserver`, its stacked workers on one
+    H100): (a) one worker bit for bit against the oracles, (b) sync bytes
+    under the replicated tier's and the stacked W = 1 / W = 4 times, (c) the
+    popular product over the wire on (4, 1) and (2, 2) — one batched launch
+    a sweep —, (d) held-out perplexity at staleness 2 within 2% of the
+    oracle, (e) rows 1 and 4 at (c)'s (2, 2) support shapes. Counts zeroed
+    just before each run of the tier and read just after; their sums by
+    kernel are the phase's launches, and each run's launches are filed by
+    shape and checked there (`mesh_launch_checks`)."""
+    tally = {"total": {name: [0, 0] for name in _mesh_wrappers()}, "by_run": {}, "shapes": {}}
+    exact = mesh_exactness(tally)
+    scaling = mesh_bytes_and_scaling(tally)
+    popular, servers = mesh_popular(exact_ppx, tally)
+    held = mesh_heldout(tally)
+    kernels = mesh_kernels(servers)
+    checks = mesh_launch_checks(tally)
+    out = {"phase": "mesh", "exactness": exact, **scaling, "popular": popular,
+           "heldout": held, "launches": tally["total"], "launches_by_run": tally["by_run"],
+           "kernels": {name: {key: r[key] for key in ("shape", "mismatch", "max_abs_err")}
+                       | {mode: {key: r[mode][key] for key in
+                                 ("mismatch", "near_tie_flips", "near_ties", "ms", "graph_ms",
+                                  "plain_ms", "bound_ms", "bound_by")}
+                          for mode in ("injected", "philox")}
+                       for name, r in kernels.items()}}
+    emit(out)
+    failed = [msg for bad, msg in (
+        (not all(r["bit_exact"] for r in exact.values()),
+         f"(a) one worker is not the oracle's chain: "
+         f"{ {k: r['bit_exact'] for k, r in exact.items()} }"),
+        (not scaling["sync_bytes"]["saving"] > 1.0,
+         f"(b) sparse sync not below the replicated tier: {scaling['sync_bytes']}"),
+        (held["gibbs"]["gap"] > 0.02, f"(d) held-out gap {held['gibbs']['gap']:.2%} > 2%"),
+        (any(r["mismatch"] for r in kernels.values()),
+         f"(e) a kernel disagrees with its plain version at the support shapes: "
+         f"{ {k: r['mismatch'] for k, r in kernels.items()} }"),
+        (any(r["mismatch"] for r in checks),
+         f"a kernel disagrees with its plain version at a shape a run launched it at: "
+         f"{[(r['run'], r['name'], r['shape'], r['mismatch']) for r in checks if r['mismatch']]}"),
+    ) if bad]
+    if failed:
+        raise SystemExit("mesh: " + "; ".join(failed))
+    return {**out, "kernel_timings": kernels, "launch_checks": checks}
+
+
 # -- phase 1b: the transformer zoo's kernels ------------------------------------
 
 ZAMBA2_PREFILL = dict(b=2, s=4096, h=80, dk=64, dv=64)  # one Mamba2 layer's scan, 2 x 4096
@@ -3179,12 +3714,14 @@ def main() -> int:
     _, offload_replays = phase_offload()
     offload = offload_kernels(offload_replays)
     del offload_replays
+    mesh = phase_mesh(scale["perplexity"])
     serve = phase_hybrid_serve()
     phase_hybrid_parity()
     t = scale["kernel"]
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"],
             *(r[key]["max_abs_err"] for r in offload.values()
-              for key in ("first_block", "typical_block"))]
+              for key in ("first_block", "typical_block")),
+            mesh_max_err(mesh, "lda_gibbs.resample")]
     if block_timing["mismatch"]:
         raise SystemExit("kernel disagrees with its plain version at the main-path shape")
     a = large["kernel"]
@@ -3213,7 +3750,8 @@ def main() -> int:
             "typical_block": {"shape": r["typical_block"]["shape"],
                               **{mode: {key: r["typical_block"][mode][key] for key in timed}
                                  for mode in ("injected", "philox")}}})
-          for name, r in offload.items()))
+          for name, r in offload.items()),
+        *_mesh_counted_rows(mesh, "lda_gibbs.resample"))
     by_shape = [{"shape": timing["shape"], "phases": phases,
                  "launches_injected": n - n_philox, "launches_philox": n_philox, **extra,
                  **{mode: {key: timing[mode][key] for key in timed}
@@ -3230,6 +3768,7 @@ def main() -> int:
                       r["resample_many"]["launches_philox"], f"{name} (server-only replay)",
                       {"launches_by_run": r["resample_many"]["launches"]})
                      for name, r in offload.items()]
+    many_counted += _mesh_counted_rows(mesh, "lda_gibbs.resample_many")
     many_by_shape = [{"shape": timing["shape"], "phases": phases,
                       "launches_injected": n - n_philox, "launches_philox": n_philox, **extra,
                       **{mode: {key: timing[mode][key] for key in timed}
@@ -3238,21 +3777,35 @@ def main() -> int:
     # alias_mh.resample by shape and draw mode: the case study on `alias`
     # (the main path), the popular product's int32 tables (`large_fit` and
     # `packed`'s exact `alias` run) and its packed int8 tables (`packed`).
+    # And each mesh entry at every shape a run of the `mesh` phase launched
+    # it at, checked and timed on that launch's inputs (`mesh_launch_checks`).
     runs = packed["runs"]
     alias_counted = (
         (alias_block, alias_main["launches"]["alias_mh.resample"],
-         alias_main["launches_philox"]["alias_mh.resample"]),
+         alias_main["launches_philox"]["alias_mh.resample"], "main_path_alias", {}),
         (a, large["launches"]["alias_mh.resample"] + runs["alias_exact"]["launches"][
             "alias_mh.resample"],
          large["launches_philox"]["alias_mh.resample"] + runs["alias_exact"][
-             "launches_philox"]["alias_mh.resample"]),
+             "launches_philox"]["alias_mh.resample"], "large_fit, packed", {}),
         (packed["alias_kernel"], runs["alias_int8"]["launches"]["alias_mh.resample"],
-         runs["alias_int8"]["launches_philox"]["alias_mh.resample"]))
-    alias_by_shape = [{"shape": timing["shape"], "body": timing["body"],
-                       "launches_injected": n - n_philox, "launches_philox": n_philox,
+         runs["alias_int8"]["launches_philox"]["alias_mh.resample"], "packed (int8)", {}),
+        *_mesh_counted_rows(mesh, "alias_mh.resample"))
+    alias_by_shape = [{"shape": timing["shape"], "body": timing["body"], "phases": phases,
+                       "launches_injected": n - n_philox, "launches_philox": n_philox, **extra,
                        **{mode: {key: timing[mode][key] for key in timed}
                           for mode in ("injected", "philox")}}
-                      for timing, n, n_philox in alias_counted]
+                      for timing, n, n_philox, phases, extra in alias_counted]
+    alias_many_by_shape = [{"shape": timing["shape"], "body": timing["body"], "phases": phases,
+                            "launches_injected": n - n_philox, "launches_philox": n_philox,
+                            **extra, **{mode: {key: timing[mode][key] for key in timed}
+                                        for mode in ("injected", "philox")}}
+                           for timing, n, n_philox, phases, extra in (
+                               (zoo_alias["kernel"],
+                                zoo_alias["launches"]["alias_mh.resample_many"],
+                                zoo_alias["launches_philox"]["alias_mh.resample_many"],
+                                "zoo_alias", {}),
+                               *_mesh_counted_rows(mesh, "alias_mh.resample_many"))]
+    mesh_err = {name: mesh_max_err(mesh, name) for name in _mesh_wrappers()}
     zak = zoo_alias["kernel"]
     # lda_gibbs.resample_quant and the pack kernel by shape: the popular
     # product's packed `cuda` runs (`packed`, 30 sweeps each) and the case
@@ -3296,10 +3849,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/alias_mh/csrc/alias_mh.cu",
         "replaces": "src/repro/kernels/alias_mh/kernel.py:206",
-        "launches": sum(n for _, n, _ in alias_counted),
-        "launches_philox": sum(n for _, _, n in alias_counted),
+        "launches": sum(row[1] for row in alias_counted),
+        "launches_philox": sum(row[2] for row in alias_counted),
         "max_abs_err": max(alias_kern["max_abs_err"], alias_block["max_abs_err"],
-                           a["max_abs_err"], packed["alias_kernel"]["max_abs_err"]),
+                           a["max_abs_err"], packed["alias_kernel"]["max_abs_err"],
+                           mesh_err["alias_mh.resample"]),
         **{key: a["philox"][key] for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
                                              "bound_by")},
         "library_ms": None,
@@ -3313,13 +3867,14 @@ def main() -> int:
         "launches": zoo_alias["launches"]["alias_mh.resample_many"],
         "launches_philox": zoo_alias["launches_philox"]["alias_mh.resample_many"],
         "max_abs_err": max(batched_kern["alias_mh.resample_many"]["max_abs_err"],
-                           zak["max_abs_err"]),
+                           zak["max_abs_err"], mesh_err["alias_mh.resample_many"]),
         **{key: zak["philox"][key]
            for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "shape": zak["shape"] + " draws=philox",
         "injected": {key: zak["injected"][key] for key in timed},
         "philox": {key: zak["philox"][key] for key in timed},
+        "by_shape": alias_many_by_shape,
     }, {
         "name": "lda_gibbs.resample_many",
         "route": "cuda",

@@ -20,12 +20,19 @@ chosen by name:
           one batched Gibbs launch a sweep for all M
           (`kernels.lda_gibbs.ops.sweep_many`) — the route of multi-model
           fits and refits
+  distributed
+          client/server sharded sweep (`core.distributed`): the paper's
+          "model cache and updating server" on a worker grid, with the
+          (V, K) model fully replicated a worker (the small-grid oracle)
+  pserver parameter-server fit tier (`repro_torch.pserver`): doc-sharded
+          tokens, vocab-sharded word-topic state across the model axis,
+          bounded-staleness support caches synced by sparse delta-row
+          exchange — the `device_kind="pod"` route; on one card its W
+          workers run stacked on a leading axis
 
 The reference package's names stay valid as aliases — ``jnp`` is
 ``torch`` and ``pallas`` is ``cuda`` — so a reference client's requests
-keep their meaning. Backends the reference routes to but this package
-does not have yet (`pserver`, `distributed`) resolve, as the reference's
-own fallback does, to the oracle.
+keep their meaning.
 
 A backend with the stacked surface (`run_many(cfg, corpora, gens,
 num_sweeps, states=None, lengths=None)`: a leading (M,) axis on every
@@ -46,7 +53,7 @@ from typing import Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch.core.codec import encode_state
+from repro_torch.core.codec import decode_state, encode_state
 from repro_torch.core.types import Corpus, LDAConfig, LDAState, init_state
 
 
@@ -260,6 +267,74 @@ class CudaSampler(_BaseSampler):
         from repro_torch.kernels.lda_gibbs import ops as kops
 
         return kops.sweep(cfg, state, corpus, gen)
+
+
+@register_backend("distributed", SamplerCapabilities(device_kind="pod"))
+class DistributedSampler(_BaseSampler):
+    """Client/server sharded sweep (`core.distributed`) on a worker grid.
+
+    Counts cross the boundary in stored units and are decoded/encoded
+    here; the sharded sweep itself is real-valued float32. `workers` is a
+    worker count or a `pserver.comm` seam (default: one worker). With one
+    worker global doc ids are worker-local ids; with several, the caller
+    contract of `core.distributed` applies (documents contiguously
+    partitioned in blocks of ceil(num_docs / W), worker-local ids, token
+    arrays padded a worker — `core.distributed.shard_corpus` builds that
+    layout). The `pserver` backend does this partitioning itself and is
+    the routed pod default; this backend remains the replicated
+    small-grid oracle.
+    """
+
+    def __init__(self, workers=1, block: int = 4096, sync_every: int = 1):
+        from repro_torch.pserver import comm
+
+        self.comm = comm.make(workers)
+        self.block = block
+        self.sync_every = sync_every
+
+    def sweep(self, cfg, state, corpus, gen):
+        from repro_torch.core import distributed
+
+        real = decode_state(cfg, state)
+        fn = distributed.make_client_server_sweep(cfg, self.comm, block=self.block,
+                                                  sync_every=self.sync_every)
+        z, n_dt, n_wt, n_t = fn(corpus.docs, corpus.words, real.z, corpus.weights, real.n_dt,
+                                real.n_wt, gen)
+        return encode_state(cfg, LDAState(z=z, n_dt=n_dt, n_wt=n_wt, n_t=n_t))
+
+
+@register_backend("pserver", SamplerCapabilities(device_kind="pod"))
+class PServerSampler(_BaseSampler):
+    """Parameter-server fit tier (`repro_torch.pserver`) — the routed pod
+    path.
+
+    Doc-sharded tokens across every worker, vocab-sharded authoritative
+    word-topic state across the "model" axis, and bounded-staleness
+    per-worker support caches synced by sparse delta-row exchange every
+    `staleness` sweeps. Callers hand over a flat corpus with *global* doc
+    ids; the tier plans its own contiguous partition (any corpus fits any
+    grid). `workers` is an (n_data, n_model) grid of workers stacked on
+    the corpus's device (default (1, 1)) or a `pserver.comm` seam. `local`
+    picks the per-worker sweep engine: "gibbs" (`core.distributed.
+    local_sweep`), "cuda" (one Gibbs kernel launch a sweep for all
+    workers; the reference's "pallas" is accepted), "mh" (AliasLDA MH
+    whose accept step absorbs the cache staleness), or "auto" (cuda on the
+    card, gibbs on the CPU).
+    """
+
+    def __init__(self, workers=(1, 1), block: int = 4096, staleness: int = 1,
+                 local: str = "auto", cap=None, mh_steps: int = 4):
+        from repro_torch.pserver.sampler import PServerFit
+
+        self._fit = PServerFit(workers=workers, block=block, staleness=staleness,
+                               local=local, cap=cap, mh_steps=mh_steps)
+        self.staleness = staleness
+
+    def sweep(self, cfg, state, corpus, gen):
+        return self._fit.sweep(cfg, state, corpus, gen)
+
+    def run(self, cfg, corpus, gen, num_sweeps, state=None):
+        return self._fit.run(cfg, corpus, gen, num_sweeps, state=state)
 
 
 @register_backend(

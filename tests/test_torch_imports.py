@@ -65,6 +65,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.sparse, repro_torch.chital, repro_torch.chital.runtime\n"
         "import repro_torch.chital.simulator, repro_torch.offload\n"
         "from repro_torch.offload import DeviceFleet, OffloadCoordinator\n"
+        "import repro_torch.core.distributed, repro_torch.pserver\n"
+        "from repro_torch.pserver import PServerFit, PServerPlan, build_plan\n"
+        "from repro_torch.pserver import comm, sampler, sweep, sync, topology\n"
+        "from repro_torch.api.backends import DistributedSampler, PServerSampler\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -18,6 +18,9 @@ RLDA fit → refine → view over the wire (client → server), as
     `backend="alias"` and on `backend="sparse"` (the phone's sampler),
     including the multi-model `fit_batch` / `refine_batch` verbs (`auto`
     resolves them to `batched`);
+  * a reference client is served by the mesh tiers — `backend="pserver"`,
+    `backend="distributed"`, and `device_kind="pod"` (which `auto` resolves
+    to `pserver`, as the reference's router does);
   * `backend="auto"` routes a fit of >= 100k tokens to `alias`, as the
     reference's router does, and AliasLDA at 100 sweeps lands within 0.3
     in log perplexity of the exact sweep at 30 (the reference's
@@ -70,7 +73,8 @@ def _invariants(server, handle_id):
 def test_port_client_server_main_path(corpus):
     client = VedaliaClient(device="cpu", backend="jnp")  # the reference's name, an alias
     info = client.hello()
-    assert info.backends == ["alias", "batched", "cuda", "sparse", "torch"]
+    assert info.backends == ["alias", "batched", "cuda", "distributed", "pserver", "sparse",
+                             "torch"]
     fit = client.fit(corpus.reviews[:130], num_sweeps=10, seed=0, **FIT)
     assert fit.backend == "torch" and fit.sweeps_run == 10
     fit = client.refine(fit.handle_id, num_sweeps=10, seed=1)
@@ -230,7 +234,8 @@ def test_server_answers_every_verb():
 
 
 def test_backend_registry_aliases_and_routing():
-    assert backends.available_backends() == ["alias", "batched", "cuda", "sparse", "torch"]
+    assert backends.available_backends() == ["alias", "batched", "cuda", "distributed",
+                                             "pserver", "sparse", "torch"]
     assert "sparse" in ref_api.available_backends()
     assert backends.canonical("jnp") == "torch" and backends.canonical("pallas") == "cuda"
     assert type(backends.get_backend("pallas")).__name__ == "CudaSampler"
@@ -261,6 +266,13 @@ def test_backend_registry_aliases_and_routing():
     assert backends.select_backend(device_kind="phone") \
         == ref_api.select_backend(device_kind="phone") == "sparse"
     assert backends.select_backend(device_kind="tpu") == "torch"
+    # The mesh tiers: the pod route is the parameter server in both packages.
+    assert backends.select_backend(device_kind="pod") \
+        == ref_api.select_backend(device_kind="pod") == "pserver"
+    for name in ("pserver", "distributed"):
+        assert backends.backend_capabilities(name).device_kind == "pod"
+        assert type(backends.get_backend(name)).__name__ \
+            == type(ref_api.get_backend(name)).__name__
     assert backends.select_backend(num_tokens=200_000, available=["alias", "torch"]) == "alias"
     assert backends.select_backend(num_tokens=200_000, available=["cuda", "torch"]) == "torch"
     assert backends.select_backend(task="update", available=["alias", "torch"]) == "torch"
@@ -269,6 +281,7 @@ def test_backend_registry_aliases_and_routing():
         server._backend_arg({"backend": "nope"})
     assert server._backend_arg({"backend": "pallas"}) == "pallas"
     assert server._backend_arg({"backend": "alias"}) == "alias"
+    assert server._backend_arg({"backend": "pserver"}) == "pserver"
 
 
 def test_alias_quality_matches_the_exact_sweep():
@@ -364,3 +377,33 @@ def test_auto_routes_a_large_fit_to_alias_and_refines_there():
     assert handle.backend == "alias" and handle.sweeps_run == 2
     small = service.fit(big[:50], base_vocab=300, num_topics=6, num_sweeps=1, seed=2)
     assert small.backend == "torch"
+
+
+def test_reference_client_drives_the_mesh_tiers_on_a_port_server():
+    """A reference client asks a port server for `backend="pserver"` (four
+    stacked workers on a (2, 2) grid, staleness 2), for
+    `backend="distributed"`, and for `device_kind="pod"` under `auto`: each
+    fit and refine runs there, the counts rebuild exactly from z, the view
+    syncs and the exported state passes the reference client's spot check."""
+    server = VedaliaServer(device="cpu", backend_opts={
+        "pserver": {"workers": (2, 2), "staleness": 2}})
+    client = ref_api.VedaliaClient(transport=server.handle_raw)
+    revs = ref_reviews.generate(ref_reviews.SyntheticSpec(**SPEC)).reviews
+    fit_kw = dict(FIT, w_bits=None)  # float32 counts: whole windows, one program a call
+    for kw, resolved in ((dict(backend="pserver", **fit_kw), "pserver"),
+                         (dict(backend="distributed", **FIT), "distributed"),
+                         (dict(backend="auto", device_kind="pod", **FIT), "pserver")):
+        fit = client.fit(revs, num_sweeps=4, seed=0, **kw)
+        assert fit.backend == resolved and np.isfinite(fit.perplexity)
+        fit = client.refine(fit.handle_id, num_sweeps=3, seed=1)
+        assert fit.backend == resolved and fit.sweeps_run == 7
+        h = server.service.handles[fit.handle_id]
+        rebuilt = codec.rebuild_state(h.cfg, h.model.corpus, h.model.state.z)
+        for f in ("n_dt", "n_wt", "n_t"):
+            np.testing.assert_allclose(getattr(rebuilt, f).numpy(),
+                                       getattr(h.model.state, f).numpy(), rtol=1e-5, atol=1e-4)
+        assert client.sync_view(fit.handle_id, top_n=5).valid
+        exported = client.export_model(fit.handle_id)
+        assert client.spot_check(fit.handle_id, exported.state).valid
+    assert type(server.service.sampler("pserver")._fit.comm).__name__ == "Stacked"
+    assert server.service.sampler("pserver")._fit.comm.n_workers == 4
