@@ -165,6 +165,32 @@ Phases:
                  group's depth (6 Mamba2 layers + the shared block): prefill
                  logits and two teacher-forced decode steps within 4% of the
                  logits' scale (bf16 on both sides)
+ 14. dense_serve the dense family at published widths, weights from seed 0,
+                 each model freed before the next: qwen2-7b and gemma2-9b
+                 through `Engine(cache_len=8192, max_batch=2)` on the zamba2
+                 mix, gemma-7b, gemma2-9b-sw and phi3-medium-14b one 512-token
+                 request of 16 new tokens each; counts zeroed before each
+                 run and read after (decode_attn num_layers calls a decode
+                 step: 28 / 42 (21 rings) / 28 / 42 (rings) / 40; no
+                 chunk_scan), each call filed by shape; prefill ms, decode
+                 ms a step, tokens/s, peak memory; prefill/decode within 2%
+                 two steps after 512 tokens (the gemma2 family within 3% in
+                 bf16, and within 1e-4 on a float32 copy of its weights,
+                 with its bf16 gap by depth and with the plain attention),
+                 and for gemma2 12 steps after the 4102-token prompt (its
+                 local rings past the window; the unrolled twin must read
+                 past the float32 limit at every step); qwen2 and gemma2 profiled (a
+                 traced 2 x 4096 prefill, decode steps) and `logits_last`
+                 timed against the parent's widened table
+ 15. rwkv_serve  rwkv6-1.6b at published widths on the zamba2 mix: 24
+                 general-entry chunk_scan launches (rwkv6 mode, chunk 32) a
+                 prefill wave, no decode_attn, prefill/decode within 2% after
+                 512 and 4096 tokens, profiled as above
+ 16. dense_parity, 17. rwkv_parity
+                 the card against the port on the CPU at full width and two
+                 layers (one local/global pair for gemma2), each dense arch
+                 and rwkv6: prefill logits, two teacher-forced decode steps
+                 and the caches within 4%
 Phase 1 also holds both batched kernels against their plain versions over M
 in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 x both
 noise or draw modes (x S in {2, 4} for alias_mh), the packed-table entry in
@@ -173,7 +199,9 @@ f32/`w_bits` 8 (K 12 at N 262,147 and 40,009, both of its bodies; K 128 and
 1000 at 65,536), and the pack kernel bit for bit at V 10,000; chunk_scan
 over both modes x float32/bf16 x s0 given/absent at Zamba2's prefill shape
 (B 2, S 4096, H 80, dk = dv = 64, chunk 32), RWKV6's
-(H 32, chunk 64), two ragged lengths and dk != dv, and the Mamba2 entry (w
+(H 32, chunk 64) and its three served prefill shapes (chunk 32, B 2 x S 4096,
+2 x 512, 1 x 512: timed each, no start state), two ragged lengths and dk !=
+dv, and the Mamba2 entry (w
 (B, S, H), k and q (B, S, dk): the one the served prefill runs) at Zamba2's
 prefill, at B 1, at the ragged chunks 25 and 60, dk 128 at chunk 64 and rows
 that are not whole 16-byte units, each timed with both bounds (bytes,
@@ -181,8 +209,12 @@ float32 operations); decode_attn at Zamba2's decode shape (B 2, a 4096-slot
 ring, Hkv 32, hd 80) before, at and past the wrap, a ring written into its
 first partition only (the later ones all masked), S not divisible by P * T,
 a qwen2-like GQA shape (Hkv 4, G 7, hd 128, 8192 long), a capped window, and
-hd in {32, 64, 80, 128, 256} x G in {1, 2, 4, 7, 8}, plus its merge kernel
-alone against `merge_partials` (partitions with no valid slot included);
+hd in {32, 64, 80, 128, 256} x G in {1, 2, 4, 7, 8}, every shape a served
+decode step gives it (`SERVED_DECODE`: zamba2's rings, qwen2's GQA, gemma2's
+hd 256 capped rings and flat caches, gemma-7b's, phi3's; B 2 and 1) at up to
+seven positions in bf16, each timed at its heaviest served step, plus its
+merge kernel alone against `merge_partials` (partitions with no valid slot
+included);
 each with its ms, plain ms, bound, its split (P, CUDA launches a call) and
 (decode_attn) the masked `F.scaled_dot_product_attention` as `library_ms` (a
 yardstick the port never calls).
@@ -203,7 +235,11 @@ the popular product's on int32 tables (`large_fit` and `packed`'s exact
 `alias` run), on packed int8 tables and the mesh phase's (alias_mh.resample_many's:
 the zoo's and the mesh phase's); resample_quant's the popular
 product's int8 and int4 runs (`packed`) and the case study's
-(`packed_case_study`). `lda_gibbs.pack_word_table`, the packed sweep's
+(`packed_case_study`). `chunk_scan` is the Mamba2 entry, whose launches
+are hybrid_serve's; `chunk_scan.general`'s are rwkv_serve's and
+decode_attn's hybrid_serve's and dense_serve's, both with `by_shape` rows by
+arch and served shape (`calls_by_shape` files every call a serving run makes).
+`lda_gibbs.pack_word_table`, the packed sweep's
 table build, is no TPU kernel (the reference quantizes with jnp before its
 Pallas call); its row names the jnp function it replaces.
 
@@ -215,6 +251,7 @@ exits non-zero; without CUDA it exits 2 before doing anything.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -3054,6 +3091,26 @@ def phase_mesh(exact_ppx):
 ZAMBA2_PREFILL = dict(b=2, s=4096, h=80, dk=64, dv=64)  # one Mamba2 layer's scan, 2 x 4096
 RWKV6_SCAN = dict(b=2, s=2048, h=32, dk=64, dv=64)  # rwkv6-1.6b's heads
 ZAMBA2_DECODE = dict(b=2, s=4096, hkv=32, g=1, hd=80)  # the shared block's ring cache
+# rwkv6-1.6b's served prefill waves (B 2 x 4096, 2 x 512, 1 x 512; H 32, dk = dv 64)
+RWKV6_SERVED = [dict(b=b, s=s, h=32, dk=64, dv=64) for b, s in ((2, 4096), (2, 512), (1, 512))]
+# decode_attn at each shape the served decode steps give it, with the last
+# position a served wave decodes at that shape (its heaviest step, where it is
+# timed): the 2 x 4096 waves' 4126, the 512-token waves' 542 (526 for one
+# request of 16 new tokens). Keyed as `attn_key` files the served calls.
+_RING = dict(window=4096, ring=True)
+SERVED_DECODE = [
+    ("zamba2-2.7b", dict(ZAMBA2_DECODE), _RING, 4126),
+    ("zamba2-2.7b", dict(ZAMBA2_DECODE, b=1), _RING, 542),
+    ("qwen2-7b", dict(b=2, s=8192, hkv=4, g=7, hd=128), {}, 4126),
+    ("qwen2-7b", dict(b=1, s=8192, hkv=4, g=7, hd=128), {}, 542),
+    ("gemma2-9b local", dict(b=2, s=4096, hkv=8, g=2, hd=256), dict(_RING, cap=50.0), 4126),
+    ("gemma2-9b global", dict(b=2, s=8192, hkv=8, g=2, hd=256), dict(cap=50.0), 4126),
+    ("gemma2-9b local, gemma2-9b-sw", dict(b=1, s=4096, hkv=8, g=2, hd=256),
+     dict(_RING, cap=50.0), 542),
+    ("gemma2-9b global", dict(b=1, s=8192, hkv=8, g=2, hd=256), dict(cap=50.0), 542),
+    ("gemma-7b", dict(b=1, s=8192, hkv=16, g=1, hd=256), {}, 526),
+    ("phi3-medium-14b", dict(b=1, s=8192, hkv=10, g=4, hd=128), {}, 526),
+]
 
 
 def _scan_inputs(b, s, h, dk, dv, kdtype, seed, s0=True):
@@ -3137,14 +3194,16 @@ def compare_scan(args, *, include_current, chunk):
     return dy, ds, ok
 
 
-def scan_timing(shape, kdtype, *, include_current, chunk, reps=20, seed=0):
-    """The chunk_scan wrapper and its plain version on one call's inputs:
-    mean ms of each (CUDA events) and the bound from these inputs."""
+def scan_timing(shape, kdtype, *, include_current, chunk, reps=20, seed=0, s0=None):
+    """The chunk_scan wrapper and its plain version on one call's inputs
+    (with a start state unless `s0` is False; by default rwkv6 mode has
+    one): mean ms of each (CUDA events) and the bound from these inputs."""
     import torch
 
     from repro_torch.kernels.chunk_scan import ops
 
-    args = _scan_inputs(**shape, kdtype=kdtype, seed=seed, s0=not include_current)
+    s0 = not include_current if s0 is None else s0
+    args = _scan_inputs(**shape, kdtype=kdtype, seed=seed, s0=s0)
     kw = dict(include_current=include_current, chunk=chunk, s0=args[5])
     u = None if include_current else args[4]
     ms = cuda_ms(lambda: ops.chunk_scan(*args[:4], u, **kw), reps)
@@ -3152,14 +3211,15 @@ def scan_timing(shape, kdtype, *, include_current, chunk, reps=20, seed=0):
     item = torch.tensor([], dtype=kdtype).element_size()
     moved, ops_count, exps = _scan_cost(**shape, chunk=ops.chunk_len(shape["s"], chunk),
                                         itemsize=item, include_current=include_current,
-                                        s0=not include_current)
+                                        s0=s0)
     bound_ms, bound_by = _bound(moved, ops_count)
     return {"ms": ms, "plain_ms": plain_ms, "bytes": moved, "ops": ops_count, "exps": exps,
             "bound_ms": bound_ms, "bound_by": bound_by, **_bounds(moved, ops_count),
             "library_ms": None,
             "shape": (f"B={shape['b']} S={shape['s']} H={shape['h']} dk={shape['dk']} "
                       f"dv={shape['dv']} chunk={chunk} k/q/v {str(kdtype)[6:]} w float32 "
-                      f"{'mamba2' if include_current else 'rwkv6'}")}
+                      f"{'mamba2' if include_current else 'rwkv6'}"
+                      f"{'' if s0 else ' no s0'}")}
 
 
 def _mamba2_inputs(b, s, h, dk, dv, kdtype, seed, s0=True):
@@ -3226,8 +3286,11 @@ def scan_timing_mamba2(shape, kdtype, *, chunk, reps=50, seed=0):
 def phase_chunk_scan_kernel():
     import torch
 
+    from repro_torch.kernels.chunk_scan import kernel
+
     cases = []
     grid = [(ZAMBA2_PREFILL, True, 32), (RWKV6_SCAN, False, 64),
+            *((shape, False, 32) for shape in RWKV6_SERVED),
             (dict(b=2, s=1000, h=4, dk=32, dv=64), True, 32),   # ragged: chunk 25
             (dict(b=1, s=600, h=3, dk=64, dv=128), False, 64),  # ragged: chunk 60, dk != dv
             (dict(b=3, s=96, h=2, dk=128, dv=64), True, 64)]
@@ -3259,16 +3322,25 @@ def phase_chunk_scan_kernel():
     timing = scan_timing(ZAMBA2_PREFILL, torch.bfloat16, include_current=True, chunk=32)
     timing_rwkv = scan_timing(RWKV6_SCAN, torch.bfloat16, include_current=False, chunk=64)
     timing_m2 = scan_timing_mamba2(ZAMBA2_PREFILL, torch.bfloat16, chunk=32)
+    # rwkv6-1.6b's served prefill scans (general entry, rwkv6 mode, chunk 32,
+    # no start state), keyed as `scan_key` files the served calls.
+    served = {scan_key(*_scan_inputs(**shape, kdtype=torch.bfloat16, seed=0, s0=False)[:5],
+                       include_current=False, chunk=32):
+              scan_timing(shape, torch.bfloat16, include_current=False, chunk=32, s0=False)
+              for shape in RWKV6_SERVED}
     out = {"phase": "kernels", "kernels": ["chunk_scan", "chunk_scan_mamba2"],
            "failed": sum(not c["ok"] for c in cases),
            "max_abs_err": max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in cases),
+           "smem_bytes_rwkv6_chunk32": kernel.smem_bytes(32, 64, 64),
+           "smem_bytes_limit": kernel.MAX_SMEM_BYTES,
            "kernel_mamba2": timing_m2, "kernel": timing, "kernel_rwkv6": timing_rwkv,
+           "served_rwkv6": [{"key": list(k), **v} for k, v in served.items()],
            "cases": cases}
     emit(out)
     if out["failed"]:
         raise SystemExit(f"chunk_scan kernel disagrees with its plain version in "
                          f"{out['failed']} cases")
-    return out
+    return {**out, "served": served}
 
 
 def _attn_inputs(b, s, hkv, g, hd, dtype, seed):
@@ -3308,7 +3380,8 @@ def attn_timing(shape, dtype, reps=200, **kw):
 
     q, k, v = _attn_inputs(**shape, dtype=dtype, seed=1)
     b, s, hkv, hd = k.shape
-    valid = ops.valid_positions(s, device="cuda", **kw)
+    valid = ops.valid_positions(s, device="cuda", **{k_: v_ for k_, v_ in kw.items()
+                                                     if k_ != "cap"})
     ms = cuda_ms(lambda: ops.decode_attention(q, k, v, **kw), reps)
     # The CUDA kernels one wrapper call launches (split and merge when the
     # plan has P > 1), counted from the profiler's device events.
@@ -3412,18 +3485,42 @@ def phase_decode_attn_kernel():
                             pos=3000, length=3001),
               compare_merge(b=2, s=8192, hkv=4, g=7, hd=128, dtype=torch.float32, seed=4,
                             pos=8191, length=8192)]
+    # Every served shape: held against the plain version before, at and past
+    # its ring's wrap or across its flat cache, in bf16 (as served), then timed
+    # at its heaviest served step.
+    served = {}
+    for label, shape, kw, last in SERVED_DECODE:
+        for p in sorted({100, 542, 4095, 4096, 4126, 5000, last}):
+            if p >= shape["s"] and not kw.get("ring"):
+                continue
+            err, ok = compare_attn(_attn_inputs(**shape, dtype=torch.bfloat16, seed=len(cases)),
+                                   pos=p, length=p + 1, **kw)
+            plan = ops.plan(shape["b"], shape["s"], shape["hkv"], shape["hd"], 2)
+            cases.append({**shape, "dtype": "bfloat16", **kw, "pos": p, "length": p + 1,
+                          "parts": plan.parts, "served": label, "max_abs_err": err, "ok": ok})
+        if label.startswith("gemma2"):  # its consistency gate runs in float32 too
+            err, ok = compare_attn(_attn_inputs(**shape, dtype=torch.float32, seed=len(cases)),
+                                   pos=last, length=last + 1, **kw)
+            cases.append({**shape, "dtype": "float32", **kw, "pos": last, "length": last + 1,
+                          "served": label, "max_abs_err": err, "ok": ok})
+        key = (shape["b"], shape["s"], shape["hkv"], shape["g"], shape["hd"],
+               kw.get("window", 0), kw.get("ring", False), kw.get("cap", 0.0))
+        served[key] = {"served": label, **attn_timing(shape, torch.bfloat16, pos=last,
+                                                      length=last + 1, **kw)}
     timing = attn_timing(z, torch.bfloat16, pos=4096, length=4097, **ring)
     timing_gqa = attn_timing(dict(b=2, s=8192, hkv=4, g=7, hd=128), torch.bfloat16,
                              pos=8191, length=8192)
     out = {"phase": "kernels", "kernels": ["decode_attn"],
            "failed": sum(not c["ok"] for c in cases + merges),
            "max_abs_err": max(c["max_abs_err"] for c in cases + merges),
-           "kernel": timing, "kernel_gqa": timing_gqa, "merge_cases": merges, "cases": cases}
+           "kernel": timing, "kernel_gqa": timing_gqa,
+           "served": [{"key": list(k), **v} for k, v in served.items()],
+           "merge_cases": merges, "cases": cases}
     emit(out)
     if out["failed"]:
         raise SystemExit(f"decode_attn kernel disagrees with its plain version in "
                          f"{out['failed']} cases")
-    return out
+    return {**out, "served_by_key": served}
 
 
 # -- phase 10: the transformer serving path --------------------------------------
@@ -3443,19 +3540,118 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def _serve_requests(vocab):
-    """Two 4096-token prompts (the 4096-slot ring is full after prefill, so
-    the first decode step wraps it), two of 512, greedy, and one of 512 at
-    temperature 0.8: three waves."""
+SERVE_MIX = ((4096, 0.0), (4096, 0.0), (512, 0.0), (512, 0.0), (512, 0.8))
+
+
+def _serve_requests(vocab, spec=SERVE_MIX, max_new=SERVE["max_new"]):
+    """The zamba2 mix by default: two 4096-token prompts (the 4096-slot ring
+    is full after prefill, so the first decode step wraps it), two of 512,
+    greedy, and one of 512 at temperature 0.8: three waves."""
     import numpy as np
 
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(SERVE["seed"])
-    spec = [(4096, 0.0), (4096, 0.0), (512, 0.0), (512, 0.0), (512, 0.8)]
     return [Request(uid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
-                    max_new_tokens=SERVE["max_new"], temperature=t)
+                    max_new_tokens=max_new, temperature=t)
             for i, (n, t) in enumerate(spec)]
+
+
+@contextlib.contextmanager
+def calls_by_shape(module, attr, key):
+    """While open, every call of `module.<attr>` (a kernel wrapper the model
+    calls through its module) is filed under `key(*args, **kw)`: {key:
+    {"calls": n, "positions": [first, last] pos}}; the wrapper itself runs
+    and counts its own launches on itself, as always."""
+    real = getattr(module, attr)
+    filed = {}
+
+    def filing(*args, **kw):
+        slot = filed.setdefault(key(*args, **kw), {"calls": 0, "positions": None})
+        slot["calls"] += 1
+        if "pos" in kw:
+            pos = int(kw["pos"])
+            slot["positions"] = [pos, pos] if slot["positions"] is None else [
+                min(slot["positions"][0], pos), max(slot["positions"][1], pos)]
+        return real(*args, **kw)
+
+    setattr(module, attr, filing)
+    try:
+        yield filed
+    finally:
+        setattr(module, attr, real)
+
+
+def attn_key(q, k_cache, *_, window=0, ring=False, cap=0.0, **__):
+    """A decode_attn call's shape: (B, S, Hkv, G, hd, window, ring, cap)."""
+    b, s, hkv, hd = k_cache.shape
+    return (b, s, hkv, q.shape[1] // hkv, hd, int(window), bool(ring), float(cap))
+
+
+def scan_key(_w, k, v, *_, include_current, chunk, **__):
+    """A general chunk_scan call's shape: (B, S, H, dk, dv, chunk, mode)."""
+    from repro_torch.kernels.chunk_scan import ops
+
+    b, s, h, dk = k.shape
+    return (b, s, h, dk, v.shape[-1], ops.chunk_len(s, chunk),
+            "mamba2" if include_current else "rwkv6")
+
+
+def engine_run(cfg, params, requests):
+    """The served main path: `Engine(cache_len=8192, max_batch=2)` over
+    `requests`, every kernel count zeroed just before `run` and read just
+    after, the general chunk_scan and decode_attn calls filed by shape.
+    Returns (results, {"waves", "run_s", "peak_mem_bytes", "launches",
+    "by_shape"})."""
+    import torch
+
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+    from repro_torch.kernels.decode_attn import ops as da_ops
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(cfg, params, cache_len=SERVE["cache_len"], max_batch=SERVE["max_batch"],
+                 seed=SERVE["seed"], device="cuda")
+    for r in requests:
+        eng.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    cs_ops.chunk_scan.launches = 0
+    da_ops.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    with calls_by_shape(da_ops, "decode_attention", attn_key) as attn_calls, \
+            calls_by_shape(cs_ops, "chunk_scan", scan_key) as scan_calls:
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = {"chunk_scan": cs_ops.chunk_scan.launches,
+                "decode_attn": da_ops.decode_attention.launches}
+    if sum(slot["calls"] for slot in attn_calls.values()) != launches["decode_attn"]:
+        raise SystemExit(f"{cfg.name}: decode_attn launched {launches['decode_attn']} times, "
+                         f"its calls by shape {attn_calls}")
+    peak = torch.cuda.max_memory_allocated()
+    waves = {}
+    for r in results:
+        req = requests[r.uid]
+        w = waves.setdefault(r.wave_id, {"batch": 0, "prompt": len(req.prompt),
+                                         "temperature": req.temperature,
+                                         "new_tokens": req.max_new_tokens,
+                                         "prefill_ms": r.prefill_s * 1e3,
+                                         "decode_s": r.decode_s})
+        w["batch"] += 1
+    for w in waves.values():
+        steps = w["new_tokens"] - 1  # decode steps a wave (the first token comes from prefill)
+        w["decode_ms_per_step"] = w["decode_s"] * 1e3 / steps
+        w["decode_tokens_per_s"] = w["batch"] * w["new_tokens"] / w.pop("decode_s")
+    if len(results) != len(requests) or any(len(r.tokens) != requests[r.uid].max_new_tokens
+                                            for r in results):
+        raise SystemExit(f"{cfg.name}: a request was not served in full")
+    return results, {
+        "waves": waves, "run_s": run_s, "peak_mem_bytes": peak, "launches": launches,
+        "decode_steps": sum(w["new_tokens"] - 1 for w in waves.values()),
+        "decode_tokens_per_s": sum(len(r.tokens) for r in results)
+        / sum({r.wave_id: r.decode_s for r in results}.values()),
+        "by_shape": {name: [{"key": list(k), **slot} for k, slot in filed.items()]
+                     for name, filed in (("decode_attn", attn_calls), ("chunk_scan", scan_calls))}}
 
 
 def phase_hybrid_serve():
@@ -3464,11 +3660,8 @@ def phase_hybrid_serve():
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
-    from repro_torch.kernels.chunk_scan import ops as cs_ops
-    from repro_torch.kernels.decode_attn import ops as da_ops
     from repro_torch.models import layers, params as plib
     from repro_torch.models import model as M
-    from repro_torch.serving.engine import Engine
 
     cfg = configs.get("zamba2-2.7b")
     groups = cfg.num_layers // cfg.hybrid_attn_every
@@ -3476,38 +3669,10 @@ def phase_hybrid_serve():
     params = M.init_model(cfg, seed=SERVE["seed"], device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng = Engine(cfg, params, cache_len=SERVE["cache_len"], max_batch=SERVE["max_batch"],
-                 seed=SERVE["seed"], device="cuda")
     requests = _serve_requests(cfg.vocab_size)
-    for r in requests:
-        eng.submit(r)
-
     # The main path: the counts are zeroed just before the run and read just after.
-    torch.cuda.reset_peak_memory_stats()
-    cs_ops.chunk_scan.launches = 0
-    da_ops.decode_attention.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = eng.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = {"chunk_scan": cs_ops.chunk_scan.launches,
-                "decode_attn": da_ops.decode_attention.launches}
-    peak = torch.cuda.max_memory_allocated()
-
-    waves = {}
-    for r in results:
-        req = requests[r.uid]
-        w = waves.setdefault(r.wave_id, {"batch": 0, "prompt": len(req.prompt),
-                                         "temperature": req.temperature,
-                                         "prefill_ms": r.prefill_s * 1e3,
-                                         "decode_s": r.decode_s})
-        w["batch"] += 1
-    steps = SERVE["max_new"] - 1  # decode steps a wave (the first token comes from prefill)
-    for w in waves.values():
-        w["decode_ms_per_step"] = w["decode_s"] * 1e3 / steps
-        w["decode_tokens_per_s"] = w["batch"] * SERVE["max_new"] / w.pop("decode_s")
-    total_steps = steps * len(waves)
+    results, run = engine_run(cfg, params, requests)
+    launches, waves = run["launches"], run["waves"]
 
     # Gates on logits: prefill/decode consistency at full width (the
     # reference's rel < 0.02), and finite logits at the 4096-token wrap.
@@ -3580,12 +3745,12 @@ def phase_hybrid_serve():
     out = {
         "phase": "hybrid_serve", "arch": cfg.name, "params": plib.count_params(params),
         "param_bytes": plib.tree_bytes(params), "init_s": round(init_s, 3),
-        "requests": len(requests), "waves": waves, "run_s": run_s,
-        "decode_tokens_per_s": sum(len(r.tokens) for r in results)
-        / sum({r.wave_id: r.decode_s for r in results}.values()),
-        "peak_mem_bytes": peak, "launches": launches,
+        "requests": len(requests), "waves": waves, "run_s": run["run_s"],
+        "decode_tokens_per_s": run["decode_tokens_per_s"],
+        "peak_mem_bytes": run["peak_mem_bytes"], "launches": launches,
+        "by_shape": run["by_shape"],
         "launches_expected": {"chunk_scan": cfg.num_layers * len(waves),
-                              "decode_attn": groups * total_steps},
+                              "decode_attn": groups * run["decode_steps"]},
         "prefill_decode_rel": consistency, "ring_prompt": RING_PROMPT,
         "ring_steps": RING_STEPS, "ring_prefill_decode_rel": ring_rel,
         "ring_prefill_decode_rel_unrolled": ring_rel_unrolled,
@@ -3610,24 +3775,339 @@ def phase_hybrid_serve():
                          f"{consistency}, {RING_STEPS} steps after {RING_PROMPT} tokens "
                          f"{ring_rel} (limit 0.02; the unrolled tail read "
                          f"{ring_rel_unrolled}, must read past it)")
-    if len(results) != len(requests) or any(len(r.tokens) != SERVE["max_new"]
-                                            for r in results):
-        raise SystemExit("hybrid_serve: a request was not served in full")
     return out
 
 
 def phase_hybrid_parity():
     """The card (both kernels) against the port on the CPU (their plain
     versions) at full width and one group's depth (6 Mamba2 layers and the
-    shared block): prefill logits and two teacher-forced decode steps."""
+    shared block): prefill logits, two teacher-forced decode steps and the
+    caches within 4%."""
+    return _parity_phase("hybrid_parity", ("zamba2-2.7b",), layers=6)
+
+
+# -- phases 14-17: the dense and ssm serving paths ------------------------------
+
+DENSE_MIX = ("qwen2-7b", "gemma2-9b")  # served on the zamba2 mix
+DENSE_ONE = ("gemma-7b", "gemma2-9b-sw", "phi3-medium-14b")  # one 512-token request each
+# Prefill/decode consistency limits (rel, every step). The served bf16 path is
+# gated at 0.02, but the gemma2 family at 0.03: with random weights its 42
+# post-normed bf16 layers put its bf16 prefill and its bf16 decode each about
+# 2% from the float32 forward, growing with depth (0.004, 0.008, 0.013, 0.020
+# at 2, 6, 14, 42 layers; the plain attention the same), and it reads
+# 0.016-0.021. So the family is also gated on a float32 copy of its weights,
+# where sound steps read about 4e-6 and every step of the unrolled tail
+# 0.0195 or more: limit 1e-4, which the fault must read past at every step.
+BF16_LIMIT = {"gemma2-9b": 0.03, "gemma2-9b-sw": 0.03}
+FLOAT32_CONSISTENCY, FLOAT32_LIMIT = ("gemma2-9b", "gemma2-9b-sw"), 1e-4
+PRECISION_DEPTHS = (2, 6, 14)  # the gemma2 family's bf16 gap at these depths too
+ONE_REQUEST, ONE_NEW = ((512, 0.0),), 16
+CONSISTENCY_PROMPT, CONSISTENCY_STEPS = 512, 2
+PROFILE_STEPS = 4
+
+
+def free_cuda():
+    """Drop what the card caches of freed tensors, so the next model's
+    weights find the memory (each full model is loaded after the last is
+    freed)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def prefill_decode_rels(params, cfg, toks, prompt, *, unroll=()):
+    """Prefill toks[:, :prompt] (cache 8192), then teacher-force the rest one
+    decode step each: every step's logits against one causal forward over
+    all of `toks` at that position (rel a step). With `unroll` (the cache's
+    ring keys), the same steps from a copy whose ring tails are unrolled into
+    slots 0..w-1 (the reference's layout past the window: the fault the gate
+    is there to catch) give a second list."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+
+    cache, _ = M.prefill(params, cfg, {"tokens": toks[:, :prompt]}, SERVE["cache_len"])
+    faulty = None
+    if unroll:  # decode_step writes the cache in place, so the copy is made first
+        faulty = {key: torch.roll(t, -(prompt % t.shape[-3]), dims=-3) if key in unroll
+                  else t.clone() for key, t in cache.items()}
+    h, _ = M.forward_hidden(params, cfg, {"tokens": toks})
+    table = M.unembed_table(params, cfg)
+    rels, rels_faulty = [], []
+    for pos in range(prompt, toks.shape[1]):
+        full = layers.logits_last(h[:, pos], table, cfg.final_softcap)
+        _, dec = M.decode_step(params, cfg, cache, toks[:, pos], pos)
+        rels.append(_rel(dec, full))
+        if faulty is not None:
+            _, dec = M.decode_step(params, cfg, faulty, toks[:, pos], pos)
+            rels_faulty.append(_rel(dec, full))
+    return rels, rels_faulty
+
+
+def _rand_tokens(cfg, n, seed):
     import numpy as np
+    import torch
+
+    return torch.tensor(np.random.default_rng(seed).integers(0, cfg.vocab_size, n),
+                        dtype=torch.int32, device="cuda")[None]
+
+
+def profile_serving(params, cfg, prompt):
+    """Where the time goes (`torch.profiler`): one traced 2 x len(prompt)
+    prefill, then `PROFILE_STEPS` traced decode steps and as many untraced
+    (host clock around a synchronize): the top device ops and the device's
+    busy ms of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    long = torch.tensor(prompt[None], device="cuda").repeat(2, 1)
+    s = long.shape[1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cache, logits = M.prefill(params, cfg, {"tokens": long}, SERVE["cache_len"])
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_top, prefill_busy = device_summary(prof, 1, unit="prefill")
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+    for i in range(2):
+        cache, logits = M.decode_step(params, cfg, cache, nxt, s + i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILE_STEPS):
+            cache, logits = M.decode_step(params, cfg, cache, nxt, s + 2 + i)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    top, busy = device_summary(prof, PROFILE_STEPS, unit="step")
+    t0 = time.perf_counter()
+    for i in range(PROFILE_STEPS):
+        cache, logits = M.decode_step(params, cfg, cache, nxt, s + 2 + PROFILE_STEPS + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    return {f"prefill_2x{s}_ms_traced": prefill_ms, "prefill_device_busy_ms": prefill_busy,
+            "prefill_profile_top_device_ms": prefill_top,
+            "decode_step_ms_untraced": step_ms, "decode_step_ms_traced": traced_ms,
+            "device_busy_ms_per_step": busy, "device_busy_share": busy / step_ms,
+            "profile_top_device_ms": top,
+            "finite_logits": bool(torch.isfinite(logits).all())}
+
+
+def logits_last_timing(params, cfg, reps=20):
+    """`layers.logits_last` at the model's vocabulary (B = 2) against the
+    parent's form, the whole table widened to float32 (`h.float() @
+    table.float().T`), on one input: ms of each (CUDA events) and their
+    largest gap over the logits' scale."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+
+    table = M.unembed_table(params, cfg)
+    h = torch.randn(2, cfg.d_model, generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda").to(table.dtype)
+    new = layers.logits_last(h, table)
+    widened = h.float() @ table.float().T
+    out = {"vocab": table.shape[0], "ms": cuda_ms(lambda: layers.logits_last(h, table), reps),
+           "widened_table_ms": cuda_ms(lambda: h.float() @ table.float().T, reps),
+           "rel": _rel(new, widened)}
+    del widened
+    return out
+
+
+def consistency(params, cfg, prompts, ring):
+    """Prefill/decode consistency of one model in its weights' type: two
+    steps after each of `prompts` tokens ({str(n): rels}), and with `ring` 12
+    after the 4102-token prompt (the local rings past the window) beside
+    their faulty unrolled twin."""
+    from repro_torch.models import model as M
+
+    out = {"prefill_decode_rel": {
+        str(n): prefill_decode_rels(params, cfg, _rand_tokens(
+            cfg, n + CONSISTENCY_STEPS, SERVE["seed"] + 2), n)[0] for n in prompts}}
+    if ring:
+        rings = [k for k in M._cache_desc(cfg, 1, 8)
+                 if "local" in k or cfg.attn_pattern == "local"]
+        ring_rels, faulty = prefill_decode_rels(
+            params, cfg, _rand_tokens(cfg, RING_PROMPT + RING_STEPS, SERVE["seed"] + 1),
+            RING_PROMPT, unroll=rings)
+        out.update(ring_prefill_decode_rel_by_step=ring_rels,
+                   ring_prefill_decode_rel_unrolled_by_step=faulty)
+    return out
+
+
+def last_logits(params, cfg, toks, positions):
+    """One causal forward over `toks`: the logits at each of `positions`."""
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+
+    h, _ = M.forward_hidden(params, cfg, {"tokens": toks})
+    table = M.unembed_table(params, cfg)
+    return [layers.logits_last(h[:, p], table, cfg.final_softcap) for p in positions]
+
+
+def bf16_precision(params, cfg):
+    """Where the bf16 prefill/decode gap comes from, for a model gated in
+    float32: the same 512-token steps with decode_attn's plain version in
+    the kernel's place (`bf16_plain`), and the gap of the same config cut
+    to `PRECISION_DEPTHS` layers (its own seed-0 weights; `by_depth`)."""
+    import torch
+
+    from repro_torch.kernels.decode_attn import ops as da_ops
+    from repro_torch.models import model as M
+
+    toks = _rand_tokens(cfg, CONSISTENCY_PROMPT + CONSISTENCY_STEPS, SERVE["seed"] + 2)
+    real = da_ops.decode_attention
+    da_ops.decode_attention = da_ops.decode_attention_plain
+    try:
+        out = {"bf16_plain": prefill_decode_rels(params, cfg, toks, CONSISTENCY_PROMPT)[0]}
+    finally:
+        da_ops.decode_attention = real
+    out["by_depth"] = {}
+    for n in PRECISION_DEPTHS:
+        cut = dataclasses.replace(cfg, num_layers=n)
+        p = M.init_model(cut, seed=SERVE["seed"], device="cuda")
+        out["by_depth"][str(n)] = prefill_decode_rels(p, cut, toks, CONSISTENCY_PROMPT)[0]
+        del p
+        free_cuda()
+    torch.cuda.synchronize()
+    return out
+
+
+def widen_(tree):
+    """Every weight of a parameter tree widened to float32, leaf by leaf in
+    place (the bf16 leaf is freed as its float32 copy lands)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            widen_(v)
+        else:
+            tree[k] = v.float()
+
+
+def serve_arch(name, spec, max_new, *, prompts=(CONSISTENCY_PROMPT,), ring=False,
+               profile_it=False):
+    """One dense or ssm arch at its published widths (weights from seed 0)
+    through `engine_run`, then prefill/decode consistency in bf16
+    (`consistency`), with `profile_it` where the time goes. The gemma2
+    family's consistency is gated in float32 too (`FLOAT32_CONSISTENCY`):
+    after the bf16 work (and `bf16_precision`) the weights are widened and
+    it runs again, and the bf16 forward's logits are held against the
+    float32 forward's (`bf16_vs_float32`). Returns the run with its gates'
+    failures (`failed`); frees the model first."""
     import torch
 
     from repro_torch import configs
     from repro_torch.models import model as M
+    from repro_torch.models import params as plib
 
-    cfg = dataclasses.replace(configs.get("zamba2-2.7b"), num_layers=6)
-    params = M.init_model(cfg, seed=1, device="cuda")
+    cfg = configs.get(name)
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, seed=SERVE["seed"], device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    requests = _serve_requests(cfg.vocab_size, spec, max_new)
+    results, run = engine_run(cfg, params, requests)
+    if cfg.arch_type == "ssm":  # one general chunk_scan a layer a prefill wave
+        expected = {"chunk_scan": cfg.num_layers * len(run["waves"]), "decode_attn": 0}
+    else:  # one decode_attn a layer a decode step
+        expected = {"chunk_scan": 0, "decode_attn": cfg.num_layers * run["decode_steps"]}
+    out = {"arch": name, "params": plib.count_params(params),
+           "param_bytes": plib.tree_bytes(params), "init_s": round(init_s, 3),
+           "requests": len(requests), **run, "launches_expected": expected,
+           "decode_attn_calls_per_step": run["launches"]["decode_attn"] / run["decode_steps"]}
+    with torch.inference_mode():
+        out["bfloat16"] = consistency(params, cfg, prompts, ring)
+        if profile_it:
+            out["profile"] = profile_serving(params, cfg, requests[0].prompt)
+            out["logits_last"] = logits_last_timing(params, cfg)
+        out["limits"] = {"bfloat16": BF16_LIMIT.get(name, 0.02)}
+        if name in FLOAT32_CONSISTENCY:
+            out.update(bf16_precision(params, cfg))
+            toks = _rand_tokens(cfg, CONSISTENCY_PROMPT + CONSISTENCY_STEPS, SERVE["seed"] + 2)
+            positions = range(CONSISTENCY_PROMPT, CONSISTENCY_PROMPT + CONSISTENCY_STEPS)
+            narrow = last_logits(params, cfg, toks, positions)
+            widen_(params)
+            free_cuda()
+            out["float32"] = consistency(params, cfg, prompts, ring)
+            out["bf16_vs_float32"] = [_rel(a, b) for a, b in
+                                      zip(narrow, last_logits(params, cfg, toks, positions))]
+            out["limits"]["float32"] = FLOAT32_LIMIT
+            del narrow
+    del params, results
+    free_cuda()
+    gates = []
+    for dtype, limit in out["limits"].items():
+        rels = [x for v in out[dtype]["prefill_decode_rel"].values() for x in v]
+        rels += out[dtype].get("ring_prefill_decode_rel_by_step", [])
+        gates.append((max(rels) >= limit,
+                      f"prefill/decode rel in {dtype} {rels} (limit {limit})"))
+    if ring:  # the unrolled tail must fail the strictest gate at every step
+        dtype, limit = min(out["limits"].items(), key=lambda kv: kv[1])
+        faulty = out[dtype]["ring_prefill_decode_rel_unrolled_by_step"]
+        gates.append((min(faulty) < limit, f"the unrolled tail read {faulty} in {dtype}, "
+                      f"must read past {limit} at every step"))
+    filed = sum(row["calls"] for row in run["by_shape"]["chunk_scan"])
+    out["failed"] = [msg for bad, msg in (
+        (run["launches"] != expected, f"launches {run['launches']}, expected {expected}"),
+        (filed != run["launches"]["chunk_scan"],
+         f"chunk_scan launched {run['launches']['chunk_scan']}, filed {filed}"),
+        *gates,
+        (not out.get("profile", {}).get("finite_logits", True), "logits not finite"),
+    ) if bad]
+    return out
+
+
+def phase_dense_serve():
+    """The dense family at published widths: `qwen2-7b` and `gemma2-9b` on the
+    zamba2 mix (gemma2 also past its window), `gemma-7b`, `gemma2-9b-sw` and
+    `phi3-medium-14b` one 512-token request each. Gates (`serve_arch`):
+    decode_attn called num_layers times a decode step, no chunk_scan
+    launch, finite logits, prefill/decode within 2% (past gemma2's window
+    too, where the unrolled tail must read past it)."""
+    t0 = time.perf_counter()
+    runs = [serve_arch(name, SERVE_MIX, SERVE["max_new"], ring=name == "gemma2-9b",
+                       profile_it=True) for name in DENSE_MIX]
+    runs += [serve_arch(name, ONE_REQUEST, ONE_NEW) for name in DENSE_ONE]
+    out = {"phase": "dense_serve", "runs": runs, "phase_s": time.perf_counter() - t0}
+    emit(out)
+    failed = [f"{r['arch']}: {msg}" for r in runs for msg in r["failed"]]
+    if failed:
+        raise SystemExit("dense_serve: " + "; ".join(failed))
+    return out
+
+
+def phase_rwkv_serve():
+    """`rwkv6-1.6b` at published widths on the zamba2 mix: 24 general-entry
+    chunk_scan launches (rwkv6 mode, chunk 32) a prefill wave, no
+    decode_attn, prefill/decode within 2% after 512 and 4096 tokens, and
+    where the time goes."""
+    t0 = time.perf_counter()
+    run = serve_arch("rwkv6-1.6b", SERVE_MIX, SERVE["max_new"],
+                     prompts=(CONSISTENCY_PROMPT, 4096), profile_it=True)
+    out = {"phase": "rwkv_serve", **run, "phase_s": time.perf_counter() - t0}
+    emit(out)
+    if run["failed"]:
+        raise SystemExit("rwkv_serve: " + "; ".join(run["failed"]))
+    return out
+
+
+def card_vs_cpu(cfg, seed, prompt=16, steps=2):
+    """The card (the kernels) against the port on the CPU (their plain
+    versions) on one model drawn on the card from `seed` and copied: prefill
+    logits and `steps` teacher-forced decode steps (rel each), and the
+    largest cache gap after them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+
+    params = M.init_model(cfg, seed=seed, device="cuda")
     cpu = {}
 
     def to_cpu(tree, out):
@@ -3638,31 +4118,76 @@ def phase_hybrid_parity():
                 out[k] = v.cpu()
 
     to_cpu(params, cpu)
-    toks = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 18)),
+    toks = torch.tensor(np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                             (1, prompt + steps)),
                         dtype=torch.int32)
     prev = torch.get_num_threads()
     torch.set_num_threads(8)
     try:
         with torch.inference_mode():
-            cache, lg = M.prefill(params, cfg, {"tokens": toks[:, :16].cuda()}, 64)
+            cache, lg = M.prefill(params, cfg, {"tokens": toks[:, :prompt].cuda()}, 64)
             t0 = time.perf_counter()
-            cache_c, lg_c = M.prefill(cpu, cfg, {"tokens": toks[:, :16]}, 64)
+            cache_c, lg_c = M.prefill(cpu, cfg, {"tokens": toks[:, :prompt]}, 64)
             rels = [_rel(lg.cpu(), lg_c)]
-            for i in range(2):
-                cache, lg = M.decode_step(params, cfg, cache, toks[:, 16 + i].cuda(), 16 + i)
-                cache_c, lg_c = M.decode_step(cpu, cfg, cache_c, toks[:, 16 + i], 16 + i)
+            for i in range(steps):
+                pos = prompt + i
+                cache, lg = M.decode_step(params, cfg, cache, toks[:, pos].cuda(), pos)
+                cache_c, lg_c = M.decode_step(cpu, cfg, cache_c, toks[:, pos], pos)
                 rels.append(_rel(lg.cpu(), lg_c))
             cpu_s = time.perf_counter() - t0
-            state_rel = _rel(cache["S"].cpu(), cache_c["S"])
+            cache_rel = {k: _rel(cache[k].cpu(), cache_c[k]) for k in cache}
     finally:
         torch.set_num_threads(prev)
-    out = {"phase": "hybrid_parity", "layers": cfg.num_layers, "d_model": cfg.d_model,
-           "prompt": 16, "logits_rel": rels, "state_rel": state_rel,
-           "cpu_side_s": round(cpu_s, 3), "limit": 0.04}
+    del params, cpu, cache
+    free_cuda()
+    return {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "prompt": prompt, "logits_rel": rels, "cache_rel": cache_rel,
+            "cpu_side_s": round(cpu_s, 3)}
+
+
+def _parity_phase(phase, names, layers=2, seed=1):
+    """`card_vs_cpu` for each arch at its published widths cut to `layers`
+    layers (two: one local/global pair for gemma2), limit 0.04 on logits
+    and caches."""
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    runs = [card_vs_cpu(dataclasses.replace(configs.get(n), num_layers=layers), seed)
+            for n in names]
+    out = {"phase": phase, "runs": runs, "limit": 0.04, "phase_s": time.perf_counter() - t0}
     emit(out)
-    if max(rels) >= 0.04 or state_rel >= 0.04:
-        raise SystemExit(f"hybrid_parity: card vs CPU logits rel {rels}, state {state_rel}")
+    bad = [(r["arch"], r["logits_rel"], r["cache_rel"]) for r in runs
+           if max(r["logits_rel"]) >= 0.04 or max(r["cache_rel"].values()) >= 0.04]
+    if bad:
+        raise SystemExit(f"{phase}: card vs CPU past 0.04: {bad}")
     return out
+
+
+def phase_dense_parity():
+    return _parity_phase("dense_parity", DENSE_MIX + DENSE_ONE)
+
+
+def phase_rwkv_parity():
+    return _parity_phase("rwkv_parity", ("rwkv6-1.6b",))
+
+
+def served_rows(runs, name, timings):
+    """The kernels line's by-shape rows of a served kernel: one a (arch,
+    shape) a serving run called it at, with its calls there and the
+    positions they spanned, and the kernel phase's time, plain time, bound
+    and library time at that shape (which must have been checked there)."""
+    rows = []
+    for arch, run in runs:
+        for row in run["by_shape"][name]:
+            timing = timings.get(tuple(row["key"]))
+            if timing is None:
+                raise SystemExit(f"{name}: {arch} called it at {row['key']}, a shape the "
+                                 f"kernel phase did not check")
+            rows.append({"arch": arch, "key": row["key"], "launches": row["calls"],
+                         "positions": row["positions"],
+                         **{key: timing[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "library_ms")}})
+    return rows
 
 
 def main() -> int:
@@ -3673,6 +4198,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     phase_setup()
     kern = phase_kernels()
     alias_kern = phase_alias_kernel()
@@ -3717,6 +4243,11 @@ def main() -> int:
     mesh = phase_mesh(scale["perplexity"])
     serve = phase_hybrid_serve()
     phase_hybrid_parity()
+    dense = phase_dense_serve()
+    rwkv = phase_rwkv_serve()
+    phase_dense_parity()
+    phase_rwkv_parity()
+    scan_general = scan_kern["served"][(2, 4096, 32, 64, 64, 32, "rwkv6")]
     t = scale["kernel"]
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"],
             *(r[key]["max_abs_err"] for r in offload.values()
@@ -3831,6 +4362,7 @@ def main() -> int:
                                                  "bound_by")}}
                      for _, p, n in quant_counted]
     q, pk = packed["kernel"]["int8"], packed["pack_kernel"]["int8"]
+    emit({"phase": "total", "script_s": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "lda_gibbs.resample",
         "route": "cuda",
@@ -3919,29 +4451,41 @@ def main() -> int:
         "library_ms": None,
         "shape": pk["shape"],
         "by_shape": pack_by_shape,
-    }] + [{
-        "name": name,
+    }, {
+        # The Mamba2 entry: the served zamba2 prefill runs it.
+        "name": "chunk_scan",
         "route": "cuda",
-        "source": f"src/repro_torch/kernels/{name}/csrc/{source}.cu",
-        "replaces": replaces,
-        "launches": serve["launches"][name],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-        "shape": t["shape"],
-        **extra,
-    } for name, source, replaces, kern, t, extra in (
-        # The served prefill runs the Mamba2 entry; the general entry (rwkv6
-        # mode, no served path yet) is timed beside it.
-        ("chunk_scan", "chunk_scan_mamba2", "src/repro/kernels/chunk_scan/kernel.py:105",
-         scan_kern, scan_kern["kernel_mamba2"],
-         {"general_entry": {key: scan_kern["kernel"][key] for key in
-                            ("ms", "plain_ms", "bound_ms", "bound_by", "shape")}}),
-        ("decode_attn", "decode_attn", "src/repro/kernels/decode_attn/kernel.py:99", attn_kern,
-         attn_kern["kernel"], {}))]})
+        "source": "src/repro_torch/kernels/chunk_scan/csrc/chunk_scan_mamba2.cu",
+        "replaces": "src/repro/kernels/chunk_scan/kernel.py:105",
+        "launches": serve["launches"]["chunk_scan"],
+        "max_abs_err": scan_kern["max_abs_err"],
+        **{key: scan_kern["kernel_mamba2"][key] for key in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+    }, {
+        # The general entry: rwkv6-1.6b's served prefill runs it (rwkv6 mode).
+        "name": "chunk_scan.general",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/chunk_scan/csrc/chunk_scan.cu",
+        "replaces": "src/repro/kernels/chunk_scan/kernel.py:105",
+        "launches": rwkv["launches"]["chunk_scan"],
+        "max_abs_err": scan_kern["max_abs_err"],
+        **{key: scan_general[key] for key in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "by_shape": served_rows([("rwkv6-1.6b", rwkv)], "chunk_scan", scan_kern["served"]),
+    }, {
+        "name": "decode_attn",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
+        "replaces": "src/repro/kernels/decode_attn/kernel.py:99",
+        "launches": serve["launches"]["decode_attn"]
+        + sum(r["launches"]["decode_attn"] for r in dense["runs"]),
+        "max_abs_err": attn_kern["max_abs_err"],
+        **{key: attn_kern["kernel"][key] for key in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "by_shape": served_rows([("zamba2-2.7b", serve)]
+                                + [(r["arch"], r) for r in dense["runs"]],
+                                "decode_attn", attn_kern["served_by_key"]),
+    }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -3,10 +3,12 @@
 The reference's `repro.launch.serve` on the port, with its flags. Weights
 are drawn from `--seed` at the config's widths (`--full`: the published
 ones; otherwise the reduced smoke-test variant); it runs on CUDA unless
-`--device cpu` is given. Only the hybrid family is ported:
+`--device cpu` is given. Ported archs: the dense family (`qwen2-7b`,
+`gemma-7b`, `gemma2-9b`, `gemma2-9b-sw`, `phi3-medium-14b`), the ssm family
+(`rwkv6-1.6b`) and the hybrid family (`zamba2-2.7b`):
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --full \\
       --requests 4 --prompt-len 512 --max-new 32 --cache-len 8192 --max-batch 2
 """
 

@@ -63,10 +63,23 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool) -> torch.Tenso
     return x
 
 
+#: Vocabulary rows `logits_last` widens to float32 at a time off the card.
+LOGITS_CHUNK = 8192
+
+
 def logits_last(h_last: torch.Tensor, table: torch.Tensor,
                 final_cap: float = 0.0) -> torch.Tensor:
-    """Full logits for the last position only (decode). h_last: (B, d).
-    bf16 products are exact in float32, so the upcast matmul is the
-    reference's bf16 x bf16 -> f32 contraction."""
-    logits = h_last.float() @ table.float().T
+    """Full logits for the last position only (decode). h_last: (B, d);
+    table (V, d). The reference's bf16 x bf16 -> f32 contraction: on a CUDA
+    tensor one GEMM that reads the table in its own type and writes float32
+    (`torch.mm(..., out_dtype=torch.float32)`, float32 accumulation);
+    elsewhere the table is widened to float32 `LOGITS_CHUNK` rows at a time
+    (bf16 products are exact in float32), never whole: at a 256,000 x 3,584
+    vocabulary the whole table in float32 is 3.7 GB."""
+    if table.device.type == "cuda" and table.dtype != torch.float32:
+        logits = torch.mm(h_last.to(table.dtype), table.T, out_dtype=torch.float32)
+    else:
+        hf = h_last.float()
+        logits = torch.cat([hf @ table[i:i + LOGITS_CHUNK].float().T
+                            for i in range(0, table.shape[0], LOGITS_CHUNK)], dim=-1)
     return softcap(logits, final_cap)

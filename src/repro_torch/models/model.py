@@ -1,14 +1,27 @@
-"""Model assembly for the hybrid (Zamba2) family: schema, prefill, decode.
+"""Model assembly for the dense, ssm and hybrid families: schema, prefill, decode.
 
-The reference's `repro.models.model` in PyTorch, for ``arch_type ==
-"hybrid"``: groups of Mamba2 layers with one weight-shared attention block
-applied before each group. Parameter and cache trees keep the reference's
-keys and stacked leading dims, so the two packages compare like with like:
+The reference's `repro.models.model` in PyTorch for three arch families:
 
-  params  embed (V, D), ln_f (D,), shared {ln_attn, attn {wq, wk, wv, wo},
-          ln_mlp, mlp {gate, up, down}}, blk {...} stacked (groups, per, ...)
-  cache   S (groups, per, B, H, ns, hd) f32, conv (groups, per, B, W-1, C)
-          bf16, ak / av (groups, B, window, Hkv, hd) bf16 ring caches
+  dense   decoder blocks (`qwen2-7b`, `gemma-7b`, `phi3-medium-14b`), every
+          layer windowed (`gemma2-9b-sw`, attn_pattern "local") or local and
+          global layers in pairs (`gemma2-9b`, "local_global")
+  ssm     RWKV6 blocks (`rwkv6-1.6b`): time mix + channel mix
+  hybrid  groups of Mamba2 layers with one weight-shared attention block
+          applied before each group (`zamba2-2.7b`)
+
+Parameter and cache trees keep the reference's keys and stacked leading
+dims, so the two packages compare like with like:
+
+  params  embed (V, D), ln_f (D,), head (V, D) when untied, and
+          dense   blk {...} (L, ...), or local / global {...} (L/2, ...)
+          ssm     ln0 (D,), blk {ln1, ln2, att {...}, ffn {...}} (L, ...)
+          hybrid  shared {ln_attn, attn, ln_mlp, mlp}, blk {...} (groups, per, ...)
+  cache   dense   k / v (L, B, S, Hkv, hd) bf16 (S the window's ring when
+                  "local"), or k_local / v_local (L/2, B, window, ...) rings
+                  and k_global / v_global (L/2, B, cache_len, ...)
+          ssm     S (L, B, H, dk, dk) f32, ax / fx (L, B, 1, D) bf16
+          hybrid  S (groups, per, B, H, ns, hd) f32, conv (groups, per, B,
+                  W-1, C) bf16, ak / av (groups, B, window, Hkv, hd) bf16 rings
 
   build_schema(cfg)                          parameter declarations
   init_model(cfg, seed=, device=)            real params on a device
@@ -16,13 +29,16 @@ keys and stacked leading dims, so the two packages compare like with like:
   decode_step(params, cfg, cache, tokens, pos) -> (cache, logits)
   init_cache(cfg, b, cache_len, device=)     zero decode state
 
-`lax.scan` over layers becomes a Python loop. Prefill runs every Mamba2
-layer's scan through the chunk_scan kernel's wrapper and every decode step
-the shared block's attention through the decode_attn kernel's wrapper
-(Hopper kernels on CUDA tensors, their plain versions on the CPU). The
-mesh's `constrain` has no counterpart on one card. Other arch families,
-and training (`forward_loss`, `unembed_chunked`), wait (ROADMAP.md queue 1,
-item 13).
+Activations and caches take the weights' type: bf16 as the reference's
+(`init_model`); a float32 copy of the weights runs the same path in float32
+(the kernels take both), with float32 recurrent states either way.
+`lax.scan` over layers becomes a Python loop. Prefill runs every RWKV6
+and Mamba2 layer's scan through the chunk_scan kernel's wrappers, and
+every decode step every attention layer (dense) or the shared block
+(hybrid) through the decode_attn kernel's wrapper (Hopper kernels on CUDA
+tensors, their plain versions on the CPU). The mesh's `constrain` has no
+counterpart on one card. The moe, vlm and audio families, and training
+(`forward_loss`, `unembed_chunked`), wait (ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -39,12 +55,15 @@ from repro_torch.models.attention import flash_attention
 from repro_torch.models.layers import embed, logits_last, mlp, rms_norm, rope
 from repro_torch.models.params import PDef
 
-ACT_DTYPE = torch.bfloat16
+ACT_DTYPE = torch.bfloat16  # the weights' type, and so the activations' and caches'
 _NOT_PORTED = "is not ported to repro_torch yet (ROADMAP.md queue 1, item 13)"
 
 
-def _require_hybrid(cfg: ArchConfig) -> None:
-    if cfg.arch_type != "hybrid":
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.arch_type not in PORTED_FAMILIES:
         raise NotImplementedError(f"arch_type {cfg.arch_type!r} ({cfg.name}) {_NOT_PORTED}")
 
 
@@ -104,6 +123,37 @@ def _block_schema(cfg: ArchConfig) -> dict:
     return s
 
 
+def _rwkv_block_schema(cfg: ArchConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    h, dk = cfg.ssm_heads, cfg.ssm_head_dim
+    lora = max(32, d // 32)
+    att = {
+        "w_r": PDef((d, h * dk), ("embed", "qkv")),
+        "w_k": PDef((d, h * dk), ("embed", "qkv")),
+        "w_v": PDef((d, h * dk), ("embed", "qkv")),
+        "w_g": PDef((d, h * dk), ("embed", "qkv")),
+        "w_o": PDef((h * dk, d), ("qkv", "embed")),
+        "w0": PDef((h * dk,), ("qkv",), init="decay", dtype="float32"),
+        "w_lora_a": PDef((d, lora), ("embed", None)),
+        "w_lora_b": PDef((lora, h * dk), (None, "qkv"), init="small_normal"),
+        "u": PDef((h, dk), (None, None), init="small_normal", dtype="float32"),
+        "ln_x": PDef((h * dk,), ("qkv",), init="zeros"),
+    }
+    for m in ("r", "k", "v", "g", "w"):
+        att[f"mu_{m}"] = PDef((d,), ("embed",), init="small_normal")
+    ffn = {
+        "mu_ck": PDef((d,), ("embed",), init="small_normal"),
+        "up": PDef((d, f), ("embed", "ff")),
+        "down": PDef((f, d), ("ff", "embed")),
+    }
+    return {
+        "ln1": PDef((d,), ("embed",), init="zeros"),
+        "ln2": PDef((d,), ("embed",), init="zeros"),
+        "att": att,
+        "ffn": ffn,
+    }
+
+
 def _mamba_block_schema(cfg: ArchConfig) -> dict:
     d = cfg.d_model
     h, hd, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -129,7 +179,7 @@ def _hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
 
 
 def build_schema(cfg: ArchConfig) -> dict:
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     s: dict = {
         "embed": PDef((v, d), ("vocab", "embed")),
@@ -137,9 +187,20 @@ def build_schema(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         s["head"] = PDef((v, d), ("vocab", "embed"))
-    groups, per = _hybrid_groups(cfg)
-    s["blk"] = _stack(_stack(_mamba_block_schema(cfg), per), groups)
-    s["shared"] = _block_schema(cfg)  # ONE weight-shared attention block
+    if cfg.arch_type == "dense":
+        if cfg.attn_pattern == "local_global":
+            half = cfg.num_layers // 2
+            s["local"] = _stack(_block_schema(cfg), half)
+            s["global"] = _stack(_block_schema(cfg), half)
+        else:
+            s["blk"] = _stack(_block_schema(cfg), cfg.num_layers)
+    elif cfg.arch_type == "ssm":
+        s["ln0"] = PDef((d,), ("embed",), init="zeros")
+        s["blk"] = _stack(_rwkv_block_schema(cfg), cfg.num_layers)
+    else:
+        groups, per = _hybrid_groups(cfg)
+        s["blk"] = _stack(_stack(_mamba_block_schema(cfg), per), groups)
+        s["shared"] = _block_schema(cfg)  # ONE weight-shared attention block
     return s
 
 
@@ -238,7 +299,60 @@ def _block_decode(p, x, cfg: ArchConfig, ck, cv, pos: int, *, window=0, ring=Fal
 
 
 def _embed_in(params, cfg: ArchConfig, tokens):
-    return embed(tokens, params["embed"], cfg.embed_scale).to(ACT_DTYPE)
+    return embed(tokens, params["embed"], cfg.embed_scale).to(params["embed"].dtype)
+
+
+def _local_window(cfg: ArchConfig) -> int:
+    """The window of a dense stack's layers ("local": every layer) or of
+    the local half of each pair ("local_global"); 0 is full attention."""
+    return cfg.sliding_window if cfg.attn_pattern in ("local", "local_global") else 0
+
+
+def _forward_dense(params, cfg, tokens, *, collect_kv=False):
+    """dense family (gemma2's local/global pairs included). Returns (hidden,
+    [(k, v) a layer] or, for pairs, ([(k, v) local], [(k, v) global]), or
+    None)."""
+    b, s = tokens.shape
+    x = _embed_in(params, cfg, tokens)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    window = _local_window(cfg)
+    if cfg.attn_pattern == "local_global":
+        kv_local, kv_global = [], []
+        for i in range(cfg.num_layers // 2):
+            x, kv = _block_full(_layer(params["local"], i), x, cfg, positions=positions,
+                                window=window)
+            kv_local.append(kv)
+            x, kv = _block_full(_layer(params["global"], i), x, cfg, positions=positions)
+            kv_global.append(kv)
+        kvs = (kv_local, kv_global)
+    else:
+        kvs = []
+        for i in range(cfg.num_layers):
+            x, kv = _block_full(_layer(params["blk"], i), x, cfg, positions=positions,
+                                window=window)
+            kvs.append(kv)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x, (kvs if collect_kv else None)
+
+
+def _forward_rwkv(params, cfg, tokens, *, collect_state=False):
+    """ssm family (RWKV6). Returns (hidden, [(S, ax_last, fx_last) a layer]
+    or None)."""
+    b, s = tokens.shape
+    x = rms_norm(_embed_in(params, cfg, tokens), params["ln0"], cfg.norm_eps)
+    zero_prev = torch.zeros(b, 1, cfg.d_model, dtype=x.dtype, device=x.device)
+    states = []
+    for i in range(cfg.num_layers):
+        p = _layer(params["blk"], i)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, (ax_last, S) = ssm.rwkv6_time_mix(p["att"], h, zero_prev, None, cfg)
+        x = x + y
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y, fx_last = ssm.rwkv6_channel_mix(p["ffn"], h, zero_prev)
+        x = x + y
+        states.append((S, ax_last, fx_last))
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x, (states if collect_state else None)
 
 
 def _forward_hybrid(params, cfg, tokens, *, collect_state=False):
@@ -266,8 +380,12 @@ def _forward_hybrid(params, cfg, tokens, *, collect_state=False):
 
 
 def forward_hidden(params, cfg: ArchConfig, batch, *, collect=False):
-    """The family forward (hybrid only). Returns (hidden, caches-raw)."""
-    _require_hybrid(cfg)
+    """Dispatch to the family forward. Returns (hidden, caches-raw)."""
+    _require_ported(cfg)
+    if cfg.arch_type == "dense":
+        return _forward_dense(params, cfg, batch["tokens"], collect_kv=collect)
+    if cfg.arch_type == "ssm":
+        return _forward_rwkv(params, cfg, batch["tokens"], collect_state=collect)
     return _forward_hybrid(params, cfg, batch["tokens"], collect_state=collect)
 
 
@@ -284,19 +402,36 @@ def _window(cfg: ArchConfig, cache_len: int) -> int:
     return min(cfg.sliding_window, cache_len) if cfg.sliding_window else cache_len
 
 
-def _cache_desc(cfg: ArchConfig, b: int, cache_len: int) -> dict:
-    """name -> (shape, dtype) for the decode state."""
-    _require_hybrid(cfg)
+def _cache_desc(cfg: ArchConfig, b: int, cache_len: int, dtype=ACT_DTYPE) -> dict:
+    """name -> (shape, dtype) for the decode state: `dtype` is the
+    activations' (the weights') type; recurrent states are float32."""
+    _require_ported(cfg)
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     w = _window(cfg, cache_len)
+
+    def kv(nl, s):
+        return ((nl, b, s, hkv, hd), dtype)
+
+    if cfg.arch_type == "dense":
+        if cfg.attn_pattern == "local_global":
+            half = cfg.num_layers // 2
+            return {"k_local": kv(half, w), "v_local": kv(half, w),
+                    "k_global": kv(half, cache_len), "v_global": kv(half, cache_len)}
+        s = w if cfg.attn_pattern == "local" else cache_len
+        return {"k": kv(cfg.num_layers, s), "v": kv(cfg.num_layers, s)}
+    if cfg.arch_type == "ssm":
+        h, dk = cfg.ssm_heads, cfg.ssm_head_dim
+        nl, d = cfg.num_layers, cfg.d_model
+        return {"S": ((nl, b, h, dk, dk), torch.float32),
+                "ax": ((nl, b, 1, d), dtype), "fx": ((nl, b, 1, d), dtype)}
     g, per = _hybrid_groups(cfg)
     h, hd_s, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     cdim = h * hd_s + 2 * ns
     return {
         "S": ((g, per, b, h, ns, hd_s), torch.float32),
-        "conv": ((g, per, b, cfg.conv_width - 1, cdim), ACT_DTYPE),
-        "ak": ((g, b, w, hkv, hd), ACT_DTYPE),
-        "av": ((g, b, w, hkv, hd), ACT_DTYPE),
+        "conv": ((g, per, b, cfg.conv_width - 1, cdim), dtype),
+        "ak": kv(g, w),
+        "av": kv(g, w),
     }
 
 
@@ -318,8 +453,20 @@ def _ring_tail(k_full, w):
     only when S % w == 0; here it is rolled by S mod w."""
     s = k_full.shape[-3]
     if s <= w:
-        return F.pad(k_full, (0, 0, 0, 0, 0, w - s))
+        return _pad_to(k_full, w)
     return torch.roll(k_full[..., s - w:, :, :], s % w, dims=-3)
+
+
+def _pad_to(x, n):
+    """(..., S, H, hd) zero-padded to n positions (a full cache)."""
+    return F.pad(x, (0, 0, 0, 0, 0, n - x.shape[-3]))
+
+
+def _stack_tails(kvs, n, ring):
+    """k and v of each layer, ring tails (`ring`) or padded to n, stacked
+    over layers: (k (L, B, n, Hkv, hd), v)."""
+    fit = (lambda t: _ring_tail(t, n)) if ring else (lambda t: _pad_to(t, n))
+    return tuple(torch.stack([fit(kv[j]) for kv in kvs]) for j in (0, 1))
 
 
 def prefill(params, cfg: ArchConfig, batch, cache_len: int):
@@ -331,13 +478,26 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int):
     h, raw = forward_hidden(params, cfg, batch, collect=True)
     logits = logits_last(h[:, -1], unembed_table(params, cfg), cfg.final_softcap)
     w = _window(cfg, cache_len)
-    desc = _cache_desc(cfg, b, cache_len)
-    cache = {
-        "S": torch.stack([torch.stack([st[0] for st in sts]) for _, sts in raw]),
-        "conv": torch.stack([torch.stack([st[1] for st in sts]) for _, sts in raw]),
-        "ak": torch.stack([_ring_tail(kv[0], w) for kv, _ in raw]),
-        "av": torch.stack([_ring_tail(kv[1], w) for kv, _ in raw]),
-    }
+    desc = _cache_desc(cfg, b, cache_len, params["embed"].dtype)
+    if cfg.arch_type == "dense":
+        if cfg.attn_pattern == "local_global":
+            kl, vl = _stack_tails(raw[0], w, ring=True)
+            kg, vg = _stack_tails(raw[1], cache_len, ring=False)
+            cache = {"k_local": kl, "v_local": vl, "k_global": kg, "v_global": vg}
+        elif cfg.attn_pattern == "local":
+            cache = dict(zip(("k", "v"), _stack_tails(raw, w, ring=True)))
+        else:
+            cache = dict(zip(("k", "v"), _stack_tails(raw, cache_len, ring=False)))
+    elif cfg.arch_type == "ssm":
+        cache = {name: torch.stack([st[j] for st in raw])
+                 for j, name in enumerate(("S", "ax", "fx"))}
+    else:
+        cache = {
+            "S": torch.stack([torch.stack([st[0] for st in sts]) for _, sts in raw]),
+            "conv": torch.stack([torch.stack([st[1] for st in sts]) for _, sts in raw]),
+            "ak": torch.stack([_ring_tail(kv[0], w) for kv, _ in raw]),
+            "av": torch.stack([_ring_tail(kv[1], w) for kv, _ in raw]),
+        }
     cache = {k: v.to(desc[k][1]).contiguous() for k, v in cache.items()}
     return cache, logits
 
@@ -350,8 +510,58 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int):
 def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int):
     """One serving step: tokens (B,) at host position `pos` -> (cache,
     logits). The cache's tensors are updated in place and returned."""
-    _require_hybrid(cfg)
-    x = embed(tokens[:, None], params["embed"], cfg.embed_scale).to(ACT_DTYPE)
+    _require_ported(cfg)
+    x = embed(tokens[:, None], params["embed"], cfg.embed_scale).to(params["embed"].dtype)
+    if cfg.arch_type == "dense":
+        x = _decode_dense(params, cfg, cache, x, pos)
+    elif cfg.arch_type == "ssm":
+        x = _decode_rwkv(params, cfg, cache, x)
+    else:
+        x = _decode_hybrid(params, cfg, cache, x, pos)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = logits_last(x[:, 0], unembed_table(params, cfg), cfg.final_softcap)
+    return cache, logits
+
+
+def _decode_dense(params, cfg, cache, x, pos: int):
+    """Every layer's one-token attention against its cache (a ring on the
+    windowed layers), then its MLP."""
+    window = _local_window(cfg)
+    if cfg.attn_pattern == "local_global":
+        for i in range(cfg.num_layers // 2):
+            x, _, _ = _block_decode(_layer(params["local"], i), x, cfg, cache["k_local"][i],
+                                    cache["v_local"][i], pos, window=window, ring=True)
+            x, _, _ = _block_decode(_layer(params["global"], i), x, cfg,
+                                    cache["k_global"][i], cache["v_global"][i], pos)
+        return x
+    for i in range(cfg.num_layers):
+        x, _, _ = _block_decode(_layer(params["blk"], i), x, cfg, cache["k"][i],
+                                cache["v"][i], pos, window=window, ring=window > 0)
+    return x
+
+
+def _decode_rwkv(params, cfg, cache, x):
+    """Every RWKV6 layer's one-token time mix (`recurrence_step`) and
+    channel mix; the state and the shifted activations in place."""
+    x = rms_norm(x, params["ln0"], cfg.norm_eps)
+    for i in range(cfg.num_layers):
+        p = _layer(params["blk"], i)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, (ax, S) = ssm.rwkv6_time_mix_step(p["att"], h, cache["ax"][i].to(h.dtype),
+                                             cache["S"][i], cfg)
+        cache["S"][i] = S
+        cache["ax"][i] = ax
+        x = x + y
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y, fx = ssm.rwkv6_channel_mix(p["ffn"], h, cache["fx"][i].to(h.dtype))
+        cache["fx"][i] = fx
+        x = x + y
+    return x
+
+
+def _decode_hybrid(params, cfg, cache, x, pos: int):
+    """Each group: the shared block's attention over its ring, then the
+    group's Mamba2 layers one token each."""
     shared = params["shared"]
     groups, per = _hybrid_groups(cfg)
     for gi in range(groups):
@@ -363,9 +573,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int):
             y, (S1, c1) = ssm.mamba2_mix_step(p, h, cache["S"][gi, li],
                                               cache["conv"][gi, li].to(h.dtype), cfg)
             cache["S"][gi, li] = S1
-            cache["conv"][gi, li] = c1.to(ACT_DTYPE)
+            cache["conv"][gi, li] = c1
             x = x + y
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = logits_last(x[:, 0], unembed_table(params, cfg), cfg.final_softcap)
-    return cache, logits
+    return x
 

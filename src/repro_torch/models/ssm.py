@@ -1,4 +1,4 @@
-"""Linear-recurrence layers: the chunked scan and Mamba2 (SSD).
+"""Linear-recurrence layers: the chunked scan, RWKV6 and Mamba2 (SSD).
 
 The reference's `repro.models.ssm` in PyTorch. Both RWKV6 and Mamba2 are
 instances of the diagonal-decay recurrence
@@ -6,15 +6,19 @@ instances of the diagonal-decay recurrence
     S_t = diag(w_t) · S_{t-1} + k_t v_tᵀ            (S: (dk, dv) per head)
     y_t = q_t · (diag(d_t) · S_{t-1}) + (q_t · (u_t ⊙ k_t)) v_t
 
+  RWKV6 ("Finch"): d_t = 1, u_t = u (learned bonus), w_t = per-channel
+    data-dependent decay (arXiv:2404.05892).
   Mamba2 (SSD): d_t = w_t = exp(-Δt·exp(A_log)) (scalar per head,
     broadcast over dk), u_t = 1, k = B, q = C, v = Δt·x.
 
-`mamba2_mix` (prefill) runs the chunked scan through the kernel's Mamba2
-entry (`kernels/chunk_scan/ops.chunk_scan_mamba2`: the Hopper kernel on
-CUDA tensors, its plain version on the CPU); `mamba2_mix_step` (decode) takes the one
-token through `recurrence_step`, the reference's chunk-1 plain scan in a
-single update (not a kernel there either). The RWKV6 time and channel
-mixes wait for the rwkv6 family (ROADMAP.md queue 1, item 13).
+Prefill runs the chunked scan through the kernel's wrappers (the Hopper
+kernels on CUDA tensors, their plain versions on the CPU):
+`rwkv6_time_mix` through the general entry
+(`kernels/chunk_scan/ops.chunk_scan`, rwkv6 mode, chunk 32), `mamba2_mix`
+through the Mamba2 entry (`ops.chunk_scan_mamba2`). The decode steps
+(`rwkv6_time_mix_step`, `mamba2_mix_step`) take the one token through
+`recurrence_step`, the reference's chunk-1 plain scan in a single update
+(not a kernel there either).
 """
 
 from __future__ import annotations
@@ -67,6 +71,78 @@ def recurrence_step(S, w, k, v, q, u, *, include_current: bool):
             "bhd,hd,bhd,bhe->bhe", qf, u.float(), kf, vf)
         S_new = wf[..., None] * Sf + kv
     return S_new, y.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 time mix / channel mix
+# ---------------------------------------------------------------------------
+
+
+def _token_shift(x, x_prev):
+    """RWKV token shift: previous token's activation (x_prev: (B,1,D) state)."""
+    return torch.cat([x_prev, x[:, :-1]], dim=1)
+
+
+def _rwkv6_in(p, x, xs, cfg):
+    """The time mix's projections of x (B,S,D) against its shifted xs:
+    r, k, v (B,S,H,dk), the gate g (B,S,D) and the decay w (B,S,H,dk)
+    float32 in (0, 1), data-dependent through the low-rank w(x)."""
+    b, s, _ = x.shape
+    h, dk = cfg.ssm_heads, cfg.ssm_head_dim
+
+    def mix(name):
+        return x + p[f"mu_{name}"].to(x.dtype) * (xs - x)
+
+    r = (mix("r") @ p["w_r"]).reshape(b, s, h, dk)
+    k = (mix("k") @ p["w_k"]).reshape(b, s, h, dk)
+    v = (mix("v") @ p["w_v"]).reshape(b, s, h, dk)
+    g = mix("g") @ p["w_g"]
+    w_log = p["w0"].float() + (torch.tanh(mix("w") @ p["w_lora_a"]) @ p["w_lora_b"]).float()
+    w = torch.exp(-torch.exp(w_log)).reshape(b, s, h, dk)
+    return r, k, v, g, w
+
+
+def _rwkv6_out(p, y, g, cfg):
+    """Per-head group norm of the scan's y (B,S,H,dk), gate, out projection."""
+    b, s = y.shape[:2]
+    h, dk = cfg.ssm_heads, cfg.ssm_head_dim
+    y = rms_norm(y, p["ln_x"].reshape(h, dk), cfg.norm_eps)
+    y = y.reshape(b, s, h * dk) * F.silu(g)
+    return y @ p["w_o"]
+
+
+def rwkv6_time_mix(p, x, x_prev, state, cfg, *, chunk=32):
+    """RWKV6 attention replacement. x: (B,S,D). Returns (y, (x_last, S)).
+    The scan goes through the kernel's general entry in rwkv6 mode."""
+    r, k, v, g, w = _rwkv6_in(p, x, _token_shift(x, x_prev), cfg)
+    y, S = cs_ops.chunk_scan(w, k, v, r, p["u"], include_current=False, chunk=chunk,
+                             s0=state)
+    return _rwkv6_out(p, y, g, cfg), (x[:, -1:], S)
+
+
+def rwkv6_time_mix_step(p, x, x_prev, state, cfg):
+    """Single-token decode. x: (B,1,D); state (B,H,dk,dk) float32."""
+    r, k, v, g, w = _rwkv6_in(p, x, x_prev, cfg)
+    S, y = recurrence_step(state, w[:, 0], k[:, 0], v[:, 0], r[:, 0], p["u"],
+                           include_current=False)
+    return _rwkv6_out(p, y[:, None], g, cfg), (x, S)
+
+
+def rwkv6_channel_mix(p, x, x_prev):
+    """RWKV channel mix with token shift: relu(x_k W_up)² W_down.
+
+    x_prev: (B,1,D) last token of the previous segment (zeros at start).
+    Returns (out, new x_prev). Works for full sequences and decode (S=1).
+    """
+    xs = _token_shift(x, x_prev)
+    xk = x + p["mu_ck"].to(x.dtype) * (xs - x)
+    h = torch.square(F.relu(xk @ p["up"]))
+    return h @ p["down"], x[:, -1:]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
 
 
 def _causal_conv(x, conv_w, conv_state=None):

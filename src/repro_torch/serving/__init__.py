@@ -6,7 +6,7 @@
   topic_engine  `TopicEngine`: fit-and-view serving of many products over
                 the wire, a compatible wave in one `fit_batch` call
   engine        `Engine`: the transformer zoo's batched prefill + decode
-                (the hybrid family, `zamba2-2.7b`)
+                (the dense, ssm and hybrid families)
 """
 
 from repro_torch.serving.scheduler import WaveScheduler  # noqa: F401

@@ -6,9 +6,10 @@ into waves of identical (prompt length, temperature) via the shared
 rectangular cache layout and one sampling temperature; a request is
 admitted only if its prompt plus its new tokens fit the cache.
 
-Each wave runs `models.model.prefill` (every Mamba2 layer's scan through
-the chunk_scan kernel on the card) and then `decode_step` per new token
-(the shared block's attention through the decode_attn kernel). Greedy
+Each wave runs `models.model.prefill` (every RWKV6 or Mamba2 layer's scan
+through the chunk_scan kernel on the card) and then `decode_step` per new
+token (every attention layer through the decode_attn kernel), for any
+ported family: the cache is whatever `prefill` returns. Greedy
 sampling is argmax; a temperature draws from a `torch.Generator` on the
 engine's device seeded from `seed`, so sampled tokens differ from the
 reference's `jax.random.categorical` by construction (greedy ones do not).

@@ -130,3 +130,47 @@ def test_launch_serve_runs_end_to_end_on_the_cpu(capsys):
     assert len(results) == 3 and all(r.tokens.shape == (4,) for r in results)
     out = capsys.readouterr().out
     assert "zamba2-2.7b-smoke on cpu" in out and "aggregate decode throughput" in out
+
+
+@pytest.fixture(scope="module", params=["qwen2-7b", "gemma2-9b", "rwkv6-1.6b"])
+def family_model(request):
+    """A reduced dense (qwen2, gemma2's local/global pairs) or ssm (rwkv6)
+    model: the engine serves every ported family unchanged."""
+    cfg = configs.get(request.param).reduced()
+    return cfg, M.init_model(cfg, seed=0, device="cpu")
+
+
+def test_engine_serves_each_family(family_model):
+    """Greedy output equals a manual prefill + argmax decode, and a batched
+    wave equals each request served alone; the 70-token prompt plus its
+    decode steps wraps gemma2's reduced 64-slot ring."""
+    cfg, params = family_model
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, 70).astype(np.int32) for _ in range(2)]
+    eng = Engine(cfg, params, device="cpu", cache_len=96, max_batch=2)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=4))
+    res = {r.uid: r for r in eng.run()}
+    assert len({r.wave_id for r in res.values()}) == 1
+    for i, p in enumerate(prompts):
+        cache, logits = M.prefill(params, cfg, {"tokens": torch.tensor(p)[None]}, 96)
+        toks = []
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for j in range(4):
+            toks.append(int(tok[0]))
+            if j < 3:
+                cache, logits = M.decode_step(params, cfg, cache, tok, 70 + j)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+        np.testing.assert_array_equal(res[i].tokens, np.asarray(toks, np.int32))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-1.6b"])
+def test_launch_serve_runs_each_family_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    results = serve.main(["--arch", arch, "--requests", "3", "--prompt-len", "16",
+                          "--max-new", "4", "--cache-len", "64", "--max-batch", "2",
+                          "--temperature", "0.7", "--device", "cpu"])
+    assert len(results) == 3 and all(r.tokens.shape == (4,) for r in results)
+    out = capsys.readouterr().out
+    assert f"{arch}-smoke on cpu" in out and "aggregate decode throughput" in out

@@ -92,19 +92,26 @@ def test_config_matches_the_reference(reduced):
     if reduced:
         ref, cfg = ref.reduced(), cfg.reduced()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
-    assert configs.names() == ["zamba2-2.7b"]
+    assert configs.names() == ["gemma-7b", "gemma2-9b", "gemma2-9b-sw", "phi3-medium-14b",
+                               "qwen2-7b", "rwkv6-1.6b", "zamba2-2.7b"]
 
 
 def test_unported_archs_raise_and_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("qwen2-7b")
+    for name in ("whisper-base", "llama-3.2-vision-90b", "arctic-480b",
+                 "llama4-maverick-400b-a17b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            configs.get(name)
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
-    qwen = dataclasses.replace(configs.get("zamba2-2.7b"), name="q", arch_type="dense")
+    audio = dataclasses.replace(configs.get("zamba2-2.7b"), name="a", arch_type="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.build_schema(qwen)
+        M.build_schema(audio)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_cache(qwen, 1, 8, device="cpu")
+        M.init_cache(audio, 1, 8, device="cpu")
+    moe = dataclasses.replace(configs.get("qwen2-7b"), name="m", num_experts=4,
+                              experts_per_token=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.build_schema(moe)
 
 
 def _schema_rows(schema):

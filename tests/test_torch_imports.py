@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -150,3 +151,27 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(entry):
         calls[entry]()
     # Asking for the CPU explicitly is the only way onto it.
     assert calls[entry](device="cpu") is not None
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-1.6b"])
+def test_each_family_serves_on_cuda_by_default_and_on_the_cpu_when_asked(arch):
+    """The dense and ssm families' entry points (`init_model`, `Engine`,
+    `launch.serve`) resolve to CUDA unless asked, and serve on the CPU."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, Request
+
+    cfg = configs.get(arch).reduced()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            M.init_model(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--arch", arch, "--requests", "1", "--max-new", "2"])
+    params = M.init_model(cfg, device="cpu")
+    eng = Engine(cfg, params, cache_len=32, max_batch=1, device="cpu")
+    eng.submit(Request(uid=0, prompt=np.arange(8, dtype=np.int32), max_new_tokens=3))
+    assert eng.run()[0].tokens.shape == (3,)
+    results = serve.main(["--arch", arch, "--requests", "1", "--prompt-len", "8",
+                          "--max-new", "2", "--cache-len", "32", "--device", "cpu"])
+    assert results[0].tokens.shape == (2,)
