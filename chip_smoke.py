@@ -197,11 +197,13 @@ noise or draw modes (x S in {2, 4} for alias_mh), the packed-table entry in
 both noise modes over K in {12, 128, 1000} x int8/int4 x stored n_dt
 f32/`w_bits` 8 (K 12 at N 262,147 and 40,009, both of its bodies; K 128 and
 1000 at 65,536), and the pack kernel bit for bit at V 10,000; chunk_scan
-over both modes x float32/bf16 x s0 given/absent at Zamba2's prefill shape
-(B 2, S 4096, H 80, dk = dv = 64, chunk 32), RWKV6's
-(H 32, chunk 64) and its three served prefill shapes (chunk 32, B 2 x S 4096,
-2 x 512, 1 x 512: timed each, no start state), two ragged lengths and dk !=
-dv, and the Mamba2 entry (w
+(the general entry: prep + scan, two CUDA launches a call) over both modes x
+float32/bf16 x s0 given/absent at Zamba2's prefill shape (B 2, S 4096, H 80,
+dk = dv = 64, chunk 32), RWKV6's (H 32, chunk 64) and its three served
+prefill shapes (chunk 32, B 2 x S 4096, 2 x 512, 1 x 512: timed each, no
+start state, with its state slices and CUDA launches a call), B 1 x S 4096,
+two ragged lengths and dk != dv, dk 128 at chunk 64 and dk 20 with dv 40,
+and the Mamba2 entry (w
 (B, S, H), k and q (B, S, dk): the one the served prefill runs) at Zamba2's
 prefill, at B 1, at the ragged chunks 25 and 60, dk 128 at chunk 64 and rows
 that are not whole 16-byte units, each timed with both bounds (bytes,
@@ -222,7 +224,8 @@ yardstick the port never calls).
 Every kernel's `ms` is CUDA events over raw launches. The lda_gibbs
 entries and both alias_mh entries give beside it `graph_ms`, device time
 with no host gaps (launches captured in a CUDA graph, replayed between CUDA
-events), and `wrapper_ms`, CUDA events through the wrapper. The kernels
+events), and `wrapper_ms`, CUDA events through the wrapper; the general
+chunk_scan entry gives `graph_ms` through its wrapper. The kernels
 line's `lda_gibbs.resample`, `lda_gibbs.resample_quant` and
 `alias_mh.resample` entries give their launches by shape and noise or draw
 mode (`by_shape`), counted where the wrapper launches (`launches`,
@@ -281,6 +284,19 @@ def emit(obj) -> None:
 
 def run_text(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_launches(fn) -> int:
+    """CUDA kernels one call of `fn` launches, from the profiler's device
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA"))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -3128,16 +3144,42 @@ def _scan_inputs(b, s, h, dk, dv, kdtype, seed, s0=True):
     return w, k, v, q, u, st
 
 
+def _scan_a_cost(chunk, dk, include_current):
+    """(f32 operations, exps) of one chunk's A in its cheapest known form:
+    split into sub-chunks of m rows (the m that costs least), a diagonal
+    block takes one exp a masked (t, i, d) below its diagonal (a subtract,
+    the exp, a multiply and a fused add; the mamba2 diagonal, exp(0), only
+    the fused add); a block below them is (qf M) kf^T, one fused add a
+    (t, i, d), with the anchored factors qf = q exp(Lq - L[a]) and
+    kf = k exp(L[r] - L) at an exp, a subtract and a multiply a (t, d),
+    M = exp(L[a] - L[r]) at an exp and a subtract a (sub-chunk pair, d)
+    where it is not 1, and qf M at a multiply a (t, pair, d) there."""
+    def cost(m):
+        sizes = [min(m, chunk - lo) for lo in range(0, chunk, m)]
+        n = len(sizes)
+        diag = sum(z * (z - 1) // 2 for z in sizes)
+        below = sum(z * m * blk for blk, z in enumerate(sizes))
+        factor_rows = 2 * chunk - sizes[0] - sizes[-1]  # qf rows and kf rows
+        far = max(n - 1, 0) * max(n - 2, 0) // 2        # pairs with M != 1
+        qf_m = sum(z * max(blk - 1, 0) for blk, z in enumerate(sizes))
+        exps = (diag + factor_rows + far) * dk
+        ops = ((4 * diag + 2 * below + 2 * factor_rows + far + qf_m) * dk
+               + (2 * chunk * dk if include_current else 0) + exps)
+        return ops, exps
+
+    return min(cost(m) for m in range(1, chunk + 1))
+
+
 def _scan_cost(b, s, h, dk, dv, chunk, itemsize, include_current, s0):
     """(bytes, f32 operations, exps) the chunked scan needs: each input read
-    once, each output written once; per (b, h, chunk) the A entries the
-    mask keeps, the two state contractions and y's A @ v."""
+    once, each output written once; per (b, h, chunk) A in its cheapest
+    known form (`_scan_a_cost`), the two state contractions and y's A @ v."""
     moved = b * s * h * (4 * dk + itemsize * (2 * dk + 2 * dv)) + 4 * b * h * dk * dv * (1 + s0)
-    pairs = chunk * (chunk + 1) // 2 if include_current else chunk * (chunk - 1) // 2
-    per_chunk_exps = pairs * dk + 2 * chunk * dk + dk
-    per_chunk_ops = (4 * pairs * dk + (0 if include_current else 3 * chunk * dk)
+    a_ops, a_exps = _scan_a_cost(chunk, dk, include_current)
+    per_chunk_exps = a_exps + 2 * chunk * dk + dk
+    per_chunk_ops = (a_ops + (0 if include_current else 3 * chunk * dk)
                      + 2 * chunk * dk * dv * 2 + 2 * chunk * (chunk + 1) // 2 * dv
-                     + 2 * dk * dv + 3 * chunk * dk + per_chunk_exps)
+                     + 2 * dk * dv + 3 * chunk * dk + 2 * chunk * dk + dk)
     n = b * h * (s // chunk)
     return moved, n * per_chunk_ops, n * per_chunk_exps
 
@@ -3197,25 +3239,34 @@ def compare_scan(args, *, include_current, chunk):
 def scan_timing(shape, kdtype, *, include_current, chunk, reps=20, seed=0, s0=None):
     """The chunk_scan wrapper and its plain version on one call's inputs
     (with a start state unless `s0` is False; by default rwkv6 mode has
-    one): mean ms of each (CUDA events) and the bound from these inputs."""
+    one): mean ms of each (CUDA events; the wrapper also by CUDA graph) and
+    the bound from these inputs."""
     import torch
 
-    from repro_torch.kernels.chunk_scan import ops
+    from repro_torch.kernels.chunk_scan import kernel, ops
 
     s0 = not include_current if s0 is None else s0
     args = _scan_inputs(**shape, kdtype=kdtype, seed=seed, s0=s0)
     kw = dict(include_current=include_current, chunk=chunk, s0=args[5])
     u = None if include_current else args[4]
     ms = cuda_ms(lambda: ops.chunk_scan(*args[:4], u, **kw), reps)
+    # The same calls replayed from a CUDA graph: device time with no host
+    # gaps (the graph keeps each call's outputs and scratch until it is freed).
+    dev_ms = graph_ms(lambda: ops.chunk_scan(*args[:4], u, **kw), launches=10, reps=5)
     plain_ms = cuda_ms(lambda: ops.chunk_scan_plain(*args[:4], u, **kw), 3, warmup=1)
     item = torch.tensor([], dtype=kdtype).element_size()
-    moved, ops_count, exps = _scan_cost(**shape, chunk=ops.chunk_len(shape["s"], chunk),
-                                        itemsize=item, include_current=include_current,
-                                        s0=s0)
+    c = ops.chunk_len(shape["s"], chunk)
+    moved, ops_count, exps = _scan_cost(**shape, chunk=c, itemsize=item,
+                                        include_current=include_current, s0=s0)
     bound_ms, bound_by = _bound(moved, ops_count)
-    return {"ms": ms, "plain_ms": plain_ms, "bytes": moved, "ops": ops_count, "exps": exps,
-            "bound_ms": bound_ms, "bound_by": bound_by, **_bounds(moved, ops_count),
-            "library_ms": None,
+    return {"ms": ms, "graph_ms": dev_ms, "plain_ms": plain_ms, "bytes": moved,
+            "ops": ops_count, "exps": exps, "bound_ms": bound_ms, "bound_by": bound_by,
+            **_bounds(moved, ops_count), "library_ms": None, "dv_block": kernel.dv_block(),
+            "scan_blocks": kernel.scan_blocks(shape["b"], shape["h"], shape["dv"]),
+            "cuda_launches_per_call": cuda_launches(lambda: ops.chunk_scan(*args[:4], u, **kw)),
+            "scratch_bytes": 4 * kernel.scratch_floats(shape["b"], shape["s"], shape["h"],
+                                                       shape["dk"], c),
+            "smem_bytes": kernel.smem_bytes(c, shape["dk"], item),
             "shape": (f"B={shape['b']} S={shape['s']} H={shape['h']} dk={shape['dk']} "
                       f"dv={shape['dv']} chunk={chunk} k/q/v {str(kdtype)[6:]} w float32 "
                       f"{'mamba2' if include_current else 'rwkv6'}"
@@ -3291,9 +3342,12 @@ def phase_chunk_scan_kernel():
     cases = []
     grid = [(ZAMBA2_PREFILL, True, 32), (RWKV6_SCAN, False, 64),
             *((shape, False, 32) for shape in RWKV6_SERVED),
+            (dict(b=1, s=4096, h=32, dk=64, dv=64), False, 32),  # B 1 over 128 chunks
             (dict(b=2, s=1000, h=4, dk=32, dv=64), True, 32),   # ragged: chunk 25
             (dict(b=1, s=600, h=3, dk=64, dv=128), False, 64),  # ragged: chunk 60, dk != dv
-            (dict(b=3, s=96, h=2, dk=128, dv=64), True, 64)]
+            (dict(b=3, s=96, h=2, dk=128, dv=64), True, 64),
+            (dict(b=2, s=64, h=3, dk=20, dv=40), False, 16),    # dk 20, dv 40: a ragged slice
+            (dict(b=2, s=64, h=3, dk=20, dv=40), True, 16)]
     for shape, include_current, chunk in grid:
         for kdtype in (torch.float32, torch.bfloat16):
             for s0 in (True, False):
@@ -3328,10 +3382,15 @@ def phase_chunk_scan_kernel():
                        include_current=False, chunk=32):
               scan_timing(shape, torch.bfloat16, include_current=False, chunk=32, s0=False)
               for shape in RWKV6_SERVED}
+
+    def max_err(entry):  # over the general entry's cases or the Mamba2 entry's
+        return max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in cases
+                   if (c["mode"] == "mamba2 entry") == (entry == "mamba2"))
+
     out = {"phase": "kernels", "kernels": ["chunk_scan", "chunk_scan_mamba2"],
            "failed": sum(not c["ok"] for c in cases),
-           "max_abs_err": max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in cases),
-           "smem_bytes_rwkv6_chunk32": kernel.smem_bytes(32, 64, 64),
+           "max_abs_err": max_err("general"), "max_abs_err_mamba2": max_err("mamba2"),
+           "smem_bytes_rwkv6_chunk32": kernel.smem_bytes(32, 64, 2),
            "smem_bytes_limit": kernel.MAX_SMEM_BYTES,
            "kernel_mamba2": timing_m2, "kernel": timing, "kernel_rwkv6": timing_rwkv,
            "served_rwkv6": [{"key": list(k), **v} for k, v in served.items()],
@@ -3372,9 +3431,7 @@ def attn_timing(shape, dtype, reps=200, **kw):
     `F.scaled_dot_product_attention` (the yardstick: the port never calls
     it) on one step's inputs: mean ms of each and the bound from the
     positions this step reads."""
-    import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.decode_attn import ops
 
@@ -3383,13 +3440,8 @@ def attn_timing(shape, dtype, reps=200, **kw):
     valid = ops.valid_positions(s, device="cuda", **{k_: v_ for k_, v_ in kw.items()
                                                      if k_ != "cap"})
     ms = cuda_ms(lambda: ops.decode_attention(q, k, v, **kw), reps)
-    # The CUDA kernels one wrapper call launches (split and merge when the
-    # plan has P > 1), counted from the profiler's device events.
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ops.decode_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-    cuda_launches = sum(ev.count for ev in prof.key_averages()
-                        if str(ev.device_type).endswith("CUDA"))
+    # Split and merge when the plan has P > 1.
+    launches_per_call = cuda_launches(lambda: ops.decode_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: ops.decode_attention_plain(q, k, v, **kw), 20)
     g = q.shape[1] // hkv
     # SDPA on (B, Hq, 1, hd) against (B, Hq, S, hd) with the slot mask; GQA by
@@ -3412,7 +3464,7 @@ def attn_timing(shape, dtype, reps=200, **kw):
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_max_abs_err": lib_err, "valid_positions": n_valid, "bytes": moved,
             "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan._asdict(),
-            "cuda_launches_per_call": cuda_launches,
+            "cuda_launches_per_call": launches_per_call,
             "shape": (f"B={b} S={s} Hkv={hkv} G={g} hd={hd} {str(dtype)[6:]} "
                       + " ".join(f"{k_}={v_}" for k_, v_ in kw.items()))}
 
@@ -4185,8 +4237,9 @@ def served_rows(runs, name, timings):
                                  f"kernel phase did not check")
             rows.append({"arch": arch, "key": row["key"], "launches": row["calls"],
                          "positions": row["positions"],
-                         **{key: timing[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
-                                                         "bound_by", "library_ms")}})
+                         **{key: timing[key] for key in ("shape", "ms", "graph_ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "library_ms")
+                            if key in timing}})
     return rows
 
 
@@ -4458,7 +4511,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/chunk_scan/csrc/chunk_scan_mamba2.cu",
         "replaces": "src/repro/kernels/chunk_scan/kernel.py:105",
         "launches": serve["launches"]["chunk_scan"],
-        "max_abs_err": scan_kern["max_abs_err"],
+        "max_abs_err": scan_kern["max_abs_err_mamba2"],
         **{key: scan_kern["kernel_mamba2"][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
     }, {
@@ -4470,7 +4523,8 @@ def main() -> int:
         "launches": rwkv["launches"]["chunk_scan"],
         "max_abs_err": scan_kern["max_abs_err"],
         **{key: scan_general[key] for key in
-           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+           ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "dv_block", "cuda_launches_per_call")},
         "by_shape": served_rows([("rwkv6-1.6b", rwkv)], "chunk_scan", scan_kern["served"]),
     }, {
         "name": "decode_attn",

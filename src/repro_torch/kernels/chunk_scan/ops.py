@@ -2,8 +2,8 @@
 
 `chunk_scan` is the entry point `models.ssm.mamba2_mix` calls (the
 reference's `kernels/chunk_scan/ops.py` signature). On a CUDA tensor it
-validates its arguments and launches the hand-written Hopper kernel
-(`kernel.launch`, from `csrc/chunk_scan.cu`), adding one to
+validates its arguments and launches the hand-written Hopper kernels
+(`kernel.launch`, from `csrc/chunk_scan.cu`: prep, then scan), adding one to
 ``chunk_scan.launches``; there is no fall back. On a CPU tensor it runs
 `chunk_scan_plain`, the same chunked evaluation in eager PyTorch (the
 reference's `models/ssm.py::chunk_scan`), which is also the yardstick the
@@ -131,9 +131,10 @@ def _check(w, k, v, q, u, s0, chunk) -> None:
 def chunk_scan(w, k, v, q, u, *, include_current: bool, chunk: int = 64,
                s0: Optional[torch.Tensor] = None):
     """(y, final_state); y matches v's type, the state is float32. CPU
-    tensors take the plain version; CUDA tensors launch the kernel, which
-    reads w in float32 (a bf16 `w` is widened here, exactly) and `u` in
-    float32 (widened here too: it is (H, dk))."""
+    tensors take the plain version; CUDA tensors launch the kernel (two
+    launches: a prep kernel a chunk, then the scan over 16 state columns a
+    block), which reads w in float32 (a bf16 `w` is widened here, exactly)
+    and `u` in float32 (widened here too: it is (H, dk))."""
     if v.device.type == "cpu":
         return chunk_scan_plain(w, k, v, q, u, include_current=include_current,
                                 chunk=chunk, s0=s0)
@@ -151,7 +152,7 @@ def chunk_scan(w, k, v, q, u, *, include_current: bool, chunk: int = 64,
     b, s, h, dk = k.shape
     dv = v.shape[-1]
     chunk = chunk_len(s, chunk)
-    need = kernel.smem_bytes(chunk, dk, dv)
+    need = kernel.smem_bytes(chunk, dk, v.element_size())
     if need > kernel.MAX_SMEM_BYTES:
         raise ValueError(f"chunk {chunk} at dk={dk}, dv={dv} needs {need} bytes of "
                          f"shared memory, past the card's {kernel.MAX_SMEM_BYTES}")

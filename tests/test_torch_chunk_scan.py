@@ -18,6 +18,8 @@ here the wrapper takes the plain version because the tensors lie on the
 CPU.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -27,7 +29,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.chunk_scan import ops as ref_ops  # noqa: E402
 from repro.models import ssm as ref_ssm  # noqa: E402
-from repro_torch.kernels.chunk_scan import ops  # noqa: E402
+from repro_torch.kernels.chunk_scan import kernel, ops  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 
 
@@ -282,3 +284,152 @@ def test_mamba2_entry_fills_the_card_from_the_shape(b, h, dv, want):
     assert blk == want
     assert dv % blk == 0
     assert b * h * (dv // blk) >= 2 * ops.SMS or blk == 16
+
+
+# -- the general entry's kernel decomposition, replayed in eager PyTorch ------
+
+
+def _source_constant(name):
+    """A design constant of the general entry's CUDA source, read from the
+    file the card builds (`constexpr int <name> = <value>;`)."""
+    found = re.findall(rf"constexpr int {name} = (\d+);", kernel.SOURCE.read_text())
+    assert len(found) == 1, name
+    return int(found[0])
+
+
+SUB = _source_constant("kSub")  # rows of a prep sub-chunk
+DVB = _source_constant("kDvb")  # state columns a scan block owns (the library's `dv_block()`)
+
+
+def _replay(w, k, v, q, u, *, include_current, chunk, s0=None):
+    """The card's two kernels step by step: per chunk the prep's record (the
+    decays; A over sub-chunks of SUB rows, the diagonal blocks with one exp a
+    (t, i, d), the blocks below them as the product of the anchored factors
+    qf, M and kf), then the state pass over slices of DVB state columns."""
+    b, s, h, dk = k.shape
+    dv = v.shape[-1]
+    c = ops.chunk_len(s, chunk)
+    n = s // c
+
+    def chunked(x):  # (B, H, n, C, d)
+        return x.float().reshape(b, n, c, h, -1).permute(0, 3, 1, 2, 4)
+
+    lw = chunked(torch.clamp(torch.log(torch.clamp_min(w.float(), 1e-30)), ops.LOG_W_MIN, 0.0))
+    kc, vc, qc = chunked(k), chunked(v), chunked(q)
+    L = torch.cumsum(lw, dim=-2)
+    Lq = L if include_current else L - lw
+    Lc = L[..., -1:, :]
+    qs, kd, elc = qc * torch.exp(Lq), kc * torch.exp(Lc - L), torch.exp(Lc[..., 0, :])
+    A = torch.zeros(b, h, n, c, c)
+    for T in range(-(-c // SUB)):
+        rows = slice(SUB * T, min(SUB * T + SUB, c))
+        m = rows.stop - rows.start
+        ratio = Lq[..., rows, None, :] - L[..., None, rows, :]
+        blk = torch.sum(torch.exp(ratio) * qc[..., rows, None, :] * kc[..., None, rows, :], -1)
+        keep = torch.tril(torch.ones(m, m, dtype=torch.bool), 0 if include_current else -1)
+        A[..., rows, rows] = torch.where(keep, blk, 0.0)
+        a = SUB * T - 1  # the row before sub-chunk T
+        for I in range(T):
+            cols, r = slice(SUB * I, SUB * I + SUB), SUB * I + SUB - 1  # r: I's last row
+            qf = qc[..., rows, :] * torch.exp(Lq[..., rows, :] - L[..., a:a + 1, :])
+            kf = kc[..., cols, :] * torch.exp(L[..., r:r + 1, :] - L[..., cols, :])
+            M = torch.exp(L[..., a:a + 1, :] - L[..., r:r + 1, :])
+            A[..., rows, cols] = (qf * M) @ kf.transpose(-1, -2)
+    if not include_current:
+        uf = torch.zeros(h, dk) if u is None else u.float()
+        diag = torch.sum(qc * uf[None, :, None, None, :] * kc, -1)
+        A = A + torch.diag_embed(diag)
+    S = torch.zeros(b, h, dk, dv) if s0 is None else s0.float().clone()
+    y = torch.empty(b, h, n, c, dv)
+    for e0 in range(0, dv, DVB):
+        sl = slice(e0, e0 + DVB)
+        St = S[..., sl]
+        for i in range(n):
+            vs = vc[:, :, i, :, sl]
+            y[:, :, i, :, sl] = qs[:, :, i] @ St + A[:, :, i] @ vs
+            St = elc[:, :, i, :, None] * St + kd[:, :, i].transpose(-1, -2) @ vs
+        S[..., sl] = St
+    return y.permute(0, 2, 3, 1, 4).reshape(b, s, h, dv).to(v.dtype), S
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
+    (2, 128, 2, 64, 64, 32),
+    (1, 100, 2, 32, 48, 32),  # ragged: chunk 25
+    (1, 600, 2, 32, 48, 64),  # ragged: chunk 60, dk != dv
+    (2, 64, 3, 20, 40, 16),   # dk 20, dv 40: a last slice of 8 columns
+])
+@pytest.mark.parametrize("include_current", [False, True])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_kernel_decomposition_matches_plain_and_pallas_kernel(b, s, h, dk, dv, chunk,
+                                                             include_current, with_s0):
+    """The prep's record and the sliced state pass, replayed, against the
+    plain version and the reference's Pallas kernel in interpret mode,
+    float32 within 3e-5."""
+    arrays = _inputs(b * s + dk + int(with_s0), b, s, h, dk, dv)
+    w, k, v, q, u, s0 = _jax(arrays, jnp.float32)
+    s0 = s0 if with_s0 else None
+    uu = None if include_current else u
+    y_k, S_k = ref_ops.chunk_scan(w, k, v, q, uu, include_current=include_current,
+                                  chunk=chunk, s0=s0)
+    tw, tk, tv, tq, tu, ts0 = _torch(arrays, torch.float32)
+    ts0 = ts0 if with_s0 else None
+    kw = dict(include_current=include_current, chunk=chunk, s0=ts0)
+    y, S = _replay(tw, tk, tv, tq, tu, **kw)
+    y_p, S_p = ops.chunk_scan_plain(tw, tk, tv, tq, tu, **kw)
+    for want_y, want_S in ((y_p, S_p), (y_k, S_k)):
+        _close(y, np.asarray(want_y), 3e-5)
+        _close(S, np.asarray(want_S), 3e-5)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_kernel_decomposition_rwkv6_without_u(with_s0):
+    """rwkv6 mode with u None: a bonus of zeros, as the reference takes it."""
+    arrays = _inputs(11 + int(with_s0), 2, 96, 2, 64, 32)
+    w, k, v, q, _, s0 = _jax(arrays, jnp.float32)
+    s0 = s0 if with_s0 else None
+    y_k, S_k = ref_ops.chunk_scan(w, k, v, q, None, include_current=False, chunk=32, s0=s0)
+    tw, tk, tv, tq, _, ts0 = _torch(arrays, torch.float32)
+    kw = dict(include_current=False, chunk=32, s0=ts0 if with_s0 else None)
+    y, S = _replay(tw, tk, tv, tq, None, **kw)
+    y_p, S_p = ops.chunk_scan_plain(tw, tk, tv, tq, None, **kw)
+    for want_y, want_S in ((y_p, S_p), (y_k, S_k)):
+        _close(y, np.asarray(want_y), 3e-5)
+        _close(S, np.asarray(want_S), 3e-5)
+
+
+def test_kernel_decomposition_past_a_thousand_tokens():
+    """rwkv6's served widths (H 32 cut to 2) over 2,048 tokens: the state
+    carries through 64 chunks, so float32 within 1e-4."""
+    arrays = _inputs(5, 1, 2048, 2, 64, 64)
+    tw, tk, tv, tq, tu, ts0 = _torch(arrays, torch.float32)
+    kw = dict(include_current=False, chunk=32, s0=ts0)
+    y, S = _replay(tw, tk, tv, tq, tu, **kw)
+    y_p, S_p = ops.chunk_scan_plain(tw, tk, tv, tq, tu, **kw)
+    _close(y, y_p.numpy(), 1e-4)
+    _close(S, S_p.numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("b,h,dv,want", [(2, 32, 64, (64, 4)), (1, 32, 64, (32, 4)),
+                                         (2, 32, 40, (64, 3)), (2, 32, 128, (64, 8))])
+def test_general_entry_scan_grid_follows_the_shape(b, h, dv, want):
+    """A scan block a (b, h) and slice of the source's DVB state columns
+    (the last slice ragged): 256 blocks at rwkv6's B 2 (2 on 124 of the
+    H100's 132 SMs), 128 at B 1. The card test
+    `test_chunk_scan_scan_grid_on_card` holds the built library's
+    `dv_block()` and the launched grid to the same."""
+    slices = -(-dv // DVB)
+    assert (b * h, slices) == want
+    assert slices * DVB >= dv > (slices - 1) * DVB
+
+
+@pytest.mark.parametrize("b,s", [(2, 4096), (2, 512), (1, 512)])
+def test_general_entry_scratch_at_rwkv6_served_shapes(b, s):
+    """One record a chunk: kd (32 x 64), qs^T (64 x 32), A^T (32 x 32),
+    exp(Lc) (64), float32 — 20,736 bytes; 170 MB at 2 x 4096."""
+    assert kernel.record_floats(64, 32) == 2 * 32 * 64 + 32 * 32 + 64 == 5184
+    n = b * 32 * (s // 32)
+    assert kernel.scratch_floats(b, s, 32, 64, 32) == n * 5184
+    if (b, s) == (2, 4096):
+        assert kernel.scratch_floats(b, s, 32, 64, 32) * 4 == 169_869_312
+    # Ragged and odd widths round the chunk and dk up to 4 in a record.
+    assert kernel.record_floats(20, 25) == 2 * 28 * 20 + 28 * 28 + 20

@@ -905,6 +905,12 @@ def _scan_inputs(b, s, h, dk, dv, dtype, seed, device):
 @pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
     (2, 128, 2, 64, 64, 16), (1, 256, 4, 32, 32, 64), (2, 64, 1, 128, 64, 64),
     (3, 96, 2, 64, 128, 64), (2, 100, 3, 64, 64, 32), (1, 2048, 8, 64, 64, 32),
+    (2, 4096, 32, 64, 64, 32),   # rwkv6-1.6b's served prefill
+    (1, 512, 32, 64, 64, 32),    # B = 1
+    (2, 64, 3, 20, 40, 16),      # dk 20, dv 40; rwkv6 with u None
+    (1, 600, 3, 64, 128, 64),    # ragged: chunk 60, dk != dv
+    (2, 100, 2, 30, 20, 32),     # ragged: chunk 25; dk 30 (rows padded to 32)
+    (1, 64, 2, 128, 48, 64),     # dk 128 at chunk 64
 ])
 @pytest.mark.parametrize("include_current", [True, False])
 @pytest.mark.parametrize("with_s0", [True, False])
@@ -914,6 +920,7 @@ def test_chunk_scan_kernel_matches_plain_on_card(card, b, s, h, dk, dv, chunk,
 
     w, k, v, q, u, s0 = _scan_inputs(b, s, h, dk, dv, torch.float32, s + dk, card)
     s0 = s0 if with_s0 else None
+    u = None if dk == 20 else u  # rwkv6 with no u: a bonus of zeros
     kw = dict(include_current=include_current, chunk=chunk, s0=s0)
     before = cs_ops.chunk_scan.launches
     y, st = cs_ops.chunk_scan(w, k, v, q, u, **kw)
@@ -926,17 +933,82 @@ def test_chunk_scan_kernel_matches_plain_on_card(card, b, s, h, dk, dv, chunk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
+    (2, 128, 4, 64, 64, 32),
+    (2, 4096, 32, 64, 64, 32), (2, 512, 32, 64, 64, 32), (1, 512, 32, 64, 64, 32),  # rwkv6's
+    (2, 64, 3, 20, 40, 16),   # dv 40: v rows of 80 bytes, 16-byte copies
+    (2, 100, 2, 30, 20, 32),  # dv 20: v rows of 40 bytes, scalar copies
+])
 @pytest.mark.parametrize("include_current", [True, False])
-def test_chunk_scan_kernel_bf16_on_card(card, include_current):
+def test_chunk_scan_kernel_bf16_on_card(card, b, s, h, dk, dv, chunk, include_current):
     from repro_torch.kernels.chunk_scan import ops as cs_ops
 
-    w, k, v, q, u, s0 = _scan_inputs(2, 128, 4, 64, 64, torch.bfloat16, 7, card)
-    kw = dict(include_current=include_current, chunk=32, s0=s0)
+    w, k, v, q, u, s0 = _scan_inputs(b, s, h, dk, dv, torch.bfloat16, 7, card)
+    kw = dict(include_current=include_current, chunk=chunk, s0=s0)
     y, st = cs_ops.chunk_scan(w, k, v, q, u, **kw)
     y_p, st_p = cs_ops.chunk_scan_plain(w, k, v, q, u, **kw)
     assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
     torch.testing.assert_close(y.float(), y_p.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(st, st_p, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dk,chunk", [(2, 4096, 32, 64, 32), (1, 512, 32, 64, 32),
+                                            (1, 600, 3, 20, 60), (2, 100, 2, 30, 25)])
+def test_chunk_scan_scratch_and_launches_on_card(card, b, s, h, dk, chunk):
+    """The wrapper's scratch is the source's, and a call is two CUDA
+    launches (prep, then scan) counted once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.chunk_scan import kernel
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+
+    assert kernel.scratch_floats(b, s, h, dk, chunk) == \
+        kernel._lib().chunk_scan_scratch_floats(b, s, h, dk, chunk)
+    w, k, v, q, u, _ = _scan_inputs(b, s, h, dk, dk, torch.bfloat16, 3, card)
+    cs_ops.chunk_scan(w, k, v, q, u, include_current=False, chunk=chunk)
+    torch.cuda.synchronize()
+    before = cs_ops.chunk_scan.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cs_ops.chunk_scan(w, k, v, q, u, include_current=False, chunk=chunk)
+        torch.cuda.synchronize()
+    assert cs_ops.chunk_scan.launches == before + 1
+    kernels = {ev.key: ev.count for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")}
+    for name in ("prep_kernel", "scan_kernel"):
+        assert sum(n for key, n in kernels.items() if name in key) == 1, kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,dv,want", [(2, 32, 64, 256), (1, 32, 64, 128), (2, 32, 40, 192),
+                                         (2, 32, 128, 512)])
+def test_chunk_scan_scan_grid_on_card(card, tmp_path, b, h, dv, want):
+    """The library's `dv_block()` is the source's `kDvb`, `scan_blocks` is
+    B * H * ceil(dv / dv_block) (256 at rwkv6's B 2, 128 at B 1), and the
+    scan kernel the wrapper launches has that grid (the profiler's trace)."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.chunk_scan import kernel
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+
+    dvb = kernel.dv_block()
+    assert [dvb] == [int(x) for x in re.findall(r"constexpr int kDvb = (\d+);",
+                                                kernel.SOURCE.read_text())]
+    assert kernel.scan_blocks(b, h, dv) == b * h * -(-dv // dvb) == want
+    w, k, v, q, u, _ = _scan_inputs(b, 64, h, 64, dv, torch.bfloat16, 5, card)
+    cs_ops.chunk_scan(w, k, v, q, u, include_current=False, chunk=32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cs_ops.chunk_scan(w, k, v, q, u, include_current=False, chunk=32)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    grids = [ev["args"]["grid"] for ev in events
+             if ev.get("cat") == "kernel" and "scan_kernel" in ev.get("name", "")]
+    assert grids == [[b * h, -(-dv // dvb), 1]]
 
 
 @pytest.mark.cuda

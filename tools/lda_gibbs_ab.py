@@ -47,6 +47,8 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from _timing import card_line, cuda_ms, graph_ms
+
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = {"single": (1, 600_193, 10_000, 10_000, 8, None),
           "batched": (32, 65_536, 1_024, 4_000, 8, None),
@@ -113,41 +115,6 @@ def inputs(shape: str) -> dict:
                 hp=hp)
 
 
-def cuda_ms(fn, reps: int = 200) -> float:
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (reps * launches)
-
-
 def worker(tree: Path, out: Path) -> dict:
     """Time `tree`'s kernel; its injected topics go to `out` (one .pt)."""
     sys.path.insert(0, str(tree / "src"))
@@ -198,8 +165,7 @@ def main(argv: list[str]) -> int:
         print("lda_gibbs_ab: no CUDA device", file=sys.stderr)
         return 2
     trees = [Path(t).resolve() for t in argv] or [ROOT]
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     with ThreadPoolExecutor(max_workers=len(trees)) as pool:
         list(pool.map(lambda t: subprocess.run([sys.executable, __file__, "--build", str(t)],
                                                check=True), set(trees)))
