@@ -191,6 +191,26 @@ Phases:
                  layers (one local/global pair for gemma2), each dense arch
                  and rwkv6: prefill logits, two teacher-forced decode steps
                  and the caches within 4%
+ 18. cross_serve the cross-attention families, weights from seed 0, each
+                 freed before the next: whisper-base whole (6 encoder + 6
+                 decoder layers) through `Engine(cache_len=448,
+                 max_batch=2)`, 2 x 4-token prompts greedy for 128 tokens
+                 and 1 x 64 at temperature 0.8 for 64; llama-3.2-vision-90b
+                 at full width cut to 20 layers (4 groups of 4 self + 1
+                 gated cross layer, the gates set to 0.5) through
+                 `Engine(cache_len=2048, max_batch=2)`, 2 x 512 greedy and
+                 1 x 512 at 0.8, 32 new tokens each; the engine feeds zero
+                 frames or patches; counts zeroed before each run and read
+                 after (decode_attn 12 calls a step for whisper, 6 self + 6
+                 cross; 20 for the VLM, 16 + 4; filed by shape, a cross call
+                 reading every slot of its static cache, `length = pos =
+                 S`); prefill ms, decode ms a step, the profile; prefill /
+                 decode within 2% in bf16 over 12 teacher-forced steps on
+                 random frames or patches (x 0.02)
+ 19. cross_parity
+                 the card against the port on the CPU at published widths:
+                 whisper 2 encoder + 2 decoder layers, the VLM 1 self + 1
+                 gated cross layer, on random frames or patches; within 4%
 Phase 1 also holds both batched kernels against their plain versions over M
 in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 x both
 noise or draw modes (x S in {2, 4} for alias_mh), the packed-table entry in
@@ -213,8 +233,11 @@ first partition only (the later ones all masked), S not divisible by P * T,
 a qwen2-like GQA shape (Hkv 4, G 7, hd 128, 8192 long), a capped window, and
 hd in {32, 64, 80, 128, 256} x G in {1, 2, 4, 7, 8}, every shape a served
 decode step gives it (`SERVED_DECODE`: zamba2's rings, qwen2's GQA, gemma2's
-hd 256 capped rings and flat caches, gemma-7b's, phi3's; B 2 and 1) at up to
-seven positions in bf16, each timed at its heaviest served step, plus its
+hd 256 capped rings and flat caches, gemma-7b's, phi3's, whisper's and the
+VLM's self caches; B 2 and 1) at up to seven positions in bf16, and the
+cross-attention shapes (whisper's 1,500 frames at G 1 hd 64, the VLM's 1,024
+patches at G 8 hd 128; every slot valid) at their one served call, each
+timed at its heaviest served step, plus its
 merge kernel alone against `merge_partials` (partitions with no valid slot
 included);
 each with its ms, plain ms, bound, its split (P, CUDA launches a call) and
@@ -240,8 +263,9 @@ the zoo's and the mesh phase's); resample_quant's the popular
 product's int8 and int4 runs (`packed`) and the case study's
 (`packed_case_study`). `chunk_scan` is the Mamba2 entry, whose launches
 are hybrid_serve's; `chunk_scan.general`'s are rwkv_serve's and
-decode_attn's hybrid_serve's and dense_serve's, both with `by_shape` rows by
-arch and served shape (`calls_by_shape` files every call a serving run makes).
+decode_attn's hybrid_serve's, dense_serve's and cross_serve's, both with
+`by_shape` rows by arch and served shape (`calls_by_shape` files every call
+a serving run makes; a cross call under its own key).
 `lda_gibbs.pack_word_table`, the packed sweep's
 table build, is no TPU kernel (the reference quantizes with jnp before its
 Pallas call); its row names the jnp function it replaces.
@@ -3112,8 +3136,16 @@ RWKV6_SERVED = [dict(b=b, s=s, h=32, dk=64, dv=64) for b, s in ((2, 4096), (2, 5
 # decode_attn at each shape the served decode steps give it, with the last
 # position a served wave decodes at that shape (its heaviest step, where it is
 # timed): the 2 x 4096 waves' 4126, the 512-token waves' 542 (526 for one
-# request of 16 new tokens). Keyed as `attn_key` files the served calls.
+# request of 16 new tokens); whisper's 4-token waves' 130 (128 new tokens) and
+# its 64-token wave's 126. A cross-attention entry (`_CROSS`) is the static
+# encoder or image cache, every slot read: it is checked and timed at `length
+# = pos = S`, its one served call. Keyed as `attn_key` files the served calls.
 _RING = dict(window=4096, ring=True)
+_CROSS = dict(cross=True)
+WHISPER_SELF, WHISPER_CROSS = dict(b=2, s=448, hkv=8, g=1, hd=64), dict(b=2, s=1500, hkv=8,
+                                                                       g=1, hd=64)
+VISION_SELF, VISION_CROSS = dict(b=2, s=2048, hkv=8, g=8, hd=128), dict(b=2, s=1024, hkv=8,
+                                                                       g=8, hd=128)
 SERVED_DECODE = [
     ("zamba2-2.7b", dict(ZAMBA2_DECODE), _RING, 4126),
     ("zamba2-2.7b", dict(ZAMBA2_DECODE, b=1), _RING, 542),
@@ -3126,7 +3158,31 @@ SERVED_DECODE = [
     ("gemma2-9b global", dict(b=1, s=8192, hkv=8, g=2, hd=256), dict(cap=50.0), 542),
     ("gemma-7b", dict(b=1, s=8192, hkv=16, g=1, hd=256), {}, 526),
     ("phi3-medium-14b", dict(b=1, s=8192, hkv=10, g=4, hd=128), {}, 526),
+    ("whisper-base self", WHISPER_SELF, {}, 130),
+    ("whisper-base self", dict(WHISPER_SELF, b=1), {}, 126),
+    ("whisper-base cross", WHISPER_CROSS, _CROSS, 1500),
+    ("whisper-base cross", dict(WHISPER_CROSS, b=1), _CROSS, 1500),
+    ("llama-3.2-vision-90b self", VISION_SELF, {}, 542),
+    ("llama-3.2-vision-90b self", dict(VISION_SELF, b=1), {}, 542),
+    ("llama-3.2-vision-90b cross", VISION_CROSS, _CROSS, 1024),
+    ("llama-3.2-vision-90b cross", dict(VISION_CROSS, b=1), _CROSS, 1024),
 ]
+
+
+def served_call(shape, kw, pos):
+    """decode_attn's arguments of a served call at `pos`: a self call reads
+    positions up to `pos` (`length = pos + 1`, with the entry's window, ring
+    and cap); a cross call (`kw["cross"]`) every slot of its static cache."""
+    if kw.get("cross"):
+        return dict(length=shape["s"], pos=shape["s"])
+    return dict(pos=pos, length=pos + 1, **kw)
+
+
+def served_key(shape, kw):
+    """An entry's shape as `attn_key` files a served call."""
+    return (shape["b"], shape["s"], shape["hkv"], shape["g"], shape["hd"],
+            kw.get("window", 0), kw.get("ring", False), kw.get("cap", 0.0),
+            bool(kw.get("cross", False)))
 
 
 def _scan_inputs(b, s, h, dk, dv, kdtype, seed, s0=True):
@@ -3538,27 +3594,28 @@ def phase_decode_attn_kernel():
               compare_merge(b=2, s=8192, hkv=4, g=7, hd=128, dtype=torch.float32, seed=4,
                             pos=8191, length=8192)]
     # Every served shape: held against the plain version before, at and past
-    # its ring's wrap or across its flat cache, in bf16 (as served), then timed
-    # at its heaviest served step.
+    # its ring's wrap or across its flat cache (a cross entry: at its one
+    # call, every slot), in bf16 (as served), then timed at its heaviest
+    # served step.
     served = {}
     for label, shape, kw, last in SERVED_DECODE:
         for p in sorted({100, 542, 4095, 4096, 4126, 5000, last}):
-            if p >= shape["s"] and not kw.get("ring"):
+            if p != last if kw.get("cross") else p >= shape["s"] and not kw.get("ring"):
                 continue
+            call = served_call(shape, kw, p)
             err, ok = compare_attn(_attn_inputs(**shape, dtype=torch.bfloat16, seed=len(cases)),
-                                   pos=p, length=p + 1, **kw)
+                                   **call)
             plan = ops.plan(shape["b"], shape["s"], shape["hkv"], shape["hd"], 2)
-            cases.append({**shape, "dtype": "bfloat16", **kw, "pos": p, "length": p + 1,
-                          "parts": plan.parts, "served": label, "max_abs_err": err, "ok": ok})
-        if label.startswith("gemma2"):  # its consistency gate runs in float32 too
-            err, ok = compare_attn(_attn_inputs(**shape, dtype=torch.float32, seed=len(cases)),
-                                   pos=last, length=last + 1, **kw)
-            cases.append({**shape, "dtype": "float32", **kw, "pos": last, "length": last + 1,
+            cases.append({**shape, "dtype": "bfloat16", **kw, **call, "parts": plan.parts,
                           "served": label, "max_abs_err": err, "ok": ok})
-        key = (shape["b"], shape["s"], shape["hkv"], shape["g"], shape["hd"],
-               kw.get("window", 0), kw.get("ring", False), kw.get("cap", 0.0))
-        served[key] = {"served": label, **attn_timing(shape, torch.bfloat16, pos=last,
-                                                      length=last + 1, **kw)}
+        if label.startswith("gemma2"):  # its consistency gate runs in float32 too
+            call = served_call(shape, kw, last)
+            err, ok = compare_attn(_attn_inputs(**shape, dtype=torch.float32, seed=len(cases)),
+                                   **call)
+            cases.append({**shape, "dtype": "float32", **kw, **call,
+                          "served": label, "max_abs_err": err, "ok": ok})
+        served[served_key(shape, kw)] = {
+            "served": label, **attn_timing(shape, torch.bfloat16, **served_call(shape, kw, last))}
     timing = attn_timing(z, torch.bfloat16, pos=4096, length=4097, **ring)
     timing_gqa = attn_timing(dict(b=2, s=8192, hkv=4, g=7, hd=128), torch.bfloat16,
                              pos=8191, length=8192)
@@ -3634,10 +3691,13 @@ def calls_by_shape(module, attr, key):
         setattr(module, attr, real)
 
 
-def attn_key(q, k_cache, *_, window=0, ring=False, cap=0.0, **__):
-    """A decode_attn call's shape: (B, S, Hkv, G, hd, window, ring, cap)."""
+def attn_key(q, k_cache, *_, length, pos, window=0, ring=False, cap=0.0, **__):
+    """A decode_attn call's shape: (B, S, Hkv, G, hd, window, ring, cap,
+    cross). A cross-attention call reads its whole static cache (`length =
+    pos`, where a self call has `length = pos + 1`)."""
     b, s, hkv, hd = k_cache.shape
-    return (b, s, hkv, q.shape[1] // hkv, hd, int(window), bool(ring), float(cap))
+    return (b, s, hkv, q.shape[1] // hkv, hd, int(window), bool(ring), float(cap),
+            int(length) == int(pos))
 
 
 def scan_key(_w, k, v, *_, include_current, chunk, **__):
@@ -3649,10 +3709,11 @@ def scan_key(_w, k, v, *_, include_current, chunk, **__):
             "mamba2" if include_current else "rwkv6")
 
 
-def engine_run(cfg, params, requests):
-    """The served main path: `Engine(cache_len=8192, max_batch=2)` over
-    `requests`, every kernel count zeroed just before `run` and read just
-    after, the general chunk_scan and decode_attn calls filed by shape.
+def engine_run(cfg, params, requests, cache_len=SERVE["cache_len"]):
+    """The served main path: `Engine(cache_len=8192, max_batch=2)` (or
+    `cache_len`) over `requests`, every kernel count zeroed just before `run`
+    and read just after, the general chunk_scan and decode_attn calls filed
+    by shape.
     Returns (results, {"waves", "run_s", "peak_mem_bytes", "launches",
     "by_shape"})."""
     import torch
@@ -3661,7 +3722,7 @@ def engine_run(cfg, params, requests):
     from repro_torch.kernels.decode_attn import ops as da_ops
     from repro_torch.serving.engine import Engine
 
-    eng = Engine(cfg, params, cache_len=SERVE["cache_len"], max_batch=SERVE["max_batch"],
+    eng = Engine(cfg, params, cache_len=cache_len, max_batch=SERVE["max_batch"],
                  seed=SERVE["seed"], device="cuda")
     for r in requests:
         eng.submit(r)
@@ -3870,8 +3931,10 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
-def prefill_decode_rels(params, cfg, toks, prompt, *, unroll=()):
-    """Prefill toks[:, :prompt] (cache 8192), then teacher-force the rest one
+def prefill_decode_rels(params, cfg, toks, prompt, *, unroll=(), extra=None,
+                        cache_len=SERVE["cache_len"]):
+    """Prefill toks[:, :prompt] (cache 8192, or `cache_len`; `extra`: the
+    frames or patches beside the tokens), then teacher-force the rest one
     decode step each: every step's logits against one causal forward over
     all of `toks` at that position (rel a step). With `unroll` (the cache's
     ring keys), the same steps from a copy whose ring tails are unrolled into
@@ -3882,12 +3945,13 @@ def prefill_decode_rels(params, cfg, toks, prompt, *, unroll=()):
     from repro_torch.models import layers
     from repro_torch.models import model as M
 
-    cache, _ = M.prefill(params, cfg, {"tokens": toks[:, :prompt]}, SERVE["cache_len"])
+    extra = extra or {}
+    cache, _ = M.prefill(params, cfg, {"tokens": toks[:, :prompt], **extra}, cache_len)
     faulty = None
     if unroll:  # decode_step writes the cache in place, so the copy is made first
         faulty = {key: torch.roll(t, -(prompt % t.shape[-3]), dims=-3) if key in unroll
                   else t.clone() for key, t in cache.items()}
-    h, _ = M.forward_hidden(params, cfg, {"tokens": toks})
+    h, _ = M.forward_hidden(params, cfg, {"tokens": toks, **extra})
     table = M.unembed_table(params, cfg)
     rels, rels_faulty = [], []
     for pos in range(prompt, toks.shape[1]):
@@ -3908,11 +3972,11 @@ def _rand_tokens(cfg, n, seed):
                         dtype=torch.int32, device="cuda")[None]
 
 
-def profile_serving(params, cfg, prompt):
+def profile_serving(params, cfg, prompt, *, extra=None, cache_len=SERVE["cache_len"]):
     """Where the time goes (`torch.profiler`): one traced 2 x len(prompt)
-    prefill, then `PROFILE_STEPS` traced decode steps and as many untraced
-    (host clock around a synchronize): the top device ops and the device's
-    busy ms of each."""
+    prefill (`extra`: its frames or patches), then `PROFILE_STEPS` traced
+    decode steps and as many untraced (host clock around a synchronize): the
+    top device ops and the device's busy ms of each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3923,7 +3987,7 @@ def profile_serving(params, cfg, prompt):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cache, logits = M.prefill(params, cfg, {"tokens": long}, SERVE["cache_len"])
+        cache, logits = M.prefill(params, cfg, {"tokens": long, **(extra or {})}, cache_len)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_top, prefill_busy = device_summary(prof, 1, unit="prefill")
@@ -4153,13 +4217,17 @@ def card_vs_cpu(cfg, seed, prompt=16, steps=2):
     """The card (the kernels) against the port on the CPU (their plain
     versions) on one model drawn on the card from `seed` and copied: prefill
     logits and `steps` teacher-forced decode steps (rel each), and the
-    largest cache gap after them."""
+    largest cache gap after them. An audio or VLM model gets random frames
+    or patches (`frontend`), a VLM's cross blocks nonzero gates
+    (`open_gates`)."""
     import numpy as np
     import torch
 
     from repro_torch.models import model as M
 
     params = M.init_model(cfg, seed=seed, device="cuda")
+    open_gates(params)
+    extra = frontend(cfg, 1, seed)
     cpu = {}
 
     def to_cpu(tree, out):
@@ -4177,9 +4245,10 @@ def card_vs_cpu(cfg, seed, prompt=16, steps=2):
     torch.set_num_threads(8)
     try:
         with torch.inference_mode():
-            cache, lg = M.prefill(params, cfg, {"tokens": toks[:, :prompt].cuda()}, 64)
+            cache, lg = M.prefill(params, cfg, {"tokens": toks[:, :prompt].cuda(), **extra}, 64)
             t0 = time.perf_counter()
-            cache_c, lg_c = M.prefill(cpu, cfg, {"tokens": toks[:, :prompt]}, 64)
+            cache_c, lg_c = M.prefill(cpu, cfg, {"tokens": toks[:, :prompt],
+                                                 **{k: t.cpu() for k, t in extra.items()}}, 64)
             rels = [_rel(lg.cpu(), lg_c)]
             for i in range(steps):
                 pos = prompt + i
@@ -4197,14 +4266,16 @@ def card_vs_cpu(cfg, seed, prompt=16, steps=2):
             "cpu_side_s": round(cpu_s, 3)}
 
 
-def _parity_phase(phase, names, layers=2, seed=1):
+def _parity_phase(phase, names, layers=2, seed=1, cuts=None):
     """`card_vs_cpu` for each arch at its published widths cut to `layers`
-    layers (two: one local/global pair for gemma2), limit 0.04 on logits
-    and caches."""
+    layers (two: one local/global pair for gemma2; `cuts`: other fields cut
+    by arch), limit 0.04 on logits and caches."""
     from repro_torch import configs
 
     t0 = time.perf_counter()
-    runs = [card_vs_cpu(dataclasses.replace(configs.get(n), num_layers=layers), seed)
+    cuts = cuts or {}
+    runs = [card_vs_cpu(dataclasses.replace(configs.get(n), num_layers=layers,
+                                            **cuts.get(n, {})), seed)
             for n in names]
     out = {"phase": phase, "runs": runs, "limit": 0.04, "phase_s": time.perf_counter() - t0}
     emit(out)
@@ -4221,6 +4292,140 @@ def phase_dense_parity():
 
 def phase_rwkv_parity():
     return _parity_phase("rwkv_parity", ("rwkv6-1.6b",))
+
+
+# -- phases 18-19: the cross-attention serving families --------------------------
+
+CROSS_GATE = 0.5  # every VLM cross block's gate_attn and gate_mlp on the card
+VISION_LAYERS = 20  # 4 groups of 4 self + 1 gated cross layer: 19.2 B parameters
+# Each arch's cache, depth and mix: (prompt tokens, temperature, new tokens) a
+# request. whisper-base: speech to text of a 30 s clip (1,500 encoder
+# frames), 2 x the 4-token start-of-transcript prefix greedy for 128 tokens
+# and 1 x a 64-token previous-text prompt sampled for 64, in Whisper's
+# 448-token decoder context. llama-3.2-vision-90b: image + question chat over
+# 1,024 patches, 2 x 512 greedy and 1 x 512 sampled, 32 new tokens each.
+CROSS_SERVE = {
+    "whisper-base": dict(cache_len=448, layers=None, consistency_prompt=64,
+                         mix=((4, 0.0, 128), (4, 0.0, 128), (64, 0.8, 64))),
+    "llama-3.2-vision-90b": dict(cache_len=2048, layers=VISION_LAYERS, consistency_prompt=512,
+                                 mix=((512, 0.0, 32), (512, 0.0, 32), (512, 0.8, 32))),
+}
+CROSS_STEPS, CROSS_LIMIT = 12, 0.02  # teacher-forced steps of the consistency gate, bf16
+
+
+def open_gates(params):
+    """A VLM's cross-block gates set to `CROSS_GATE` in place (zero at init,
+    they would make every cross block add nothing): the weights change, not
+    the model. No-op for other families."""
+    if "xblk" in params:
+        for gate in ("gate_attn", "gate_mlp"):
+            params["xblk"][gate].fill_(CROSS_GATE)
+
+
+def frontend(cfg, b, seed):
+    """The frontend stub's output on the card, bf16: random frames (audio)
+    or patches (VLM) x 0.02 from a numpy seed, as the reference's
+    `real_batch` draws them; {} for the other families."""
+    import numpy as np
+    import torch
+
+    name, n = {"audio": ("frames", cfg.encoder_tokens),
+               "vlm": ("patches", cfg.num_frontend_tokens)}.get(cfg.arch_type, (None, 0))
+    if name is None:
+        return {}
+    a = np.random.default_rng(seed).standard_normal((b, n, cfg.d_model)) * 0.02
+    return {name: torch.tensor(a, dtype=torch.float32, device="cuda").to(torch.bfloat16)}
+
+
+def cross_serve_arch(name):
+    """One cross-attention arch at its published widths (the VLM cut in
+    depth to `VISION_LAYERS`), weights from seed 0 with open gates, through
+    `engine_run` on its mix (zero frames or patches, as the engine feeds
+    them): decode_attn calls a step, self and cross, by shape; then
+    prefill/decode consistency over `CROSS_STEPS` teacher-forced steps on
+    random frames or patches, and where the time goes. Frees the model."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import params as plib
+    from repro_torch.serving.engine import Request
+
+    spec = CROSS_SERVE[name]
+    cfg = configs.get(name)
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    free_cuda()
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, seed=SERVE["seed"], device="cuda")
+    open_gates(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SERVE["seed"])
+    requests = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                        max_new_tokens=new, temperature=t)
+                for i, (n, t, new) in enumerate(spec["mix"])]
+    results, run = engine_run(cfg, params, requests, cache_len=spec["cache_len"])
+    if cfg.arch_type == "audio":  # each decoder layer: its self cache, then the encoder's
+        per_step = {"self": cfg.num_layers, "cross": cfg.num_layers}
+    else:  # each group: its self layers, then its cross layer over the patches
+        groups = M.n_cross(cfg)
+        per_step = {"self": groups * (cfg.cross_attn_every - 1), "cross": groups}
+    calls = {kind: sum(row["calls"] for row in run["by_shape"]["decode_attn"]
+                       if row["key"][-1] == (kind == "cross")) for kind in per_step}
+    steps = run["decode_steps"]
+    expected = {"chunk_scan": 0, "decode_attn": sum(per_step.values()) * steps}
+    out = {"arch": name, "layers": cfg.num_layers, "params": plib.count_params(params),
+           "param_bytes": plib.tree_bytes(params), "init_s": round(init_s, 3),
+           "cache_len": spec["cache_len"], "requests": len(requests), **run,
+           "launches_expected": expected, "decode_attn_calls_per_step": per_step,
+           "decode_attn_calls": calls}
+    with torch.inference_mode():
+        n = spec["consistency_prompt"]
+        toks = _rand_tokens(cfg, n + CROSS_STEPS, SERVE["seed"] + 2)
+        out["prefill_decode_rel"] = prefill_decode_rels(
+            params, cfg, toks, n, extra=frontend(cfg, 1, SERVE["seed"] + 3),
+            cache_len=spec["cache_len"])[0]
+        out["limit"] = CROSS_LIMIT
+        out["profile"] = profile_serving(params, cfg, requests[0].prompt,
+                                         extra=frontend(cfg, 2, SERVE["seed"] + 4),
+                                         cache_len=spec["cache_len"])
+    del params, results
+    free_cuda()
+    out["failed"] = [msg for bad, msg in (
+        (run["launches"] != expected, f"launches {run['launches']}, expected {expected}"),
+        (calls != {kind: k * steps for kind, k in per_step.items()},
+         f"decode_attn calls {calls}, expected {per_step} a step over {steps} steps"),
+        (max(out["prefill_decode_rel"]) >= CROSS_LIMIT,
+         f"prefill/decode rel {out['prefill_decode_rel']} (limit {CROSS_LIMIT})"),
+        (not out["profile"]["finite_logits"], "logits not finite"),
+    ) if bad]
+    return out
+
+
+def phase_cross_serve():
+    """The audio and VLM families: `whisper-base` whole and
+    `llama-3.2-vision-90b` at full width and 20 layers, each through
+    `Engine` on its mix (`CROSS_SERVE`); every decode step calls decode_attn
+    once a self layer and once a cross layer (12 and 20 a step); prefill and
+    decode ms, the profile, and prefill/decode within 2% over 12 steps."""
+    t0 = time.perf_counter()
+    runs = [cross_serve_arch(name) for name in CROSS_SERVE]
+    out = {"phase": "cross_serve", "runs": runs, "phase_s": time.perf_counter() - t0}
+    emit(out)
+    failed = [f"{r['arch']}: {msg}" for r in runs for msg in r["failed"]]
+    if failed:
+        raise SystemExit("cross_serve: " + "; ".join(failed))
+    return out
+
+
+def phase_cross_parity():
+    """The card against the port on the CPU at published widths and two
+    layers: whisper 2 encoder + 2 decoder layers, llama-3.2-vision 1 self +
+    1 gated cross layer (gates open), on random frames or patches."""
+    return _parity_phase("cross_parity", tuple(CROSS_SERVE), cuts={
+        "whisper-base": dict(encoder_layers=2), "llama-3.2-vision-90b": dict(cross_attn_every=2)})
 
 
 def served_rows(runs, name, timings):
@@ -4300,6 +4505,8 @@ def main() -> int:
     rwkv = phase_rwkv_serve()
     phase_dense_parity()
     phase_rwkv_parity()
+    cross = phase_cross_serve()
+    phase_cross_parity()
     scan_general = scan_kern["served"][(2, 4096, 32, 64, 64, 32, "rwkv6")]
     t = scale["kernel"]
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"],
@@ -4532,12 +4739,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/kernel.py:99",
         "launches": serve["launches"]["decode_attn"]
-        + sum(r["launches"]["decode_attn"] for r in dense["runs"]),
+        + sum(r["launches"]["decode_attn"] for r in dense["runs"] + cross["runs"]),
         "max_abs_err": attn_kern["max_abs_err"],
         **{key: attn_kern["kernel"][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "by_shape": served_rows([("zamba2-2.7b", serve)]
-                                + [(r["arch"], r) for r in dense["runs"]],
+                                + [(r["arch"], r) for r in dense["runs"] + cross["runs"]],
                                 "decode_attn", attn_kern["served_by_key"]),
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,18 @@
 
 Ported (their serving paths run on the port): the dense family
 (`qwen2-7b`, `gemma-7b`, `gemma2-9b`, `gemma2-9b-sw`, `phi3-medium-14b`),
-the ssm family (`rwkv6-1.6b`) and the hybrid family (`zamba2-2.7b`). The
-reference's other archs (audio, VLM, MoE) raise `NotImplementedError` from
-`get` (ROADMAP.md queue 1, item 13).
+the ssm family (`rwkv6-1.6b`), the hybrid family (`zamba2-2.7b`), the audio
+family (`whisper-base`) and the VLM family (`llama-3.2-vision-90b`). The
+reference's MoE archs raise `NotImplementedError` from `get` (ROADMAP.md
+queue 1, item 13).
 """
 
 from repro_torch.configs.base import ArchConfig, get, names, register  # noqa: F401
 from repro_torch.configs.gemma2_9b import GEMMA2_9B, GEMMA2_9B_SW  # noqa: F401
 from repro_torch.configs.gemma_7b import GEMMA_7B  # noqa: F401
+from repro_torch.configs.llama_3_2_vision_90b import LLAMA_3_2_VISION_90B  # noqa: F401
 from repro_torch.configs.phi3_medium_14b import PHI3_MEDIUM_14B  # noqa: F401
 from repro_torch.configs.qwen2_7b import QWEN2_7B  # noqa: F401
 from repro_torch.configs.rwkv6_1_6b import RWKV6_1_6B  # noqa: F401
+from repro_torch.configs.whisper_base import WHISPER_BASE  # noqa: F401
 from repro_torch.configs.zamba2_2_7b import ZAMBA2_2_7B  # noqa: F401

@@ -4,8 +4,9 @@ The same frozen `ArchConfig` as the reference's `repro.configs.base`, field
 for field, with the same `reduced()` smoke-test variant, so a config built
 here describes the same model as the reference's of the same name. Only the
 architectures whose serving path is ported are registered (the dense family,
-`rwkv6-1.6b` and `zamba2-2.7b`); `get` of any other name the reference
-registers raises and points at `ROADMAP.md`.
+`rwkv6-1.6b`, `zamba2-2.7b`, `whisper-base` and `llama-3.2-vision-90b`);
+`get` of any other name the reference registers (the MoE archs) raises and
+points at `ROADMAP.md`.
 """
 
 from __future__ import annotations

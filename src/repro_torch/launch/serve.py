@@ -5,11 +5,17 @@ are drawn from `--seed` at the config's widths (`--full`: the published
 ones; otherwise the reduced smoke-test variant); it runs on CUDA unless
 `--device cpu` is given. Ported archs: the dense family (`qwen2-7b`,
 `gemma-7b`, `gemma2-9b`, `gemma2-9b-sw`, `phi3-medium-14b`), the ssm family
-(`rwkv6-1.6b`) and the hybrid family (`zamba2-2.7b`):
+(`rwkv6-1.6b`), the hybrid family (`zamba2-2.7b`), the audio family
+(`whisper-base`; the engine feeds zero frames) and the VLM family
+(`llama-3.2-vision-90b`; zero patches, and at its published widths it
+needs more memory than one 80 GB card holds):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --full \\
       --requests 4 --prompt-len 512 --max-new 32 --cache-len 8192 --max-batch 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --full \\
+      --requests 3 --prompt-len 4 --max-new 128 --cache-len 448 --max-batch 2
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from repro_torch.serving.engine import Engine, Request
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, help=f"one of {configs.names()}")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)

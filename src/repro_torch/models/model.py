@@ -1,6 +1,6 @@
-"""Model assembly for the dense, ssm and hybrid families: schema, prefill, decode.
+"""Model assembly for the dense, ssm, hybrid, vlm and audio families.
 
-The reference's `repro.models.model` in PyTorch for three arch families:
+The reference's `repro.models.model` in PyTorch for five arch families:
 
   dense   decoder blocks (`qwen2-7b`, `gemma-7b`, `phi3-medium-14b`), every
           layer windowed (`gemma2-9b-sw`, attn_pattern "local") or local and
@@ -8,6 +8,10 @@ The reference's `repro.models.model` in PyTorch for three arch families:
   ssm     RWKV6 blocks (`rwkv6-1.6b`): time mix + channel mix
   hybrid  groups of Mamba2 layers with one weight-shared attention block
           applied before each group (`zamba2-2.7b`)
+  vlm     groups of self-attention decoder blocks closed by one gated
+          cross-attention block over image patches (`llama-3.2-vision-90b`)
+  audio   a non-causal encoder over audio frames, then decoder blocks with
+          self-attention and cross-attention to the encoder (`whisper-base`)
 
 Parameter and cache trees keep the reference's keys and stacked leading
 dims, so the two packages compare like with like:
@@ -16,12 +20,19 @@ dims, so the two packages compare like with like:
           dense   blk {...} (L, ...), or local / global {...} (L/2, ...)
           ssm     ln0 (D,), blk {ln1, ln2, att {...}, ffn {...}} (L, ...)
           hybrid  shared {ln_attn, attn, ln_mlp, mlp}, blk {...} (groups, per, ...)
+          vlm     blk {...} (groups, every - 1, ...), xblk {..., gate_attn,
+                  gate_mlp (1,) f32} (groups, ...)
+          audio   enc {...} (encoder layers, ...), enc_ln_f (D,), dec {...,
+                  ln_cross, xattn} (L, ...)
   cache   dense   k / v (L, B, S, Hkv, hd) bf16 (S the window's ring when
                   "local"), or k_local / v_local (L/2, B, window, ...) rings
                   and k_global / v_global (L/2, B, cache_len, ...)
           ssm     S (L, B, H, dk, dk) f32, ax / fx (L, B, 1, D) bf16
           hybrid  S (groups, per, B, H, ns, hd) f32, conv (groups, per, B,
                   W-1, C) bf16, ak / av (groups, B, window, Hkv, hd) bf16 rings
+          vlm     k / v (groups, every - 1, B, S, Hkv, hd), xk / xv (groups,
+                  B, patches, Hkv, hd): the cross layers' static keys
+          audio   k / v (L, B, S, Hkv, hd), xk / xv (L, B, frames, Hkv, hd)
 
   build_schema(cfg)                          parameter declarations
   init_model(cfg, seed=, device=)            real params on a device
@@ -34,14 +45,20 @@ Activations and caches take the weights' type: bf16 as the reference's
 (the kernels take both), with float32 recurrent states either way.
 `lax.scan` over layers becomes a Python loop. Prefill runs every RWKV6
 and Mamba2 layer's scan through the chunk_scan kernel's wrappers, and
-every decode step every attention layer (dense) or the shared block
-(hybrid) through the decode_attn kernel's wrapper (Hopper kernels on CUDA
-tensors, their plain versions on the CPU). The mesh's `constrain` has no
-counterpart on one card. The moe, vlm and audio families, and training
-(`forward_loss`, `unembed_chunked`), wait (ROADMAP.md queue 1, item 13).
+every decode step every attention layer (dense, vlm, audio: self and
+cross) or the shared block (hybrid) through the decode_attn kernel's
+wrapper (Hopper kernels on CUDA tensors, their plain versions on the CPU).
+A cross-attention step reads every slot of its static cache (`length =
+pos = S`) and writes none. The vlm and audio families take their frontend
+stub's output in the batch: `patches` (B, 1024, D) or `frames` (B, 1500,
+D). The mesh's `constrain` has no counterpart on one card. The moe
+family, and training (`forward_loss`, `unembed_chunked`), wait
+(ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -59,7 +76,7 @@ ACT_DTYPE = torch.bfloat16  # the weights' type, and so the activations' and cac
 _NOT_PORTED = "is not ported to repro_torch yet (ROADMAP.md queue 1, item 13)"
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "vlm", "audio")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -106,7 +123,7 @@ def _mlp_schema(cfg: ArchConfig) -> dict:
     return s
 
 
-def _block_schema(cfg: ArchConfig) -> dict:
+def _block_schema(cfg: ArchConfig, *, cross: bool = False) -> dict:
     """One decoder block: (pre-)norms + attention + MLP (+ post-norms)."""
     if cfg.num_experts:
         raise NotImplementedError(f"MoE blocks {_NOT_PORTED}")
@@ -120,6 +137,11 @@ def _block_schema(cfg: ArchConfig) -> dict:
     if cfg.post_norms:
         s["ln_post_attn"] = PDef((d,), ("embed",), init="zeros")
         s["ln_post_mlp"] = PDef((d,), ("embed",), init="zeros")
+    if cross:
+        # llama-3.2-vision's gated cross-attention layer: zero-init gates make
+        # the layer a no-op at init (the model-card recipe).
+        s["gate_attn"] = PDef((1,), (None,), init="zeros", dtype="float32")
+        s["gate_mlp"] = PDef((1,), (None,), init="zeros", dtype="float32")
     return s
 
 
@@ -178,6 +200,14 @@ def _hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
     return cfg.num_layers // per, per
 
 
+def n_cross(cfg: ArchConfig) -> int:
+    """Number of (self + ... + cross) groups of a VLM config."""
+    if cfg.cross_attn_every < 2 or cfg.num_layers % cfg.cross_attn_every:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers in groups of "
+                         f"{cfg.cross_attn_every}")
+    return cfg.num_layers // cfg.cross_attn_every
+
+
 def build_schema(cfg: ArchConfig) -> dict:
     _require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
@@ -197,6 +227,17 @@ def build_schema(cfg: ArchConfig) -> dict:
     elif cfg.arch_type == "ssm":
         s["ln0"] = PDef((d,), ("embed",), init="zeros")
         s["blk"] = _stack(_rwkv_block_schema(cfg), cfg.num_layers)
+    elif cfg.arch_type == "vlm":
+        groups = n_cross(cfg)
+        s["blk"] = _stack(_stack(_block_schema(cfg), cfg.cross_attn_every - 1), groups)
+        s["xblk"] = _stack(_block_schema(cfg, cross=True), groups)
+    elif cfg.arch_type == "audio":
+        s["enc"] = _stack(_block_schema(cfg), cfg.encoder_layers)
+        s["enc_ln_f"] = PDef((d,), ("embed",), init="zeros")
+        dec = _block_schema(cfg)
+        dec["ln_cross"] = PDef((d,), ("embed",), init="zeros")
+        dec["xattn"] = _attn_schema(cfg)
+        s["dec"] = _stack(dec, cfg.num_layers)
     else:
         groups, per = _hybrid_groups(cfg)
         s["blk"] = _stack(_stack(_mamba_block_schema(cfg), per), groups)
@@ -234,21 +275,41 @@ def _project_qkv(p, h, cfg: ArchConfig, positions):
     return q, k, v.reshape(b, s, hkv, hd)
 
 
-def _attn_full(p, h, cfg: ArchConfig, *, positions, window=0):
-    """Full-sequence causal self-attention. Returns (out, (k, v)) for KV
-    caching."""
+def _attn_full(p, h, cfg: ArchConfig, *, positions, window=0, causal=True, cross_src=None):
+    """Full-sequence attention: self-attention (causal unless asked), or
+    with `cross_src` (B, T, D) cross-attention to it (queries without rope,
+    keys and values projected from `cross_src`, no mask). Returns (out,
+    (k, v)) for KV caching."""
     b, s, _ = h.shape
-    q, k, v = _project_qkv(p, h, cfg, positions)
-    out = flash_attention(q, k, v, window=window, cap=cfg.attn_softcap)
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cross_src is not None:
+        q = h @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q = q.reshape(b, s, hq, hd)  # no rope on cross-attention queries
+        k = (cross_src @ p["wk"]).reshape(b, -1, hkv, hd)
+        v = (cross_src @ p["wv"]).reshape(b, -1, hkv, hd)
+        causal = False
+    else:
+        q, k, v = _project_qkv(p, h, cfg, positions)
+    out = flash_attention(q, k, v, causal=causal, window=window, cap=cfg.attn_softcap)
     return out.reshape(b, s, cfg.qkv_dim) @ p["wo"], (k, v)
 
 
-def _attn_decode(p, h1, cfg: ArchConfig, ck, cv, pos: int, *, window=0, ring=False):
+def _attn_decode(p, h1, cfg: ArchConfig, ck, cv, pos: int, *, window=0, ring=False,
+                 cross=False):
     """One-token attention against a cache. h1: (B, 1, D). Writes the new
     key and value into the cache tensors in place (the reference returns
-    updated copies) and returns (out, ck, cv)."""
+    updated copies) and returns (out, ck, cv). With `cross` the cache is a
+    static encoder or image cache: every slot is read (`length = pos = S`)
+    and none is written."""
     b = h1.shape[0]
     hq, hd = cfg.num_heads, cfg.head_dim
+    if cross:
+        q = (h1 @ p["wq"]).reshape(b, hq, hd)
+        out = da_ops.decode_attention(q, ck, cv, length=ck.shape[1], pos=ck.shape[1],
+                                      cap=cfg.attn_softcap)
+        return out.reshape(b, 1, hq * hd) @ p["wo"], ck, cv
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=h1.device)
     q, k, v = _project_qkv(p, h1, cfg, positions)
     slot = (pos % ck.shape[1]) if ring else pos
@@ -265,32 +326,53 @@ def _attn_decode(p, h1, cfg: ArchConfig, ck, cv, pos: int, *, window=0, ring=Fal
 # ===========================================================================
 
 
-def _block_full(p, x, cfg: ArchConfig, *, positions, window=0):
-    """(residual) -> attn -> (residual) -> mlp. Returns (x, kv)."""
+def _gated(p, name, y, x):
+    """`y` times tanh of the block's float32 gate `name` in x's type (the
+    VLM's cross blocks), or `y` as it is (no such gate)."""
+    return torch.tanh(p[name]).to(x.dtype) * y if name in p else y
+
+
+def _block_full(p, x, cfg: ArchConfig, *, positions, window=0, causal=True, cross_src=None):
+    """(residual) -> attn -> (residual) -> mlp, each branch tanh-gated in a
+    VLM cross block. Returns (x, kv)."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    attn_out, kv = _attn_full(p["attn"], h, cfg, positions=positions, window=window)
+    attn_out, kv = _attn_full(p["attn"], h, cfg, positions=positions, window=window,
+                              causal=causal, cross_src=cross_src)
     if cfg.post_norms:
         attn_out = rms_norm(attn_out, p["ln_post_attn"], cfg.norm_eps)
-    x = x + attn_out
+    x = x + _gated(p, "gate_attn", attn_out, x)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     m = mlp(h, p["mlp"], cfg.mlp_variant)
     if cfg.post_norms:
         m = rms_norm(m, p["ln_post_mlp"], cfg.norm_eps)
-    return x + m, kv
+    return x + _gated(p, "gate_mlp", m, x), kv
 
 
-def _block_decode(p, x, cfg: ArchConfig, ck, cv, pos: int, *, window=0, ring=False):
+def _block_decode(p, x, cfg: ArchConfig, ck, cv, pos: int, *, window=0, ring=False,
+                  cross=False):
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     attn_out, ck, cv = _attn_decode(p["attn"], h, cfg, ck, cv, pos, window=window,
-                                    ring=ring)
+                                    ring=ring, cross=cross)
     if cfg.post_norms:
         attn_out = rms_norm(attn_out, p["ln_post_attn"], cfg.norm_eps)
-    x = x + attn_out
+    x = x + _gated(p, "gate_attn", attn_out, x)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     m = mlp(h, p["mlp"], cfg.mlp_variant)
     if cfg.post_norms:
         m = rms_norm(m, p["ln_post_mlp"], cfg.norm_eps)
-    return x + m, ck, cv
+    return x + _gated(p, "gate_mlp", m, x), ck, cv
+
+
+def _sinusoid(s: int, d: int, dtype, device, offset: int = 0) -> torch.Tensor:
+    """Whisper-style sinusoidal positions (s, d) for positions offset ..
+    offset + s - 1: computed in float32, returned in `dtype`."""
+    pos = offset + torch.arange(s, device=device, dtype=torch.float32)[:, None]
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(half, device=device,
+                                                        dtype=torch.float32)
+                     / max(half - 1, 1))
+    ang = pos * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ===========================================================================
@@ -379,6 +461,60 @@ def _forward_hybrid(params, cfg, tokens, *, collect_state=False):
     return x, (states if collect_state else None)
 
 
+def _forward_vlm(params, cfg, tokens, patches, *, collect_kv=False):
+    """vlm: each group's self-attention blocks, then its gated cross block
+    over the patches. Returns (hidden, per-group ([(k, v) a self layer],
+    (xk, xv)) or None)."""
+    b, s = tokens.shape
+    x = _embed_in(params, cfg, tokens)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    patches = patches.to(x.dtype)
+    kvs = []
+    for gi in range(n_cross(cfg)):
+        kv_self = []
+        for li in range(cfg.cross_attn_every - 1):
+            x, kv = _block_full(_layer(params["blk"], gi, li), x, cfg, positions=positions)
+            kv_self.append(kv)
+        x, kv_cross = _block_full(_layer(params["xblk"], gi), x, cfg, positions=positions,
+                                  cross_src=patches)
+        kvs.append((kv_self, kv_cross))
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x, (kvs if collect_kv else None)
+
+
+def _encode_audio(params, cfg, frames, dtype):
+    """Whisper's encoder over the stub's frame embeddings (B, T, D):
+    sinusoids added, non-causal blocks, its final norm."""
+    t = frames.shape[1]
+    x = frames.to(dtype) + _sinusoid(t, cfg.d_model, dtype, frames.device)[None]
+    positions = torch.arange(t, device=x.device)[None].expand(frames.shape[0], t)
+    for i in range(cfg.encoder_layers):
+        x, _ = _block_full(_layer(params["enc"], i), x, cfg, positions=positions,
+                           causal=False)
+    return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+
+
+def _forward_audio(params, cfg, tokens, frames, *, collect_kv=False):
+    """audio: the encoder, then each decoder layer's causal block and its
+    pre-normed cross-attention to the encoder output. Returns (hidden,
+    [((k, v), (xk, xv)) a layer] or None)."""
+    b, s = tokens.shape
+    x = _embed_in(params, cfg, tokens)
+    enc = _encode_audio(params, cfg, frames, x.dtype)
+    x = x + _sinusoid(s, cfg.d_model, x.dtype, x.device)[None]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    kvs = []
+    for i in range(cfg.num_layers):
+        p = _layer(params["dec"], i)
+        x, kv_self = _block_full(p, x, cfg, positions=positions)
+        h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        co, kv_cross = _attn_full(p["xattn"], h, cfg, positions=positions, cross_src=enc)
+        x = x + co
+        kvs.append((kv_self, kv_cross))
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x, (kvs if collect_kv else None)
+
+
 def forward_hidden(params, cfg: ArchConfig, batch, *, collect=False):
     """Dispatch to the family forward. Returns (hidden, caches-raw)."""
     _require_ported(cfg)
@@ -386,6 +522,12 @@ def forward_hidden(params, cfg: ArchConfig, batch, *, collect=False):
         return _forward_dense(params, cfg, batch["tokens"], collect_kv=collect)
     if cfg.arch_type == "ssm":
         return _forward_rwkv(params, cfg, batch["tokens"], collect_state=collect)
+    if cfg.arch_type == "vlm":
+        return _forward_vlm(params, cfg, batch["tokens"], batch["patches"],
+                            collect_kv=collect)
+    if cfg.arch_type == "audio":
+        return _forward_audio(params, cfg, batch["tokens"], batch["frames"],
+                              collect_kv=collect)
     return _forward_hybrid(params, cfg, batch["tokens"], collect_state=collect)
 
 
@@ -424,6 +566,15 @@ def _cache_desc(cfg: ArchConfig, b: int, cache_len: int, dtype=ACT_DTYPE) -> dic
         nl, d = cfg.num_layers, cfg.d_model
         return {"S": ((nl, b, h, dk, dk), torch.float32),
                 "ax": ((nl, b, 1, d), dtype), "fx": ((nl, b, 1, d), dtype)}
+    if cfg.arch_type == "vlm":
+        g, sp = n_cross(cfg), cfg.cross_attn_every - 1
+        return {"k": ((g, sp, b, cache_len, hkv, hd), dtype),
+                "v": ((g, sp, b, cache_len, hkv, hd), dtype),
+                "xk": kv(g, cfg.num_frontend_tokens), "xv": kv(g, cfg.num_frontend_tokens)}
+    if cfg.arch_type == "audio":
+        nl = cfg.num_layers
+        return {"k": kv(nl, cache_len), "v": kv(nl, cache_len),
+                "xk": kv(nl, cfg.encoder_tokens), "xv": kv(nl, cfg.encoder_tokens)}
     g, per = _hybrid_groups(cfg)
     h, hd_s, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     cdim = h * hd_s + 2 * ns
@@ -491,6 +642,16 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int):
     elif cfg.arch_type == "ssm":
         cache = {name: torch.stack([st[j] for st in raw])
                  for j, name in enumerate(("S", "ax", "fx"))}
+    elif cfg.arch_type == "vlm":
+        per_group = [_stack_tails(kv_self, cache_len, ring=False) for kv_self, _ in raw]
+        cache = {"k": torch.stack([k for k, _ in per_group]),
+                 "v": torch.stack([v for _, v in per_group]),
+                 "xk": torch.stack([kx for _, (kx, _) in raw]),
+                 "xv": torch.stack([vx for _, (_, vx) in raw])}
+    elif cfg.arch_type == "audio":
+        k, v = _stack_tails([kv_self for kv_self, _ in raw], cache_len, ring=False)
+        cache = {"k": k, "v": v, "xk": torch.stack([kx for _, (kx, _) in raw]),
+                 "xv": torch.stack([vx for _, (_, vx) in raw])}
     else:
         cache = {
             "S": torch.stack([torch.stack([st[0] for st in sts]) for _, sts in raw]),
@@ -516,6 +677,10 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int):
         x = _decode_dense(params, cfg, cache, x, pos)
     elif cfg.arch_type == "ssm":
         x = _decode_rwkv(params, cfg, cache, x)
+    elif cfg.arch_type == "vlm":
+        x = _decode_vlm(params, cfg, cache, x, pos)
+    elif cfg.arch_type == "audio":
+        x = _decode_audio(params, cfg, cache, x, pos)
     else:
         x = _decode_hybrid(params, cfg, cache, x, pos)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -577,3 +742,29 @@ def _decode_hybrid(params, cfg, cache, x, pos: int):
             x = x + y
     return x
 
+
+def _decode_vlm(params, cfg, cache, x, pos: int):
+    """Each group: its self-attention layers over their caches, then its
+    gated cross block over the group's static image cache."""
+    for gi in range(n_cross(cfg)):
+        for li in range(cfg.cross_attn_every - 1):
+            x, _, _ = _block_decode(_layer(params["blk"], gi, li), x, cfg, cache["k"][gi, li],
+                                    cache["v"][gi, li], pos)
+        x, _, _ = _block_decode(_layer(params["xblk"], gi), x, cfg, cache["xk"][gi],
+                                cache["xv"][gi], pos, cross=True)
+    return x
+
+
+def _decode_audio(params, cfg, cache, x, pos: int):
+    """The token's sinusoid at `pos`, then each decoder layer's block over
+    its self cache and its cross-attention over the layer's static encoder
+    cache."""
+    x = x + _sinusoid(1, cfg.d_model, x.dtype, x.device, offset=pos)[None]
+    for i in range(cfg.num_layers):
+        p = _layer(params["dec"], i)
+        x, _, _ = _block_decode(p, x, cfg, cache["k"][i], cache["v"][i], pos)
+        h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        co, _, _ = _attn_decode(p["xattn"], h, cfg, cache["xk"][i], cache["xv"][i], pos,
+                                cross=True)
+        x = x + co
+    return x

@@ -8,8 +8,11 @@ admitted only if its prompt plus its new tokens fit the cache.
 
 Each wave runs `models.model.prefill` (every RWKV6 or Mamba2 layer's scan
 through the chunk_scan kernel on the card) and then `decode_step` per new
-token (every attention layer through the decode_attn kernel), for any
-ported family: the cache is whatever `prefill` returns. Greedy
+token (every attention layer, self and cross, through the decode_attn
+kernel), for any ported family: the cache is whatever `prefill` returns.
+The audio and VLM families' prefill also takes the frontend stub's output;
+the engine passes zeros for it (`frames` (B, 1500, D), `patches` (B, 1024,
+D)), as the reference's engine does. Greedy
 sampling is argmax; a temperature draws from a `torch.Generator` on the
 engine's device seeded from `seed`, so sampled tokens differ from the
 reference's `jax.random.categorical` by construction (greedy ones do not).
@@ -82,15 +85,29 @@ class Engine(WaveScheduler):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _extra_inputs(self, b: int) -> dict:
+        """The frontend stub's output for a wave of `b`: zero frame or patch
+        embeddings in the activations' type (the weights')."""
+        cfg = self.cfg
+        dtype = self.params["embed"].dtype
+        if cfg.arch_type == "vlm":
+            return {"patches": torch.zeros((b, cfg.num_frontend_tokens, cfg.d_model),
+                                           dtype=dtype, device=self.device)}
+        if cfg.arch_type == "audio":
+            return {"frames": torch.zeros((b, cfg.encoder_tokens, cfg.d_model), dtype=dtype,
+                                          device=self.device)}
+        return {}
+
     @torch.inference_mode()
     def _run_wave(self, wave: list[Request]) -> list[Result]:
         b = len(wave)
         plen = len(wave[0].prompt)
         prompts = torch.as_tensor(np.stack([r.prompt for r in wave]).astype(np.int32),
                                   device=self.device)
+        batch = {"tokens": prompts, **self._extra_inputs(b)}
 
         t0 = timers.now()
-        cache, logits = M.prefill(self.params, self.cfg, {"tokens": prompts}, self.cache_len)
+        cache, logits = M.prefill(self.params, self.cfg, batch, self.cache_len)
         self._sync()
         prefill_s = timers.now() - t0
 

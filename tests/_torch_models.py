@@ -1,11 +1,19 @@
-"""Shared helpers of the port's model tests (dense, ssm): one reduced arch on
-both packages with the reference's weights carried across, and the runs
-the tests compare.
+"""Shared helpers of the port's model tests (dense, ssm, audio, vlm): one
+reduced arch on both packages with the reference's weights carried across,
+and the runs the tests compare.
 
 Tolerances are `tests/test_torch_hybrid.py`'s: logits within 4% of the
 reference's largest logit, caches within 2% of their scale, the port's own
 prefill/decode consistency within 2% (the reference's own test holds it
 there, `tests/test_archs_smoke.py`).
+
+The audio and VLM families take the frontend stub's output beside the
+tokens: `extras` draws it with numpy from a seed, random normal x 0.02 as
+the reference's `real_batch` does, and both sides get it in bf16. A VLM's
+cross blocks are gated by tanh(gate) with the gates zero at init, which
+would hide the cross-attention from every comparison; `model` sets both
+gates of every cross block to `GATE` on the reference's weights before
+either side uses them. That changes the weights, not the model.
 """
 
 import functools
@@ -22,6 +30,7 @@ from repro_torch.models import convert, layers, params
 from repro_torch.models import model as M
 
 LOGITS_TOL, CACHE_TOL, CONSISTENCY_TOL = 0.04, 0.02, 0.02
+GATE = 0.5  # the VLM cross blocks' gate_attn and gate_mlp in these tests
 
 
 def rel(got, want) -> float:
@@ -40,13 +49,41 @@ def model(name: str, seed: int = 0):
     reduced `name`, the reference's weights from `seed` on both sides."""
     cfg_r = ref_configs.get(name).reduced()
     cfg = configs.get(name).reduced()
-    p_r = ref_model.init_model(cfg_r, jax.random.PRNGKey(seed))
-    p = convert.params_from_reference(jax.tree.map(np.asarray, p_r), device="cpu")
+    p_np = jax.tree.map(np.asarray, ref_model.init_model(cfg_r, jax.random.PRNGKey(seed)))
+    if "xblk" in p_np:  # nonzero gates, so that the cross blocks count
+        for gate in ("gate_attn", "gate_mlp"):
+            p_np["xblk"][gate] = np.full_like(p_np["xblk"][gate], GATE)
+    p_r = jax.tree.map(jnp.asarray, p_np)
+    p = convert.params_from_reference(p_np, device="cpu")
     return cfg_r, cfg, p_r, p
 
 
 def tokens(cfg, n: int, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, n)).astype(np.int32)
+
+
+def extras(cfg, b: int = 2, seed: int = 1) -> dict:
+    """The frontend stub's output of the audio (`frames`) and VLM
+    (`patches`) families, float32 numpy (empty for the others)."""
+    name, n = {"audio": ("frames", cfg.encoder_tokens),
+               "vlm": ("patches", cfg.num_frontend_tokens)}.get(cfg.arch_type, (None, 0))
+    if name is None:
+        return {}
+    rng = np.random.default_rng(seed)
+    return {name: (rng.standard_normal((b, n, cfg.d_model)) * 0.02).astype(np.float32)}
+
+
+def ref_batch(cfg, toks: np.ndarray) -> dict:
+    """The reference's batch: the tokens and `extras` in bf16."""
+    return {"tokens": jnp.asarray(toks),
+            **{k: jnp.asarray(a, jnp.bfloat16) for k, a in extras(cfg, len(toks)).items()}}
+
+
+def port_batch(cfg, toks) -> dict:
+    """The port's batch: the same tokens and `extras` in bf16."""
+    return {"tokens": torch.as_tensor(np.asarray(toks)),
+            **{k: torch.tensor(a).to(torch.bfloat16)
+               for k, a in extras(cfg, len(toks)).items()}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,9 +93,9 @@ def teacher_forced(name: str, prompt: int, cache_len: int, steps: int):
     cache, logits))] a step, numpy copies."""
     cfg_r, cfg, p_r, p = model(name)
     toks = tokens(cfg, prompt + steps)
-    c_r, l_r = ref_model.prefill(p_r, cfg_r, {"tokens": jnp.asarray(toks[:, :prompt])},
+    c_r, l_r = ref_model.prefill(p_r, cfg_r, ref_batch(cfg, toks[:, :prompt]),
                                  cache_len=cache_len)
-    c, lg = M.prefill(p, cfg, {"tokens": torch.tensor(toks[:, :prompt])}, cache_len)
+    c, lg = M.prefill(p, cfg, port_batch(cfg, toks[:, :prompt]), cache_len)
     out = [((jax.tree.map(np.asarray, c_r), np.asarray(l_r)),
             (convert.cache_to_numpy(c), lg.numpy()))]
     for i in range(steps):
@@ -77,7 +114,7 @@ def decode_from_reference_cache(name: str, prompt: int, cache_len: int):
     reference's step: (reference cache, logits, port cache, logits)."""
     cfg_r, cfg, p_r, p = model(name)
     toks = tokens(cfg, prompt + 1)
-    c_r, _ = ref_model.prefill(p_r, cfg_r, {"tokens": jnp.asarray(toks[:, :prompt])},
+    c_r, _ = ref_model.prefill(p_r, cfg_r, ref_batch(cfg, toks[:, :prompt]),
                                cache_len=cache_len)
     c = convert.cache_from_reference(jax.tree.map(np.asarray, c_r), device="cpu")
     for key, a in c_r.items():
@@ -91,7 +128,7 @@ def decode_from_reference_cache(name: str, prompt: int, cache_len: int):
 
 def full_logits(p, cfg, toks: torch.Tensor) -> np.ndarray:
     """The port's last-token logits of one causal forward over `toks`."""
-    h, _ = M.forward_hidden(p, cfg, {"tokens": toks})
+    h, _ = M.forward_hidden(p, cfg, port_batch(cfg, toks))
     return layers.logits_last(h[:, -1], M.unembed_table(p, cfg), cfg.final_softcap).numpy()
 
 
@@ -101,7 +138,7 @@ def prefill_decode_rels(name: str, prompt: int, cache_len: int, steps: int, seed
     against the full forward over the tokens up to it (rel a step)."""
     _, cfg, _, p = model(name)
     toks = torch.tensor(tokens(cfg, prompt + steps, seed))
-    cache, _ = M.prefill(p, cfg, {"tokens": toks[:, :prompt]}, cache_len)
+    cache, _ = M.prefill(p, cfg, port_batch(cfg, toks[:, :prompt]), cache_len)
     rels = []
     for i in range(steps):
         cache, dec = M.decode_step(p, cfg, cache, toks[:, prompt + i], prompt + i)

@@ -1267,7 +1267,36 @@ def test_decode_attn_merge_kernel_matches_merge_partials_on_card(card, dtype, pa
         torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
 
 
-# -- the hybrid serving path -------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("s,hkv,g,hd,pos,length", [
+    (448, 8, 1, 64, 130, 131),       # whisper-base's self cache (448 slots), its last step
+    (1500, 8, 1, 64, 1500, 1500),    # whisper-base's encoder cache: every slot, 1500 % 64 = 28
+    (2048, 8, 8, 128, 542, 543),     # llama-3.2-vision's self cache after a 512-token prompt
+    (1024, 8, 8, 128, 1024, 1024),   # llama-3.2-vision's image cache: every slot, G = MAX_G
+])
+def test_decode_attn_served_cross_family_shapes_on_card(card, dtype, b, s, hkv, g, hd, pos,
+                                                        length):
+    """The four decode_attn shapes the audio and VLM decode steps give the
+    kernel, self (`length = pos + 1`) and cross (`length = pos = S`)."""
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q, k, v = _attn_inputs(b, s, hkv, g, hd, dtype, s + pos + b, card)
+    kw = dict(length=length, pos=pos)
+    before = da_ops.decode_attention.launches
+    out = da_ops.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 1
+    want = da_ops.decode_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(out.float()).all()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), want.float(), atol=1e-5, rtol=1e-2)
+    else:
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+
+
+# -- the serving paths ---------------------------------------------------------
 
 
 @pytest.mark.cuda
@@ -1307,3 +1336,43 @@ def _to(tree, device):
 def _rel(a, b):
     a, b = a.float().cpu(), b.float().cpu()
     return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-90b"])
+def test_cross_families_on_card_match_the_cpu(card, arch):
+    """The reduced audio and VLM models on the card (decode_attn, self and
+    cross) against the port on the CPU (its plain version): same weights
+    (the VLM's gates set to 0.5, so its cross blocks count), same tokens and
+    frames or patches; one kernel call a self and a cross layer a step."""
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attn import ops as da_ops
+    from repro_torch.models import model as M
+
+    cfg = configs.get(arch).reduced()
+    params = M.init_model(cfg, seed=0, device=card)
+    if "xblk" in params:
+        for gate in ("gate_attn", "gate_mlp"):
+            params["xblk"][gate].fill_(0.5)
+    cpu_params = _to(params, "cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 15)).astype(np.int32))
+    name, n = (("frames", cfg.encoder_tokens) if cfg.arch_type == "audio"
+               else ("patches", cfg.num_frontend_tokens))
+    src = torch.tensor(rng.standard_normal((2, n, cfg.d_model)).astype(np.float32) * 0.02)
+    src = src.to(torch.bfloat16)
+    before = da_ops.decode_attention.launches
+    cache, logits = M.prefill(params, cfg, {"tokens": toks[:, :12].to(card),
+                                            name: src.to(card)}, 32)
+    cache_c, logits_c = M.prefill(cpu_params, cfg, {"tokens": toks[:, :12], name: src}, 32)
+    rels = [_rel(logits, logits_c)]
+    for i in range(3):
+        cache, logits = M.decode_step(params, cfg, cache, toks[:, 12 + i].to(card), 12 + i)
+        cache_c, logits_c = M.decode_step(cpu_params, cfg, cache_c, toks[:, 12 + i], 12 + i)
+        rels.append(_rel(logits, logits_c))
+    torch.cuda.synchronize()
+    per_step = 2 * cfg.num_layers if cfg.arch_type == "audio" else cfg.num_layers
+    assert da_ops.decode_attention.launches == before + 3 * per_step
+    assert max(rels) < 0.04, rels
+    for key in cache:
+        assert _rel(cache[key], cache_c[key]) < 0.04, key

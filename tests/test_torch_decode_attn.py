@@ -86,6 +86,19 @@ def test_the_path_head_widths(g, hd):
            cap=50.0, kv_block=32)
 
 
+@pytest.mark.parametrize("s", [100, 1500])
+@pytest.mark.parametrize("g,hd", [(1, 64), (8, 128)])
+def test_cross_attention_shape(s, g, hd):
+    """The cross-attention call of the audio and VLM decode steps: a static
+    cache of S encoder frames or image patches, every slot valid (`length =
+    pos = S`, no window), S not a multiple of the kernel's 64-position tile
+    (1,500 is whisper's frame count); G 1 at hd 64 (whisper), G 8 at hd 128
+    (llama-3.2-vision, the kernel's largest G)."""
+    _check(_case(s + g, 2, s, 2, g, hd), length=s, pos=s)
+    assert ops.valid_positions(s, length=s, pos=s, device="cpu").all()
+    assert ops.any_valid(s, length=s, pos=s)
+
+
 def test_bf16_cache():
     _check(_case(5, 2, 128, 2, 4, 64), tol=3e-2, jdtype=jnp.bfloat16,
            tdtype=torch.bfloat16, length=128, pos=127)
