@@ -211,6 +211,35 @@ Phases:
                  the card against the port on the CPU at published widths:
                  whisper 2 encoder + 2 decoder layers, the VLM 1 self + 1
                  gated cross layer, on random frames or patches; within 4%
+ 20. moe_serve   the MoE family at published widths, weights from seed 0,
+                 each freed before the next, holding expert shard 0 of 8
+                 (16 of 128 experts a MoE layer; the router's 128 outputs
+                 and top-k as published; `MOE_SERVE`): arctic-480b at 10
+                 layers (19.4 B) and llama4-maverick-400b-a17b at 12 (6
+                 dense / MoE pairs, 17.2 B), each through
+                 `Engine(cache_len=8192, max_batch=8)` on 2 x 4096 greedy, 8
+                 x 512 greedy (one wave) and 1 x 512 at 0.8, 32 new tokens
+                 each; counts zeroed before the run and read after
+                 (decode_attn num_layers calls a decode step: 10 and 12, G 7
+                 and G 5; no chunk_scan); prefill ms a wave, decode ms a
+                 step, tokens/s, peak memory, the profile; prefill/decode
+                 over 12 teacher-forced steps after 512 tokens at the served
+                 capacity (cf 2.0) and at no-drop capacity (cf = E), the
+                 dropped pairs a MoE layer of each forward filed, within 2%
+                 in bf16 (the served comparison gates where nothing dropped,
+                 else the no-drop one), and each MoE layer's routing spread
+                 in the served prefill (router logits' spread across
+                 positions and across experts, the hidden state's share
+                 common to all positions, the busiest expert's share)
+ 21. moe_parity  the card against the port on the CPU at published widths,
+                 2 layers at the served share (Arctic 2 MoE layers,
+                 Maverick one pair), a 128-token prompt, within 4%; and
+                 `moe_layer` alone on the first MoE layer's weights at the
+                 prefill's shape (one bf16 input of 128 tokens, cf 2.0) and
+                 the decode step's (16 inputs of 8 sequences x 1 token, cf =
+                 E): the picks equal but at counted near-ties (top-k margin
+                 under 1e-5), the output and its routed part within 1%, the
+                 held pairs counted (none fails)
 Phase 1 also holds both batched kernels against their plain versions over M
 in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 x both
 noise or draw modes (x S in {2, 4} for alias_mh), the packed-table entry in
@@ -236,7 +265,8 @@ decode step gives it (`SERVED_DECODE`: zamba2's rings, qwen2's GQA, gemma2's
 hd 256 capped rings and flat caches, gemma-7b's, phi3's, whisper's and the
 VLM's self caches; B 2 and 1) at up to seven positions in bf16, and the
 cross-attention shapes (whisper's 1,500 frames at G 1 hd 64, the VLM's 1,024
-patches at G 8 hd 128; every slot valid) at their one served call, each
+patches at G 8 hd 128; every slot valid) at their one served call, and the
+MoE archs' (G 7 and G 5, hd 128, 8,192 rows; B 2, 8 and 1), each
 timed at its heaviest served step, plus its
 merge kernel alone against `merge_partials` (partitions with no valid slot
 included);
@@ -263,7 +293,8 @@ the zoo's and the mesh phase's); resample_quant's the popular
 product's int8 and int4 runs (`packed`) and the case study's
 (`packed_case_study`). `chunk_scan` is the Mamba2 entry, whose launches
 are hybrid_serve's; `chunk_scan.general`'s are rwkv_serve's and
-decode_attn's hybrid_serve's, dense_serve's and cross_serve's, both with
+decode_attn's hybrid_serve's, dense_serve's, cross_serve's and moe_serve's,
+both with
 `by_shape` rows by arch and served shape (`calls_by_shape` files every call
 a serving run makes; a cross call under its own key).
 `lda_gibbs.pack_word_table`, the packed sweep's
@@ -3140,12 +3171,16 @@ RWKV6_SERVED = [dict(b=b, s=s, h=32, dk=64, dv=64) for b, s in ((2, 4096), (2, 5
 # its 64-token wave's 126. A cross-attention entry (`_CROSS`) is the static
 # encoder or image cache, every slot read: it is checked and timed at `length
 # = pos = S`, its one served call. Keyed as `attn_key` files the served calls.
+# The MoE archs' waves (`MOE_MIX`): 2 x 4096, one wave of 8 x 512 and 1 x 512,
+# so B 2, 8 and 1, at G 7 (Arctic, 56 / 8 heads) and G 5 (Maverick, 40 / 8).
 _RING = dict(window=4096, ring=True)
 _CROSS = dict(cross=True)
 WHISPER_SELF, WHISPER_CROSS = dict(b=2, s=448, hkv=8, g=1, hd=64), dict(b=2, s=1500, hkv=8,
                                                                        g=1, hd=64)
 VISION_SELF, VISION_CROSS = dict(b=2, s=2048, hkv=8, g=8, hd=128), dict(b=2, s=1024, hkv=8,
                                                                        g=8, hd=128)
+ARCTIC_DECODE = dict(b=2, s=8192, hkv=8, g=7, hd=128)
+MAVERICK_DECODE = dict(b=2, s=8192, hkv=8, g=5, hd=128)
 SERVED_DECODE = [
     ("zamba2-2.7b", dict(ZAMBA2_DECODE), _RING, 4126),
     ("zamba2-2.7b", dict(ZAMBA2_DECODE, b=1), _RING, 542),
@@ -3166,6 +3201,12 @@ SERVED_DECODE = [
     ("llama-3.2-vision-90b self", dict(VISION_SELF, b=1), {}, 542),
     ("llama-3.2-vision-90b cross", VISION_CROSS, _CROSS, 1024),
     ("llama-3.2-vision-90b cross", dict(VISION_CROSS, b=1), _CROSS, 1024),
+    ("arctic-480b", ARCTIC_DECODE, {}, 4126),
+    ("arctic-480b", dict(ARCTIC_DECODE, b=8), {}, 542),
+    ("arctic-480b", dict(ARCTIC_DECODE, b=1), {}, 542),
+    ("llama4-maverick-400b-a17b", MAVERICK_DECODE, {}, 4126),
+    ("llama4-maverick-400b-a17b", dict(MAVERICK_DECODE, b=8), {}, 542),
+    ("llama4-maverick-400b-a17b", dict(MAVERICK_DECODE, b=1), {}, 542),
 ]
 
 
@@ -3709,11 +3750,12 @@ def scan_key(_w, k, v, *_, include_current, chunk, **__):
             "mamba2" if include_current else "rwkv6")
 
 
-def engine_run(cfg, params, requests, cache_len=SERVE["cache_len"]):
+def engine_run(cfg, params, requests, cache_len=SERVE["cache_len"],
+               max_batch=SERVE["max_batch"]):
     """The served main path: `Engine(cache_len=8192, max_batch=2)` (or
-    `cache_len`) over `requests`, every kernel count zeroed just before `run`
-    and read just after, the general chunk_scan and decode_attn calls filed
-    by shape.
+    `cache_len`, `max_batch`) over `requests`, every kernel count zeroed
+    just before `run` and read just after, the general chunk_scan and
+    decode_attn calls filed by shape.
     Returns (results, {"waves", "run_s", "peak_mem_bytes", "launches",
     "by_shape"})."""
     import torch
@@ -3722,7 +3764,7 @@ def engine_run(cfg, params, requests, cache_len=SERVE["cache_len"]):
     from repro_torch.kernels.decode_attn import ops as da_ops
     from repro_torch.serving.engine import Engine
 
-    eng = Engine(cfg, params, cache_len=cache_len, max_batch=SERVE["max_batch"],
+    eng = Engine(cfg, params, cache_len=cache_len, max_batch=max_batch,
                  seed=SERVE["seed"], device="cuda")
     for r in requests:
         eng.submit(r)
@@ -3932,26 +3974,28 @@ def free_cuda():
 
 
 def prefill_decode_rels(params, cfg, toks, prompt, *, unroll=(), extra=None,
-                        cache_len=SERVE["cache_len"]):
+                        cache_len=SERVE["cache_len"], capacity_factor=None):
     """Prefill toks[:, :prompt] (cache 8192, or `cache_len`; `extra`: the
     frames or patches beside the tokens), then teacher-force the rest one
     decode step each: every step's logits against one causal forward over
     all of `toks` at that position (rel a step). With `unroll` (the cache's
     ring keys), the same steps from a copy whose ring tails are unrolled into
     slots 0..w-1 (the reference's layout past the window: the fault the gate
-    is there to catch) give a second list."""
+    is there to catch) give a second list. `capacity_factor`: a MoE model's
+    prefill and full forward at that factor (the served 2.0 if None)."""
     import torch
 
     from repro_torch.models import layers
     from repro_torch.models import model as M
 
     extra = extra or {}
-    cache, _ = M.prefill(params, cfg, {"tokens": toks[:, :prompt], **extra}, cache_len)
+    cf = {} if capacity_factor is None else {"capacity_factor": capacity_factor}
+    cache, _ = M.prefill(params, cfg, {"tokens": toks[:, :prompt], **extra}, cache_len, **cf)
     faulty = None
     if unroll:  # decode_step writes the cache in place, so the copy is made first
         faulty = {key: torch.roll(t, -(prompt % t.shape[-3]), dims=-3) if key in unroll
                   else t.clone() for key, t in cache.items()}
-    h, _ = M.forward_hidden(params, cfg, {"tokens": toks, **extra})
+    h, _ = M.forward_hidden(params, cfg, {"tokens": toks, **extra}, **cf)
     table = M.unembed_table(params, cfg)
     rels, rels_faulty = [], []
     for pos in range(prompt, toks.shape[1]):
@@ -4213,13 +4257,14 @@ def phase_rwkv_serve():
     return out
 
 
-def card_vs_cpu(cfg, seed, prompt=16, steps=2):
+def card_vs_cpu(cfg, seed, prompt=16, steps=2, check=None):
     """The card (the kernels) against the port on the CPU (their plain
     versions) on one model drawn on the card from `seed` and copied: prefill
     logits and `steps` teacher-forced decode steps (rel each), and the
     largest cache gap after them. An audio or VLM model gets random frames
     or patches (`frontend`), a VLM's cross blocks nonzero gates
-    (`open_gates`)."""
+    (`open_gates`). `check(params, cpu_params, cfg)`, if given, runs on both
+    copies before they are freed; its dict joins the result."""
     import numpy as np
     import torch
 
@@ -4243,12 +4288,15 @@ def card_vs_cpu(cfg, seed, prompt=16, steps=2):
                         dtype=torch.int32)
     prev = torch.get_num_threads()
     torch.set_num_threads(8)
+    cache_len = max(64, prompt + steps)
     try:
         with torch.inference_mode():
-            cache, lg = M.prefill(params, cfg, {"tokens": toks[:, :prompt].cuda(), **extra}, 64)
+            cache, lg = M.prefill(params, cfg, {"tokens": toks[:, :prompt].cuda(), **extra},
+                                  cache_len)
             t0 = time.perf_counter()
             cache_c, lg_c = M.prefill(cpu, cfg, {"tokens": toks[:, :prompt],
-                                                 **{k: t.cpu() for k, t in extra.items()}}, 64)
+                                                 **{k: t.cpu() for k, t in extra.items()}},
+                                      cache_len)
             rels = [_rel(lg.cpu(), lg_c)]
             for i in range(steps):
                 pos = prompt + i
@@ -4257,32 +4305,40 @@ def card_vs_cpu(cfg, seed, prompt=16, steps=2):
                 rels.append(_rel(lg.cpu(), lg_c))
             cpu_s = time.perf_counter() - t0
             cache_rel = {k: _rel(cache[k].cpu(), cache_c[k]) for k in cache}
+            checked = check(params, cpu, cfg) if check else {}
     finally:
         torch.set_num_threads(prev)
     del params, cpu, cache
     free_cuda()
     return {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
             "prompt": prompt, "logits_rel": rels, "cache_rel": cache_rel,
-            "cpu_side_s": round(cpu_s, 3)}
+            "cpu_side_s": round(cpu_s, 3), **checked}
 
 
-def _parity_phase(phase, names, layers=2, seed=1, cuts=None):
+def _parity_phase(phase, names, layers=2, seed=1, cuts=None, share=None, prompt=16,
+                  check=None):
     """`card_vs_cpu` for each arch at its published widths cut to `layers`
     layers (two: one local/global pair for gemma2; `cuts`: other fields cut
-    by arch), limit 0.04 on logits and caches."""
+    by arch; `share`: (shard, shards) of a MoE arch's experts), limit 0.04 on
+    logits and caches; `check` as `card_vs_cpu`'s, its `failed` gating too."""
     from repro_torch import configs
 
     t0 = time.perf_counter()
     cuts = cuts or {}
-    runs = [card_vs_cpu(dataclasses.replace(configs.get(n), num_layers=layers,
-                                            **cuts.get(n, {})), seed)
-            for n in names]
+    runs = []
+    for n in names:
+        cfg = configs.get(n)
+        if share:
+            cfg = configs.expert_share(cfg, *share)
+        runs.append(card_vs_cpu(dataclasses.replace(cfg, num_layers=layers, **cuts.get(n, {})),
+                                seed, prompt=prompt, check=check))
     out = {"phase": phase, "runs": runs, "limit": 0.04, "phase_s": time.perf_counter() - t0}
     emit(out)
-    bad = [(r["arch"], r["logits_rel"], r["cache_rel"]) for r in runs
-           if max(r["logits_rel"]) >= 0.04 or max(r["cache_rel"].values()) >= 0.04]
+    bad = [(r["arch"], r["logits_rel"], r["cache_rel"], r.get("failed")) for r in runs
+           if max(r["logits_rel"]) >= 0.04 or max(r["cache_rel"].values()) >= 0.04
+           or r.get("failed")]
     if bad:
-        raise SystemExit(f"{phase}: card vs CPU past 0.04: {bad}")
+        raise SystemExit(f"{phase}: card vs CPU past 0.04 or a check failed: {bad}")
     return out
 
 
@@ -4428,6 +4484,290 @@ def phase_cross_parity():
         "whisper-base": dict(encoder_layers=2), "llama-3.2-vision-90b": dict(cross_attn_every=2)})
 
 
+# -- phases 20-21: the MoE serving family ---------------------------------------
+
+# Each MoE arch at its published widths, cut in depth, holding expert shard 0
+# of 8 (16 of 128 experts a MoE layer: one card of an 8-card node serving the
+# model expert parallel 8 ways; the cut layers would lie on further nodes, as
+# pipeline stages). The router keeps its 128 outputs and its top-k. Arctic: 10
+# of 35 layers (each MoE + dense residual), 19.4 B parameters, 38.9 GB;
+# Maverick: 12 of 48 layers (6 dense / MoE pairs), 17.2 B, 34.4 GB, the
+# 202,048-row vocabulary whole.
+MOE_SERVE = {"arctic-480b": dict(layers=10, share=(0, 8)),
+             "llama4-maverick-400b-a17b": dict(layers=12, share=(0, 8))}
+# 2 x 4096 greedy, one wave of 8 x 512 greedy (8 tokens a decode step on the
+# experts: 16 pairs for Arctic's top-2) and 1 x 512 at 0.8, 32 new tokens each.
+MOE_MIX = ((4096, 0.0),) * 2 + ((512, 0.0),) * 8 + ((512, 0.8),)
+MOE_MAX_BATCH = 8
+MOE_PROMPT, MOE_STEPS, MOE_LIMIT = 512, 12, 0.02  # the consistency gate, bf16
+MOE_PARITY_PROMPT = 128
+# Decode-shaped (8, 1, D) inputs `moe_layer_check` holds: 128 tokens, so the
+# 16 held experts of 128 get pairs (4 draws gave Maverick's top-1 none).
+MOE_DECODE_DRAWS = 16
+
+
+def routing_spread(p, x, cfg):
+    """Why a prefill's pairs crowd onto few experts: over the tokens of x (B,
+    S, D), the router logits' standard deviation across positions (the mean
+    over experts), the standard deviation across experts of their mean
+    logit, the share of the hidden state's energy common to all positions
+    (|mean x|^2 / mean |x|^2), and the busiest expert's share of the pairs
+    and the experts that get any. 0-d device tensors (no sync)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    xt = x.reshape(-1, x.shape[-1]).float()
+    probs, logits = moe.router_probs(xt, p["router"])
+    _, idx = moe.route(probs, cfg.experts_per_token)
+    load = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
+    return {"logit_sd_positions": logits.std(dim=0).mean(),
+            "logit_sd_experts": logits.mean(dim=0).std(),
+            "common_share": xt.mean(dim=0).pow(2).sum() / xt.pow(2).sum(dim=1).mean(),
+            "top_expert_share": load.max() / idx.numel(),
+            "experts_hit": (load > 0).sum()}
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """While open, every `moe.moe_layer` call files (tokens a sequence, the
+    capacity factor, its dropped pairs as a device tensor, its
+    `routing_spread` over 2+ tokens a sequence); read with `.item()` after the work (no sync inside
+    it)."""
+    from repro_torch.models import moe
+
+    real = moe.moe_layer
+    filed = []
+
+    def filing(p, x, cfg, **kw):
+        out, aux = real(p, x, cfg, **kw)
+        spread = routing_spread(p, x, cfg) if x.shape[1] > 1 else None
+        filed.append((x.shape[1], kw.get("capacity_factor"), aux["dropped"], spread))
+        return out, aux
+
+    moe.moe_layer = filing
+    try:
+        yield filed
+    finally:
+        moe.moe_layer = real
+
+
+def _drops_by_length(filed):
+    """{tokens a sequence: [dropped pairs a MoE layer call]} of `moe_drops`."""
+    out = {}
+    for n, _, dropped, _ in filed:
+        out.setdefault(str(n), []).append(int(dropped.item()))
+    return out
+
+
+def _spread_of_prompt(filed, n):
+    """`routing_spread` of each MoE layer call over `n` tokens a sequence."""
+    return [{key: float(v) for key, v in spread.items()}
+            for length, _, _, spread in filed if length == n]
+
+
+def moe_consistency(params, cfg):
+    """Prefill `MOE_PROMPT` tokens and teacher-force `MOE_STEPS` decode steps
+    (no drop: cf = E) against the full forward at each position, twice: at
+    the served capacity (prefill and full forward at cf 2.0) and at no-drop
+    capacity (both at cf = E). The dropped pairs a MoE layer of each forward
+    are filed, and each MoE layer's `routing_spread` in the served prefill.
+    Where the served prefill and full forward drop nothing, the served
+    comparison gates; else the no-drop one (the drops are the reference's
+    semantics, not a fault)."""
+    toks = _rand_tokens(cfg, MOE_PROMPT + MOE_STEPS, SERVE["seed"] + 2)
+    out = {}
+    for label, cf in (("served", None), ("no_drop", float(cfg.num_experts))):
+        with moe_drops() as filed:
+            rels = prefill_decode_rels(params, cfg, toks, MOE_PROMPT, capacity_factor=cf)[0]
+        out[label] = {"prefill_decode_rel_by_step": rels,
+                      "dropped_by_tokens": _drops_by_length(filed)}
+        if label == "served":
+            out["routing_by_layer"] = _spread_of_prompt(filed, MOE_PROMPT)
+    drops = out["served"]["dropped_by_tokens"]
+    served_dropped = sum(sum(drops[str(n)]) for n in (MOE_PROMPT, MOE_PROMPT + MOE_STEPS))
+    out["gating"] = "served" if served_dropped == 0 else "no_drop"
+    out["limit"] = MOE_LIMIT
+    out["failed"] = [msg for bad, msg in (
+        (max(out[out["gating"]]["prefill_decode_rel_by_step"]) >= MOE_LIMIT,
+         f"prefill/decode rel ({out['gating']}) "
+         f"{out[out['gating']]['prefill_decode_rel_by_step']} (limit {MOE_LIMIT})"),
+        (any(sum(v) for v in out["no_drop"]["dropped_by_tokens"].values()),
+         f"no-drop capacity dropped {out['no_drop']['dropped_by_tokens']}"),
+        (any(d for label in ("served", "no_drop")
+             for d in out[label]["dropped_by_tokens"].get("1", [])),
+         "a decode step dropped a pair"),
+    ) if bad]
+    return out
+
+
+def moe_serve_arch(name):
+    """One MoE arch at its published widths, cut and shared as `MOE_SERVE`
+    says, weights from seed 0, through `engine_run` (`Engine(cache_len=8192,
+    max_batch=8)`) on `MOE_MIX`: decode_attn num_layers calls a decode step,
+    no chunk_scan; the prefill/decode consistency gate (`moe_consistency`)
+    and where the time goes. Frees the model."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import params as plib
+
+    spec = MOE_SERVE[name]
+    cfg = dataclasses.replace(configs.expert_share(configs.get(name), *spec["share"]),
+                              num_layers=spec["layers"])
+    free_cuda()
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, seed=SERVE["seed"], device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    requests = _serve_requests(cfg.vocab_size, MOE_MIX)
+    results, run = engine_run(cfg, params, requests, max_batch=MOE_MAX_BATCH)
+    expected = {"chunk_scan": 0, "decode_attn": cfg.num_layers * run["decode_steps"]}
+    lo, hi = cfg.expert_slice
+    out = {"arch": name, "layers": cfg.num_layers, "experts_held": [lo, hi],
+           "experts": cfg.num_experts, "experts_per_token": cfg.experts_per_token,
+           "params": plib.count_params(params), "param_bytes": plib.tree_bytes(params),
+           "init_s": round(init_s, 3), "requests": len(requests), **run,
+           "launches_expected": expected,
+           "decode_attn_calls_per_step": run["launches"]["decode_attn"] / run["decode_steps"]}
+    with torch.inference_mode():
+        out["consistency"] = moe_consistency(params, cfg)
+        out["profile"] = profile_serving(params, cfg, requests[0].prompt)
+    del params, results
+    free_cuda()
+    out["failed"] = [msg for bad, msg in (
+        (run["launches"] != expected, f"launches {run['launches']}, expected {expected}"),
+        *((True, msg) for msg in out["consistency"]["failed"]),
+        (not out["profile"]["finite_logits"], "logits not finite"),
+    ) if bad]
+    return out
+
+
+def phase_moe_serve():
+    """The MoE family: `arctic-480b` and `llama4-maverick-400b-a17b` at
+    published widths, cut in depth, expert shard 0 of 8, each through
+    `Engine` on `MOE_MIX` and freed before the next (`moe_serve_arch`)."""
+    t0 = time.perf_counter()
+    runs = [moe_serve_arch(name) for name in MOE_SERVE]
+    out = {"phase": "moe_serve", "runs": runs, "phase_s": time.perf_counter() - t0}
+    emit(out)
+    failed = [f"{r['arch']}: {msg}" for r in runs for msg in r["failed"]]
+    if failed:
+        raise SystemExit("moe_serve: " + "; ".join(failed))
+    return out
+
+
+def _first_moe_layer(tree):
+    stack = tree["moe_blk"] if "moe_blk" in tree else tree["blk"]
+    return {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict) else v[0])
+            for k, v in stack["moe"].items()}
+
+
+def _moe_layer_case(lp, lp_c, cfg, xs_c, cf, limit):
+    """`moe_layer` card against CPU on the bf16 inputs `xs_c` (each (B, S,
+    D), one call a side each) at capacity factor `cf`; see
+    `moe_layer_check`."""
+    import torch
+
+    from repro_torch.models import moe
+
+    k, e = cfg.experts_per_token, cfg.num_experts
+    lo, hi = cfg.expert_slice
+    routed = dataclasses.replace(cfg, moe_dense_ff=0)
+    tally = dict(picks_differ=0, near_ties=0, picks_differ_not_near_tie=0,
+                 tokens_compared=0, held_pairs=0, dropped=0, dropped_cpu=0)
+    probs_err = 0.0
+    outs = {"out": ([], []), "routed": ([], [])}
+    for x_c in xs_c:
+        x, n = x_c.cuda(), x_c.shape[0] * x_c.shape[1]
+        probs, _ = moe.router_probs(x.reshape(n, -1), lp["router"])
+        probs_c, _ = moe.router_probs(x_c.reshape(n, -1), lp_c["router"])
+        _, idx = moe.route(probs, k)
+        _, idx_c = moe.route(probs_c, k)
+        top = torch.sort(probs_c, dim=-1, descending=True).values[:, :k + 1]
+        near = (top[:, :-1] - top[:, 1:]).min(dim=-1).values < NEAR_TIE
+        differ = (idx.cpu() != idx_c).any(dim=-1)
+        cap = moe.capacity(n, k, cf, e)
+        _, keep = moe.slots(idx.reshape(-1), e, cap)
+        _, keep_c = moe.slots(idx_c.reshape(-1), e, cap)
+        same = ~differ & (keep.cpu() == keep_c).reshape(n, k).all(dim=-1)
+        held = ((keep_c & (idx_c.reshape(-1) >= lo) & (idx_c.reshape(-1) < hi)).reshape(n, k)
+                & same[:, None])  # compared tokens' pairs on the held experts
+        probs_err = max(probs_err, float((probs.cpu() - probs_c).abs().max()))
+        for key, v in (("picks_differ", differ), ("near_ties", near),
+                       ("picks_differ_not_near_tie", differ & ~near),
+                       ("tokens_compared", same), ("held_pairs", held)):
+            tally[key] += int(v.sum())
+        for label, c in (("out", cfg), ("routed", routed)):
+            out, aux = moe.moe_layer(lp, x, c, capacity_factor=cf)
+            out_c, aux_c = moe.moe_layer(lp_c, x_c, c, capacity_factor=cf)
+            outs[label][0].append(out.cpu().reshape(n, -1)[same])
+            outs[label][1].append(out_c.reshape(n, -1)[same])
+        tally["dropped"] += int(aux["dropped"])
+        tally["dropped_cpu"] += int(aux_c["dropped"])
+    result = {"inputs": f"{len(xs_c)} x {tuple(xs_c[0].shape[:2])}", "cf": cf, "cap": cap,
+              "probs_max_abs_err": probs_err, **tally, "limit": limit}
+    for label, (got, want) in outs.items():
+        got, want = torch.cat(got), torch.cat(want)
+        result[f"{label}_rms"] = float(want.float().pow(2).mean().sqrt())
+        result[f"{label}_rel"] = _rel(got, want) if want.abs().max() > 0 else None
+    result["failed"] = [msg for bad, msg in (
+        (result["picks_differ_not_near_tie"] > 0,
+         f"{result['picks_differ_not_near_tie']} tokens' picks differ away from a near-tie"),
+        (result["held_pairs"] == 0, "no pair on a held expert: the routed part is untested"),
+        (result["held_pairs"] and max(result["out_rel"], result["routed_rel"]) >= limit,
+         f"moe_layer card vs CPU {result['out_rel']} / routed {result['routed_rel']} "
+         f"(limit {limit})"),
+    ) if bad]
+    return result
+
+
+def moe_layer_check(params, cpu, cfg, seed=7, limit=0.01):
+    """`moe_layer` alone, card against CPU, on the first MoE layer's weights,
+    at the prefill's shape (one bf16 input of `MOE_PARITY_PROMPT` tokens at
+    the served prefill capacity, cf 2.0) and at the decode step's
+    (`MOE_DECODE_DRAWS` inputs of 8 sequences x 1 token at cf = E, no drop):
+    the routing probabilities' largest gap (the float32 router: TF32 off),
+    the (token, choice) picks equal but at near-ties (top k+1 margin under
+    `NEAR_TIE` in probability, counted), the drops, the pairs on the held
+    experts (none fails: the routed part would go untested), and the output
+    within `limit` of its scale on every token whose picks and slots agree,
+    whole and its routed part alone (the layer without its dense branch: at
+    these random weights the routed part is small beside the dense one, so
+    the whole output alone would hide it)."""
+    import torch
+
+    from repro_torch.models.model import PREFILL_CAPACITY
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("moe_parity: TF32 is on; the router must be float32")
+    lp, lp_c = _first_moe_layer(params), _first_moe_layer(cpu)
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(b, s):
+        return torch.randn(b, s, cfg.d_model, generator=gen).to(torch.bfloat16)
+
+    result = {
+        "prefill": _moe_layer_case(lp, lp_c, cfg, [draw(1, MOE_PARITY_PROMPT)],
+                                   PREFILL_CAPACITY, limit),
+        "decode": _moe_layer_case(lp, lp_c, cfg,
+                                  [draw(MOE_MAX_BATCH, 1) for _ in range(MOE_DECODE_DRAWS)],
+                                  float(cfg.num_experts), limit),
+    }
+    failed = [f"{shape}: {msg}" for shape, r in result.items() for msg in r["failed"]]
+    return {"moe_layer": result, "failed": failed}
+
+
+def phase_moe_parity():
+    """The card against the port on the CPU at published widths and two
+    layers at the served share (Arctic 2 MoE layers, Maverick one dense / MoE
+    pair), a `MOE_PARITY_PROMPT`-token prompt: prefill logits, two decode
+    steps and caches within 4%; and `moe_layer` alone (`moe_layer_check`)."""
+    return _parity_phase("moe_parity", tuple(MOE_SERVE), share=MOE_SERVE["arctic-480b"]["share"],
+                         prompt=MOE_PARITY_PROMPT, check=moe_layer_check)
+
+
 def served_rows(runs, name, timings):
     """The kernels line's by-shape rows of a served kernel: one a (arch,
     shape) a serving run called it at, with its calls there and the
@@ -4507,6 +4847,8 @@ def main() -> int:
     phase_rwkv_parity()
     cross = phase_cross_serve()
     phase_cross_parity()
+    moe = phase_moe_serve()
+    phase_moe_parity()
     scan_general = scan_kern["served"][(2, 4096, 32, 64, 64, 32, "rwkv6")]
     t = scale["kernel"]
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"],
@@ -4739,12 +5081,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/kernel.py:99",
         "launches": serve["launches"]["decode_attn"]
-        + sum(r["launches"]["decode_attn"] for r in dense["runs"] + cross["runs"]),
+        + sum(r["launches"]["decode_attn"] for r in dense["runs"] + cross["runs"]
+              + moe["runs"]),
         "max_abs_err": attn_kern["max_abs_err"],
         **{key: attn_kern["kernel"][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "by_shape": served_rows([("zamba2-2.7b", serve)]
-                                + [(r["arch"], r) for r in dense["runs"] + cross["runs"]],
+                                + [(r["arch"], r) for r in dense["runs"] + cross["runs"]
+                                   + moe["runs"]],
                                 "decode_attn", attn_kern["served_by_key"]),
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,20 @@
-"""Architecture configs. Importing this package registers every ported arch.
+"""Architecture configs. Importing this package registers every arch.
 
-Ported (their serving paths run on the port): the dense family
-(`qwen2-7b`, `gemma-7b`, `gemma2-9b`, `gemma2-9b-sw`, `phi3-medium-14b`),
-the ssm family (`rwkv6-1.6b`), the hybrid family (`zamba2-2.7b`), the audio
-family (`whisper-base`) and the VLM family (`llama-3.2-vision-90b`). The
-reference's MoE archs raise `NotImplementedError` from `get` (ROADMAP.md
-queue 1, item 13).
+Every arch the reference registers, each with its serving path on the port:
+the dense family (`qwen2-7b`, `gemma-7b`, `gemma2-9b`, `gemma2-9b-sw`,
+`phi3-medium-14b`), the ssm family (`rwkv6-1.6b`), the hybrid family
+(`zamba2-2.7b`), the audio family (`whisper-base`), the VLM family
+(`llama-3.2-vision-90b`) and the MoE family (`arctic-480b`,
+`llama4-maverick-400b-a17b`; `expert_share` for one card's share of their
+experts).
 """
 
-from repro_torch.configs.base import ArchConfig, get, names, register  # noqa: F401
+from repro_torch.configs.arctic_480b import ARCTIC_480B  # noqa: F401
+from repro_torch.configs.base import (ArchConfig, ExpertShare, expert_share, get,  # noqa: F401
+                                      names, register)
 from repro_torch.configs.gemma2_9b import GEMMA2_9B, GEMMA2_9B_SW  # noqa: F401
 from repro_torch.configs.gemma_7b import GEMMA_7B  # noqa: F401
+from repro_torch.configs.llama4_maverick_400b_a17b import LLAMA4_MAVERICK_400B  # noqa: F401
 from repro_torch.configs.llama_3_2_vision_90b import LLAMA_3_2_VISION_90B  # noqa: F401
 from repro_torch.configs.phi3_medium_14b import PHI3_MEDIUM_14B  # noqa: F401
 from repro_torch.configs.qwen2_7b import QWEN2_7B  # noqa: F401

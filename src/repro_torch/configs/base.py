@@ -2,18 +2,23 @@
 
 The same frozen `ArchConfig` as the reference's `repro.configs.base`, field
 for field, with the same `reduced()` smoke-test variant, so a config built
-here describes the same model as the reference's of the same name. Only the
-architectures whose serving path is ported are registered (the dense family,
-`rwkv6-1.6b`, `zamba2-2.7b`, `whisper-base` and `llama-3.2-vision-90b`);
-`get` of any other name the reference registers (the MoE archs) raises and
-points at `ROADMAP.md`.
+here describes the same model as the reference's of the same name. Every
+architecture the reference registers is registered here (`REFERENCE_ARCHS`);
+`get` of any other name raises `KeyError`.
+
+`expert_share(cfg, shard, shards)` is a MoE config of which one card holds
+a share of the experts: experts [shard * E / shards, (shard + 1) * E /
+shards) of every MoE layer, the one-card form of the reference's
+expert-parallel layout (its buffers' experts axis sharded over the mesh's
+'model' axis). It is a subclass, so `ArchConfig`'s fields stay the
+reference's; `dataclasses.replace` (a depth cut) keeps the share.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-# Every arch the reference registers; those not yet ported raise in `get`.
+# Every arch the reference registers (each registered here too).
 REFERENCE_ARCHS = (
     "arctic-480b", "gemma-7b", "gemma2-9b", "gemma2-9b-sw",
     "llama-3.2-vision-90b", "llama4-maverick-400b-a17b", "phi3-medium-14b",
@@ -91,6 +96,12 @@ class ArchConfig:
     def is_decoder_only(self) -> bool:
         return self.encoder_layers == 0
 
+    @property
+    def expert_slice(self) -> tuple[int, int]:
+        """The experts [lo, hi) this card holds of each MoE layer: all of
+        them (`ExpertShare` holds one shard)."""
+        return 0, self.num_experts
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant of the same family (the reference's cut)."""
         return dataclasses.replace(
@@ -130,6 +141,35 @@ class ArchConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertShare(ArchConfig):
+    """A MoE config of which this card holds shard `expert_shard` of
+    `expert_shards` of every MoE layer's experts. The router keeps all
+    `num_experts` outputs and `experts_per_token`, and the capacity counts
+    all of them; the card computes its own experts' buffers only."""
+
+    expert_shard: int = 0
+    expert_shards: int = 1
+
+    def __post_init__(self):
+        if (self.expert_shards < 1 or self.num_experts % self.expert_shards
+                or not 0 <= self.expert_shard < self.expert_shards):
+            raise ValueError(f"{self.name}: expert shard {self.expert_shard} of "
+                             f"{self.expert_shards} over {self.num_experts} experts")
+
+    @property
+    def expert_slice(self) -> tuple[int, int]:
+        per = self.num_experts // self.expert_shards
+        return self.expert_shard * per, (self.expert_shard + 1) * per
+
+
+def expert_share(cfg: ArchConfig, shard: int, shards: int) -> ExpertShare:
+    """`cfg` with this card holding shard `shard` of `shards` of the experts
+    (`shards` must divide `num_experts`)."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ArchConfig)}
+    return ExpertShare(**fields, expert_shard=shard, expert_shards=shards)
+
+
 _REGISTRY: dict[str, ArchConfig] = {}
 
 
@@ -143,10 +183,6 @@ def get(name: str) -> ArchConfig:
         import repro_torch.configs  # noqa: F401  (registers every ported arch)
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in REFERENCE_ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-            f"item 13); ported: {sorted(_REGISTRY)}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
 
 

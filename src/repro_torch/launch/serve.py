@@ -6,12 +6,17 @@ ones; otherwise the reduced smoke-test variant); it runs on CUDA unless
 `--device cpu` is given. Ported archs: the dense family (`qwen2-7b`,
 `gemma-7b`, `gemma2-9b`, `gemma2-9b-sw`, `phi3-medium-14b`), the ssm family
 (`rwkv6-1.6b`), the hybrid family (`zamba2-2.7b`), the audio family
-(`whisper-base`; the engine feeds zero frames) and the VLM family
-(`llama-3.2-vision-90b`; zero patches, and at its published widths it
-needs more memory than one 80 GB card holds):
+(`whisper-base`; the engine feeds zero frames), the VLM family
+(`llama-3.2-vision-90b`; zero patches) and the MoE family (`arctic-480b`,
+`llama4-maverick-400b-a17b`). The VLM and the MoE archs at their published
+widths need more memory than one 80 GB card holds (87.7 B, 477 B and 401 B
+parameters), so `--full` runs them out of memory there; `chip_smoke.py`
+serves them cut in depth (and the MoE archs at one card's share of their
+experts):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --full \\
       --requests 4 --prompt-len 512 --max-new 32 --cache-len 8192 --max-batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --full \\

@@ -1,11 +1,18 @@
 """Attention: blocked (flash-style) full-sequence + single-token decode.
 
-The reference's `repro.models.attention` in PyTorch. `flash_attention` is
-its "masked" strategy: for each q tile, every kv tile in turn with online
-softmax, masked entries at -1e30, memory bounded by one (q_block, kv_block)
-score tile. The reference computes it outside any Pallas kernel, so it is
-plain PyTorch here too (tile products by `torch.matmul` in float32; bf16
-products are exact there). Its "triangular" tile enumeration waits.
+The reference's `repro.models.attention` in PyTorch. `flash_attention`
+takes, for each q tile, kv tiles in turn with online softmax, masked
+entries at -1e30, memory bounded by one (q_block, kv_block) score tile. It
+visits only the kv tiles that can hold an unmasked entry for some query of
+the tile (`_block_pairs`: causal and window, enumerated on the host as the
+reference's "triangular" strategy enumerates them at trace time). A tile it
+skips would add exp(-1e30 - m) = 0 under the reference's "masked" strategy,
+which visits every tile, so one enumeration computes both of the
+reference's strategies to the float32 rounding of the same sums; without a
+causal mask or a window it visits every tile, as "masked" does. The
+reference computes both outside any Pallas kernel, so this is plain
+PyTorch too (tile products by `torch.matmul` in float32; bf16 products are
+exact there).
 
 `decode_attention` is the reference's jnp decode (attention.py:177), the
 plain version of the flash-decode kernel; the model's decode step calls
@@ -23,6 +30,27 @@ from repro_torch.models.layers import softcap
 NEG_INF = da_ops.NEG_INF
 
 
+def _block_pairs(nq: int, nkv: int, *, causal: bool, window: int, q_block: int,
+                 kv_block: int, q_offset: int) -> list[tuple[int, int]]:
+    """The (q tile, kv tile) pairs that can hold an unmasked entry: the
+    reference's triangular enumeration, with q tile qb starting at position
+    `q_offset + qb * q_block` (the reference rounds `q_offset` down to whole
+    tiles, which equals this where it is a multiple of q_block)."""
+    pairs = []
+    for qb in range(nq):
+        q_lo = q_offset + qb * q_block
+        q_hi = q_lo + q_block - 1
+        for kb in range(nkv):
+            k_lo = kb * kv_block
+            k_hi = k_lo + kv_block - 1
+            if causal and k_lo > q_hi:
+                continue  # entirely in the future
+            if window > 0 and k_hi < q_lo - (window - 1) - (q_block - 1):
+                continue  # outside the window for every query of the tile
+            pairs.append((qb, kb))
+    return pairs
+
+
 def _tile_mask(q_pos, k_pos, *, causal, window):
     m = torch.ones(q_pos.shape[0], k_pos.shape[0], dtype=torch.bool, device=q_pos.device)
     if causal:
@@ -34,9 +62,9 @@ def _tile_mask(q_pos, k_pos, *, causal, window):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, cap: float = 0.0,
                     q_offset: int = 0, q_block: int = 512, kv_block: int = 1024):
-    """Blocked attention with online softmax ("masked": every kv tile, the
-    masked entries at -1e30). q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd).
-    Returns (B, Sq, Hq, hd) in q's type."""
+    """Blocked attention with online softmax over the kv tiles that can hold
+    an unmasked entry (the masked entries at -1e30). q: (B, Sq, Hq, hd); k,
+    v: (B, Skv, Hkv, hd). Returns (B, Sq, Hq, hd) in q's type."""
     b, sq, hq, hd = q.shape
     _, skv, hkv, _ = k.shape
     g = hq // hkv
@@ -51,6 +79,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, cap: float
         k = F.pad(k, (0, 0, 0, 0, 0, pk))
         v = F.pad(v, (0, 0, 0, 0, 0, pk))
     nq, nkv = (sq + pq) // q_block, (skv + pk) // kv_block
+    kv_tiles = [[] for _ in range(nq)]
+    for qb, kb in _block_pairs(nq, nkv, causal=causal, window=window, q_block=q_block,
+                               kv_block=kv_block, q_offset=q_offset):
+        kv_tiles[qb].append(kb)
 
     # (B, Hkv, G, S, hd) float32 views of the whole sequence.
     qg = q.float().reshape(b, sq + pq, hkv, g, hd).permute(0, 2, 3, 1, 4)
@@ -65,7 +97,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, cap: float
         m_run = torch.full((b, hkv, g, q_block), NEG_INF, device=dev)
         l_run = torch.zeros(b, hkv, g, q_block, device=dev)
         acc = torch.zeros(b, hkv, g, q_block, hd, device=dev)
-        for kb in range(nkv):
+        for kb in kv_tiles[qb]:
             k_tile = kh[..., kb * kv_block:(kb + 1) * kv_block, :]
             v_tile = vh[..., kb * kv_block:(kb + 1) * kv_block, :]
             k_pos = kb * kv_block + torch.arange(kv_block, device=dev)

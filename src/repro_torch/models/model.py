@@ -1,10 +1,15 @@
-"""Model assembly for the dense, ssm, hybrid, vlm and audio families.
+"""Model assembly for the dense, moe, ssm, hybrid, vlm and audio families.
 
-The reference's `repro.models.model` in PyTorch for five arch families:
+The reference's `repro.models.model` in PyTorch for its six arch families:
 
   dense   decoder blocks (`qwen2-7b`, `gemma-7b`, `phi3-medium-14b`), every
           layer windowed (`gemma2-9b-sw`, attn_pattern "local") or local and
           global layers in pairs (`gemma2-9b`, "local_global")
+  moe     the dense decoder with a MoE layer (`models/moe.py`) in each
+          block's MLP place: every layer (`arctic-480b`, with its dense
+          residual), or dense and MoE layers in pairs (`moe_every` 2,
+          `llama4-maverick-400b-a17b`, with its shared expert; the dense
+          layers' d_ff is `moe_dense_layer_ff`)
   ssm     RWKV6 blocks (`rwkv6-1.6b`): time mix + channel mix
   hybrid  groups of Mamba2 layers with one weight-shared attention block
           applied before each group (`zamba2-2.7b`)
@@ -18,6 +23,9 @@ dims, so the two packages compare like with like:
 
   params  embed (V, D), ln_f (D,), head (V, D) when untied, and
           dense   blk {...} (L, ...), or local / global {...} (L/2, ...)
+          moe     blk {..., moe {router (D, E) f32, w_gate, w_up (E_held,
+                  D, F), w_down (E_held, F, D), dense {...}}} (L, ...), or
+                  dense_blk / moe_blk {...} (L/2, ...)
           ssm     ln0 (D,), blk {ln1, ln2, att {...}, ffn {...}} (L, ...)
           hybrid  shared {ln_attn, attn, ln_mlp, mlp}, blk {...} (groups, per, ...)
           vlm     blk {...} (groups, every - 1, ...), xblk {..., gate_attn,
@@ -27,6 +35,8 @@ dims, so the two packages compare like with like:
   cache   dense   k / v (L, B, S, Hkv, hd) bf16 (S the window's ring when
                   "local"), or k_local / v_local (L/2, B, window, ...) rings
                   and k_global / v_global (L/2, B, cache_len, ...)
+          moe     k / v (L, B, S, Hkv, hd), or k_dense / v_dense / k_moe /
+                  v_moe (L/2, B, S, Hkv, hd) for pairs
           ssm     S (L, B, H, dk, dk) f32, ax / fx (L, B, 1, D) bf16
           hybrid  S (groups, per, B, H, ns, hd) f32, conv (groups, per, B,
                   W-1, C) bf16, ak / av (groups, B, window, Hkv, hd) bf16 rings
@@ -36,6 +46,7 @@ dims, so the two packages compare like with like:
 
   build_schema(cfg)                          parameter declarations
   init_model(cfg, seed=, device=)            real params on a device
+  forward_hidden(params, cfg, batch)         -> (final hidden, raw caches)
   prefill(params, cfg, batch, cache_len)     -> (cache, last-token logits)
   decode_step(params, cfg, cache, tokens, pos) -> (cache, logits)
   init_cache(cfg, b, cache_len, device=)     zero decode state
@@ -45,19 +56,25 @@ Activations and caches take the weights' type: bf16 as the reference's
 (the kernels take both), with float32 recurrent states either way.
 `lax.scan` over layers becomes a Python loop. Prefill runs every RWKV6
 and Mamba2 layer's scan through the chunk_scan kernel's wrappers, and
-every decode step every attention layer (dense, vlm, audio: self and
+every decode step every attention layer (dense, moe, vlm, audio: self and
 cross) or the shared block (hybrid) through the decode_attn kernel's
 wrapper (Hopper kernels on CUDA tensors, their plain versions on the CPU).
 A cross-attention step reads every slot of its static cache (`length =
 pos = S`) and writes none. The vlm and audio families take their frontend
 stub's output in the batch: `patches` (B, 1024, D) or `frames` (B, 1500,
-D). The mesh's `constrain` has no counterpart on one card. The moe
-family, and training (`forward_loss`, `unembed_chunked`), wait
-(ROADMAP.md queue 1, item 13).
+D). A MoE layer's capacity follows the reference's serving policy: a
+one-token input (every decode step, and a one-token prompt) never drops,
+cf = E; a longer one runs at `capacity_factor`, the reference's 2.0 unless
+`forward_hidden` / `prefill` are given another. The flash attention visits
+only the tiles that can hold an unmasked entry (the reference's
+"triangular" strategy, `models/attention.py`). The mesh's `constrain` has
+no counterpart on one card. Training (`forward_loss`, `unembed_chunked`)
+waits (ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -66,6 +83,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.decode_attn import ops as da_ops
+from repro_torch.models import moe
 from repro_torch.models import params as plib
 from repro_torch.models import ssm
 from repro_torch.models.attention import flash_attention
@@ -73,15 +91,15 @@ from repro_torch.models.layers import embed, logits_last, mlp, rms_norm, rope
 from repro_torch.models.params import PDef
 
 ACT_DTYPE = torch.bfloat16  # the weights' type, and so the activations' and caches'
-_NOT_PORTED = "is not ported to repro_torch yet (ROADMAP.md queue 1, item 13)"
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+PREFILL_CAPACITY = 2.0  # the reference's MoE capacity factor for inputs of 2+ tokens
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "vlm", "audio")
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.arch_type not in PORTED_FAMILIES:
-        raise NotImplementedError(f"arch_type {cfg.arch_type!r} ({cfg.name}) {_NOT_PORTED}")
+def _require_family(cfg: ArchConfig) -> None:
+    """Every entry's guard: an unknown arch_type raises here, before any
+    family dispatch could take it for another."""
+    if cfg.arch_type not in FAMILIES:
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r} ({cfg.name})")
 
 
 # ===========================================================================
@@ -123,17 +141,38 @@ def _mlp_schema(cfg: ArchConfig) -> dict:
     return s
 
 
+def _moe_schema(cfg: ArchConfig) -> dict:
+    """The router over all E experts; the expert weights of the experts
+    this card holds (`cfg.expert_slice`: all E unless an `ExpertShare`)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    lo, hi = cfg.expert_slice
+    s = {
+        "router": PDef((d, e), ("embed", "experts"), dtype="float32"),
+        "w_gate": PDef((hi - lo, d, f), ("experts", "embed", "expert_ff")),
+        "w_up": PDef((hi - lo, d, f), ("experts", "embed", "expert_ff")),
+        "w_down": PDef((hi - lo, f, d), ("experts", "expert_ff", "embed")),
+    }
+    if cfg.moe_dense_ff:
+        s["dense"] = {
+            "gate": PDef((d, cfg.moe_dense_ff), ("embed", "ff")),
+            "up": PDef((d, cfg.moe_dense_ff), ("embed", "ff")),
+            "down": PDef((cfg.moe_dense_ff, d), ("ff", "embed")),
+        }
+    return s
+
+
 def _block_schema(cfg: ArchConfig, *, cross: bool = False) -> dict:
-    """One decoder block: (pre-)norms + attention + MLP (+ post-norms)."""
-    if cfg.num_experts:
-        raise NotImplementedError(f"MoE blocks {_NOT_PORTED}")
+    """One decoder block: (pre-)norms + attention + MLP or MoE (+ post-norms)."""
     d = cfg.d_model
     s = {
         "ln_attn": PDef((d,), ("embed",), init="zeros"),
         "attn": _attn_schema(cfg),
         "ln_mlp": PDef((d,), ("embed",), init="zeros"),
-        "mlp": _mlp_schema(cfg),
     }
+    if cfg.num_experts:
+        s["moe"] = _moe_schema(cfg)
+    else:
+        s["mlp"] = _mlp_schema(cfg)
     if cfg.post_norms:
         s["ln_post_attn"] = PDef((d,), ("embed",), init="zeros")
         s["ln_post_mlp"] = PDef((d,), ("embed",), init="zeros")
@@ -193,6 +232,17 @@ def _mamba_block_schema(cfg: ArchConfig) -> dict:
     }
 
 
+def _moe_pairs(cfg: ArchConfig) -> bool:
+    """Dense and MoE layers in pairs (llama4: `moe_every` 2)."""
+    return bool(cfg.num_experts) and cfg.moe_every == 2
+
+
+def _pair_dense_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The config of the dense layers of a paired (llama4) MoE stack."""
+    return dataclasses.replace(cfg, num_experts=0, experts_per_token=0, moe_dense_ff=0,
+                               d_ff=cfg.moe_dense_layer_ff or cfg.d_ff)
+
+
 def _hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
     per = cfg.hybrid_attn_every
     if per < 1 or cfg.num_layers % per:
@@ -209,7 +259,7 @@ def n_cross(cfg: ArchConfig) -> int:
 
 
 def build_schema(cfg: ArchConfig) -> dict:
-    _require_ported(cfg)
+    _require_family(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     s: dict = {
         "embed": PDef((v, d), ("vocab", "embed")),
@@ -217,11 +267,15 @@ def build_schema(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         s["head"] = PDef((v, d), ("vocab", "embed"))
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         if cfg.attn_pattern == "local_global":
             half = cfg.num_layers // 2
             s["local"] = _stack(_block_schema(cfg), half)
             s["global"] = _stack(_block_schema(cfg), half)
+        elif _moe_pairs(cfg):
+            half = cfg.num_layers // 2
+            s["dense_blk"] = _stack(_block_schema(_pair_dense_cfg(cfg)), half)
+            s["moe_blk"] = _stack(_block_schema(cfg), half)
         else:
             s["blk"] = _stack(_block_schema(cfg), cfg.num_layers)
     elif cfg.arch_type == "ssm":
@@ -238,7 +292,7 @@ def build_schema(cfg: ArchConfig) -> dict:
         dec["ln_cross"] = PDef((d,), ("embed",), init="zeros")
         dec["xattn"] = _attn_schema(cfg)
         s["dec"] = _stack(dec, cfg.num_layers)
-    else:
+    else:  # hybrid
         groups, per = _hybrid_groups(cfg)
         s["blk"] = _stack(_stack(_mamba_block_schema(cfg), per), groups)
         s["shared"] = _block_schema(cfg)  # ONE weight-shared attention block
@@ -332,9 +386,20 @@ def _gated(p, name, y, x):
     return torch.tanh(p[name]).to(x.dtype) * y if name in p else y
 
 
-def _block_full(p, x, cfg: ArchConfig, *, positions, window=0, causal=True, cross_src=None):
-    """(residual) -> attn -> (residual) -> mlp, each branch tanh-gated in a
-    VLM cross block. Returns (x, kv)."""
+def _mlp_or_moe(p, h, cfg: ArchConfig, capacity_factor=PREFILL_CAPACITY):
+    """The block's MLP, or its MoE layer under the reference's serving
+    capacity: no drop for a one-token input (cf = E; every decode step),
+    `capacity_factor` for longer ones."""
+    if not cfg.num_experts:
+        return mlp(h, p["mlp"], cfg.mlp_variant)
+    cf = float(cfg.num_experts) if h.shape[1] == 1 else capacity_factor
+    return moe.moe_layer(p["moe"], h, cfg, capacity_factor=cf)[0]
+
+
+def _block_full(p, x, cfg: ArchConfig, *, positions, window=0, causal=True, cross_src=None,
+                capacity_factor=PREFILL_CAPACITY):
+    """(residual) -> attn -> (residual) -> mlp or moe, each branch
+    tanh-gated in a VLM cross block. Returns (x, kv)."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     attn_out, kv = _attn_full(p["attn"], h, cfg, positions=positions, window=window,
                               causal=causal, cross_src=cross_src)
@@ -342,7 +407,7 @@ def _block_full(p, x, cfg: ArchConfig, *, positions, window=0, causal=True, cros
         attn_out = rms_norm(attn_out, p["ln_post_attn"], cfg.norm_eps)
     x = x + _gated(p, "gate_attn", attn_out, x)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    m = mlp(h, p["mlp"], cfg.mlp_variant)
+    m = _mlp_or_moe(p, h, cfg, capacity_factor)
     if cfg.post_norms:
         m = rms_norm(m, p["ln_post_mlp"], cfg.norm_eps)
     return x + _gated(p, "gate_mlp", m, x), kv
@@ -357,7 +422,7 @@ def _block_decode(p, x, cfg: ArchConfig, ck, cv, pos: int, *, window=0, ring=Fal
         attn_out = rms_norm(attn_out, p["ln_post_attn"], cfg.norm_eps)
     x = x + _gated(p, "gate_attn", attn_out, x)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    m = mlp(h, p["mlp"], cfg.mlp_variant)
+    m = _mlp_or_moe(p, h, cfg)
     if cfg.post_norms:
         m = rms_norm(m, p["ln_post_mlp"], cfg.norm_eps)
     return x + _gated(p, "gate_mlp", m, x), ck, cv
@@ -390,28 +455,30 @@ def _local_window(cfg: ArchConfig) -> int:
     return cfg.sliding_window if cfg.attn_pattern in ("local", "local_global") else 0
 
 
-def _forward_dense(params, cfg, tokens, *, collect_kv=False):
-    """dense family (gemma2's local/global pairs included). Returns (hidden,
-    [(k, v) a layer] or, for pairs, ([(k, v) local], [(k, v) global]), or
-    None)."""
+def _forward_dense(params, cfg, tokens, *, collect_kv=False,
+                   capacity_factor=PREFILL_CAPACITY):
+    """dense and moe families (gemma2's local/global pairs and llama4's
+    dense/MoE pairs included). Returns (hidden, [(k, v) a layer] or, for
+    pairs, ([(k, v) first], [(k, v) second]), or None)."""
     b, s = tokens.shape
     x = _embed_in(params, cfg, tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     window = _local_window(cfg)
-    if cfg.attn_pattern == "local_global":
-        kv_local, kv_global = [], []
+    run = dict(positions=positions, capacity_factor=capacity_factor)
+    if cfg.attn_pattern == "local_global" or _moe_pairs(cfg):
+        if _moe_pairs(cfg):
+            pair = ((params["dense_blk"], _pair_dense_cfg(cfg), 0), (params["moe_blk"], cfg, 0))
+        else:
+            pair = ((params["local"], cfg, window), (params["global"], cfg, 0))
+        kvs = ([], [])
         for i in range(cfg.num_layers // 2):
-            x, kv = _block_full(_layer(params["local"], i), x, cfg, positions=positions,
-                                window=window)
-            kv_local.append(kv)
-            x, kv = _block_full(_layer(params["global"], i), x, cfg, positions=positions)
-            kv_global.append(kv)
-        kvs = (kv_local, kv_global)
+            for (stack, c, w), out in zip(pair, kvs):
+                x, kv = _block_full(_layer(stack, i), x, c, window=w, **run)
+                out.append(kv)
     else:
         kvs = []
         for i in range(cfg.num_layers):
-            x, kv = _block_full(_layer(params["blk"], i), x, cfg, positions=positions,
-                                window=window)
+            x, kv = _block_full(_layer(params["blk"], i), x, cfg, window=window, **run)
             kvs.append(kv)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x, (kvs if collect_kv else None)
@@ -515,11 +582,14 @@ def _forward_audio(params, cfg, tokens, frames, *, collect_kv=False):
     return x, (kvs if collect_kv else None)
 
 
-def forward_hidden(params, cfg: ArchConfig, batch, *, collect=False):
-    """Dispatch to the family forward. Returns (hidden, caches-raw)."""
-    _require_ported(cfg)
-    if cfg.arch_type == "dense":
-        return _forward_dense(params, cfg, batch["tokens"], collect_kv=collect)
+def forward_hidden(params, cfg: ArchConfig, batch, *, collect=False,
+                   capacity_factor=PREFILL_CAPACITY):
+    """Dispatch to the family forward. Returns (hidden, caches-raw).
+    `capacity_factor`: a MoE layer's over 2+ tokens."""
+    _require_family(cfg)
+    if cfg.arch_type in ("dense", "moe"):
+        return _forward_dense(params, cfg, batch["tokens"], collect_kv=collect,
+                              capacity_factor=capacity_factor)
     if cfg.arch_type == "ssm":
         return _forward_rwkv(params, cfg, batch["tokens"], collect_state=collect)
     if cfg.arch_type == "vlm":
@@ -547,18 +617,22 @@ def _window(cfg: ArchConfig, cache_len: int) -> int:
 def _cache_desc(cfg: ArchConfig, b: int, cache_len: int, dtype=ACT_DTYPE) -> dict:
     """name -> (shape, dtype) for the decode state: `dtype` is the
     activations' (the weights') type; recurrent states are float32."""
-    _require_ported(cfg)
+    _require_family(cfg)
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     w = _window(cfg, cache_len)
 
     def kv(nl, s):
         return ((nl, b, s, hkv, hd), dtype)
 
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         if cfg.attn_pattern == "local_global":
             half = cfg.num_layers // 2
             return {"k_local": kv(half, w), "v_local": kv(half, w),
                     "k_global": kv(half, cache_len), "v_global": kv(half, cache_len)}
+        if _moe_pairs(cfg):
+            half = cfg.num_layers // 2
+            return {"k_dense": kv(half, cache_len), "v_dense": kv(half, cache_len),
+                    "k_moe": kv(half, cache_len), "v_moe": kv(half, cache_len)}
         s = w if cfg.attn_pattern == "local" else cache_len
         return {"k": kv(cfg.num_layers, s), "v": kv(cfg.num_layers, s)}
     if cfg.arch_type == "ssm":
@@ -575,7 +649,7 @@ def _cache_desc(cfg: ArchConfig, b: int, cache_len: int, dtype=ACT_DTYPE) -> dic
         nl = cfg.num_layers
         return {"k": kv(nl, cache_len), "v": kv(nl, cache_len),
                 "xk": kv(nl, cfg.encoder_tokens), "xv": kv(nl, cfg.encoder_tokens)}
-    g, per = _hybrid_groups(cfg)
+    g, per = _hybrid_groups(cfg)  # hybrid
     h, hd_s, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     cdim = h * hd_s + 2 * ns
     return {
@@ -620,21 +694,28 @@ def _stack_tails(kvs, n, ring):
     return tuple(torch.stack([fit(kv[j]) for kv in kvs]) for j in (0, 1))
 
 
-def prefill(params, cfg: ArchConfig, batch, cache_len: int):
-    """Full forward over the prompt; returns (cache, last-token logits)."""
+def prefill(params, cfg: ArchConfig, batch, cache_len: int, *,
+            capacity_factor=PREFILL_CAPACITY):
+    """Full forward over the prompt; returns (cache, last-token logits).
+    `capacity_factor` as `forward_hidden`'s."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     if s > cache_len:
         raise ValueError(f"prompt of {s} tokens past the cache of {cache_len}")
-    h, raw = forward_hidden(params, cfg, batch, collect=True)
+    h, raw = forward_hidden(params, cfg, batch, collect=True,
+                            capacity_factor=capacity_factor)
     logits = logits_last(h[:, -1], unembed_table(params, cfg), cfg.final_softcap)
     w = _window(cfg, cache_len)
     desc = _cache_desc(cfg, b, cache_len, params["embed"].dtype)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         if cfg.attn_pattern == "local_global":
             kl, vl = _stack_tails(raw[0], w, ring=True)
             kg, vg = _stack_tails(raw[1], cache_len, ring=False)
             cache = {"k_local": kl, "v_local": vl, "k_global": kg, "v_global": vg}
+        elif _moe_pairs(cfg):
+            kd, vd = _stack_tails(raw[0], cache_len, ring=False)
+            km, vm = _stack_tails(raw[1], cache_len, ring=False)
+            cache = {"k_dense": kd, "v_dense": vd, "k_moe": km, "v_moe": vm}
         elif cfg.attn_pattern == "local":
             cache = dict(zip(("k", "v"), _stack_tails(raw, w, ring=True)))
         else:
@@ -652,7 +733,7 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int):
         k, v = _stack_tails([kv_self for kv_self, _ in raw], cache_len, ring=False)
         cache = {"k": k, "v": v, "xk": torch.stack([kx for _, (kx, _) in raw]),
                  "xv": torch.stack([vx for _, (_, vx) in raw])}
-    else:
+    else:  # hybrid
         cache = {
             "S": torch.stack([torch.stack([st[0] for st in sts]) for _, sts in raw]),
             "conv": torch.stack([torch.stack([st[1] for st in sts]) for _, sts in raw]),
@@ -671,9 +752,9 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int):
 def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int):
     """One serving step: tokens (B,) at host position `pos` -> (cache,
     logits). The cache's tensors are updated in place and returned."""
-    _require_ported(cfg)
+    _require_family(cfg)
     x = embed(tokens[:, None], params["embed"], cfg.embed_scale).to(params["embed"].dtype)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         x = _decode_dense(params, cfg, cache, x, pos)
     elif cfg.arch_type == "ssm":
         x = _decode_rwkv(params, cfg, cache, x)
@@ -681,7 +762,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int):
         x = _decode_vlm(params, cfg, cache, x, pos)
     elif cfg.arch_type == "audio":
         x = _decode_audio(params, cfg, cache, x, pos)
-    else:
+    else:  # hybrid
         x = _decode_hybrid(params, cfg, cache, x, pos)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = logits_last(x[:, 0], unembed_table(params, cfg), cfg.final_softcap)
@@ -690,7 +771,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int):
 
 def _decode_dense(params, cfg, cache, x, pos: int):
     """Every layer's one-token attention against its cache (a ring on the
-    windowed layers), then its MLP."""
+    windowed layers), then its MLP or MoE layer (no drop)."""
     window = _local_window(cfg)
     if cfg.attn_pattern == "local_global":
         for i in range(cfg.num_layers // 2):
@@ -698,6 +779,14 @@ def _decode_dense(params, cfg, cache, x, pos: int):
                                     cache["v_local"][i], pos, window=window, ring=True)
             x, _, _ = _block_decode(_layer(params["global"], i), x, cfg,
                                     cache["k_global"][i], cache["v_global"][i], pos)
+        return x
+    if _moe_pairs(cfg):
+        dense_cfg = _pair_dense_cfg(cfg)
+        for i in range(cfg.num_layers // 2):
+            x, _, _ = _block_decode(_layer(params["dense_blk"], i), x, dense_cfg,
+                                    cache["k_dense"][i], cache["v_dense"][i], pos)
+            x, _, _ = _block_decode(_layer(params["moe_blk"], i), x, cfg, cache["k_moe"][i],
+                                    cache["v_moe"][i], pos)
         return x
     for i in range(cfg.num_layers):
         x, _, _ = _block_decode(_layer(params["blk"], i), x, cfg, cache["k"][i],

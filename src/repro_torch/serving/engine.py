@@ -9,10 +9,13 @@ admitted only if its prompt plus its new tokens fit the cache.
 Each wave runs `models.model.prefill` (every RWKV6 or Mamba2 layer's scan
 through the chunk_scan kernel on the card) and then `decode_step` per new
 token (every attention layer, self and cross, through the decode_attn
-kernel), for any ported family: the cache is whatever `prefill` returns.
-The audio and VLM families' prefill also takes the frontend stub's output;
-the engine passes zeros for it (`frames` (B, 1500, D), `patches` (B, 1024,
-D)), as the reference's engine does. Greedy
+kernel), for every family (dense, moe, ssm, hybrid, vlm, audio): the cache
+is whatever `prefill` returns. A MoE model's prefill runs at the
+reference's serving capacity (cf 2.0) and its decode steps drop nothing;
+the engine passes no capacity of its own. The audio and VLM families'
+prefill also takes the frontend stub's output; the engine passes zeros for
+it (`frames` (B, 1500, D), `patches` (B, 1024, D)), as the reference's
+engine does; the other families take the tokens alone. Greedy
 sampling is argmax; a temperature draws from a `torch.Generator` on the
 engine's device seeded from `seed`, so sampled tokens differ from the
 reference's `jax.random.categorical` by construction (greedy ones do not).

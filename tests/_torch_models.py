@@ -1,6 +1,6 @@
-"""Shared helpers of the port's model tests (dense, ssm, audio, vlm): one
-reduced arch on both packages with the reference's weights carried across,
-and the runs the tests compare.
+"""Shared helpers of the port's model tests (dense, moe, ssm, audio, vlm):
+one reduced arch on both packages with the reference's weights carried
+across, and the runs the tests compare.
 
 Tolerances are `tests/test_torch_hybrid.py`'s: logits within 4% of the
 reference's largest logit, caches within 2% of their scale, the port's own
@@ -56,6 +56,15 @@ def model(name: str, seed: int = 0):
     p_r = jax.tree.map(jnp.asarray, p_np)
     p = convert.params_from_reference(p_np, device="cpu")
     return cfg_r, cfg, p_r, p
+
+
+def moe_params(tree, layer: int = 0):
+    """The `moe` subtree of a MoE model's `layer`-th MoE layer (a tree of
+    numpy arrays, jax arrays or tensors): `blk` for Arctic's stack of MoE
+    layers, `moe_blk` for llama4's dense/MoE pairs."""
+    stack = tree["moe_blk"] if "moe_blk" in tree else tree["blk"]
+    return {k: ({kk: vv[layer] for kk, vv in v.items()} if isinstance(v, dict) else v[layer])
+            for k, v in stack["moe"].items()}
 
 
 def tokens(cfg, n: int, seed: int = 0) -> np.ndarray:
@@ -126,21 +135,26 @@ def decode_from_reference_cache(name: str, prompt: int, cache_len: int):
     return jax.tree.map(np.asarray, c_r), np.asarray(l_r), convert.cache_to_numpy(c), lg.numpy()
 
 
-def full_logits(p, cfg, toks: torch.Tensor) -> np.ndarray:
+def full_logits(p, cfg, toks: torch.Tensor, capacity_factor=M.PREFILL_CAPACITY) -> np.ndarray:
     """The port's last-token logits of one causal forward over `toks`."""
-    h, _ = M.forward_hidden(p, cfg, port_batch(cfg, toks))
+    h, _ = M.forward_hidden(p, cfg, port_batch(cfg, toks), capacity_factor=capacity_factor)
     return layers.logits_last(h[:, -1], M.unembed_table(p, cfg), cfg.final_softcap).numpy()
 
 
 @functools.lru_cache(maxsize=None)
-def prefill_decode_rels(name: str, prompt: int, cache_len: int, steps: int, seed: int = 4):
+def prefill_decode_rels(name: str, prompt: int, cache_len: int, steps: int, seed: int = 4,
+                        capacity_factor: float = M.PREFILL_CAPACITY):
     """Prefill `prompt` tokens, then `steps` decode steps: each step's logits
-    against the full forward over the tokens up to it (rel a step)."""
+    against the full forward over the tokens up to it (rel a step). A MoE
+    model's prefill and full forward run at `capacity_factor` (a decode step
+    never drops)."""
     _, cfg, _, p = model(name)
     toks = torch.tensor(tokens(cfg, prompt + steps, seed))
-    cache, _ = M.prefill(p, cfg, port_batch(cfg, toks[:, :prompt]), cache_len)
+    cache, _ = M.prefill(p, cfg, port_batch(cfg, toks[:, :prompt]), cache_len,
+                         capacity_factor=capacity_factor)
     rels = []
     for i in range(steps):
         cache, dec = M.decode_step(p, cfg, cache, toks[:, prompt + i], prompt + i)
-        rels.append(rel(dec.numpy(), full_logits(p, cfg, toks[:, :prompt + i + 1])))
+        rels.append(rel(dec.numpy(), full_logits(p, cfg, toks[:, :prompt + i + 1],
+                                                 capacity_factor)))
     return rels

@@ -1376,3 +1376,65 @@ def test_cross_families_on_card_match_the_cpu(card, arch):
     assert max(rels) < 0.04, rels
     for key in cache:
         assert _rel(cache[key], cache_c[key]) < 0.04, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,pos", [(2, 4126), (8, 542), (1, 542)])
+@pytest.mark.parametrize("g", [7, 5])  # arctic-480b's 56 / 8 heads, llama4-maverick's 40 / 8
+def test_decode_attn_served_moe_shapes_on_card(card, dtype, b, pos, g):
+    """The decode_attn shapes the MoE decode steps give the kernel: Hkv 8,
+    hd 128, an 8,192-slot cache, at the served waves' batches and last
+    positions (2 x 4096, 8 x 512, 1 x 512 prompts, 32 new tokens)."""
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q, k, v = _attn_inputs(b, 8192, 8, g, 128, dtype, pos + b + g, card)
+    kw = dict(length=pos + 1, pos=pos)
+    before = da_ops.decode_attention.launches
+    out = da_ops.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 1
+    want = da_ops.decode_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(out.float()).all()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), want.float(), atol=1e-5, rtol=1e-2)
+    else:
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic-480b", "llama4-maverick-400b-a17b"])
+def test_moe_family_on_card_matches_the_cpu(card, arch):
+    """The reduced MoE models, holding expert shard 1 of 2, on the card
+    (decode_attn once a layer a step) against the port on the CPU: same
+    weights, same tokens; logits and caches within 4%, the routing picks of
+    the first MoE layer equal on both."""
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attn import ops as da_ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    cfg = configs.expert_share(configs.get(arch).reduced(), 1, 2)
+    params = M.init_model(cfg, seed=0, device=card)
+    cpu_params = _to(params, "cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 15)).astype(np.int32))
+    before = da_ops.decode_attention.launches
+    cache, logits = M.prefill(params, cfg, {"tokens": toks[:, :12].to(card)}, 32)
+    cache_c, logits_c = M.prefill(cpu_params, cfg, {"tokens": toks[:, :12]}, 32)
+    rels = [_rel(logits, logits_c)]
+    for i in range(3):
+        cache, logits = M.decode_step(params, cfg, cache, toks[:, 12 + i].to(card), 12 + i)
+        cache_c, logits_c = M.decode_step(cpu_params, cfg, cache_c, toks[:, 12 + i], 12 + i)
+        rels.append(_rel(logits, logits_c))
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 3 * cfg.num_layers
+    assert max(rels) < 0.04, rels
+    for key in cache:
+        assert _rel(cache[key], cache_c[key]) < 0.04, key
+    stack = "moe_blk" if "moe_blk" in params else "blk"
+    router = params[stack]["moe"]["router"][0]
+    x = torch.tensor(rng.standard_normal((24, cfg.d_model)).astype(np.float32))
+    picks = [moe.route(moe.router_probs(x.to(dev), r.to(dev))[0], cfg.experts_per_token)[1]
+             for dev, r in ((card, router), ("cpu", router))]
+    assert torch.equal(picks[0].cpu(), picks[1])

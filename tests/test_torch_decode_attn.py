@@ -3,8 +3,8 @@
 The reference side runs as its own tests run it on the CPU: the Pallas
 kernel `decode_attention_pallas` in interpret mode (through
 `repro.kernels.decode_attn.ops`) and the jnp oracle
-`repro.models.attention.decode_attention`; `flash_attention` (the
-"masked" strategy) against the reference's, which is jnp in both
+`repro.models.attention.decode_attention`; `flash_attention` against
+the reference's default ("masked") strategy, which is jnp in both
 packages. Inputs are made with numpy from a seed and handed to both sides.
 
 Tolerance: float32 within 2e-5 (the reference's own); a bf16 cache within
@@ -84,6 +84,16 @@ def test_the_path_head_widths(g, hd):
     _check(_case(g, 2, 96, 2, g, hd), length=60, pos=59, kv_block=32)
     _check(_case(hd, 2, 64, 2, g, hd), length=131, pos=130, window=64, ring=True,
            cap=50.0, kv_block=32)
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("g", [7, 5])
+def test_the_moe_families_group_sizes(b, g):
+    """The MoE decode steps' GQA at hd 128: G 7 (arctic-480b, 56 / 8 heads)
+    and G 5 (llama4-maverick, 40 / 8; a group size no other served arch
+    has), at the served batches 1, 2 and 8, a flat cache read past its
+    first tile."""
+    _check(_case(b + g, b, 96, 2, g, 128), length=71, pos=70, kv_block=32)
 
 
 @pytest.mark.parametrize("s", [100, 1500])

@@ -33,6 +33,7 @@ from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import model as ref_model  # noqa: E402
 from repro.models import params as ref_params  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.configs import base  # noqa: E402
 from repro_torch.models import convert, layers, params  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
@@ -92,26 +93,33 @@ def test_config_matches_the_reference(reduced):
     if reduced:
         ref, cfg = ref.reduced(), cfg.reduced()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
-    assert configs.names() == ["gemma-7b", "gemma2-9b", "gemma2-9b-sw", "llama-3.2-vision-90b",
+    assert configs.names() == ["arctic-480b", "gemma-7b", "gemma2-9b", "gemma2-9b-sw",
+                               "llama-3.2-vision-90b", "llama4-maverick-400b-a17b",
                                "phi3-medium-14b", "qwen2-7b", "rwkv6-1.6b", "whisper-base",
                                "zamba2-2.7b"]
 
 
 def test_unported_archs_raise_and_name_the_roadmap():
-    for name in ("arctic-480b", "llama4-maverick-400b-a17b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.get(name)
+    """No arch is left unported: every name the reference registers is a
+    config here (the MoE archs included), an unknown name raises `KeyError`,
+    and an `arch_type` outside the six families raises `ValueError` at every
+    entry of the model rather than reaching the hybrid branch."""
+    assert configs.names() == sorted(base.REFERENCE_ARCHS) == ref_configs.names()
+    for name in base.REFERENCE_ARCHS:
+        assert configs.get(name).name == name
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
-    moe_family = dataclasses.replace(configs.get("zamba2-2.7b"), name="a", arch_type="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.build_schema(moe_family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_cache(moe_family, 1, 8, device="cpu")
-    moe = dataclasses.replace(configs.get("qwen2-7b"), name="m", num_experts=4,
-                              experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.build_schema(moe)
+    unknown = dataclasses.replace(configs.get("zamba2-2.7b").reduced(), name="a",
+                                  arch_type="hybrid2")
+    toks = torch.zeros(1, 4, dtype=torch.int32)
+    for entry in (lambda: M.build_schema(unknown),
+                  lambda: M.init_cache(unknown, 1, 8, device="cpu"),
+                  lambda: M.forward_hidden({}, unknown, {"tokens": toks}),
+                  lambda: M.prefill({}, unknown, {"tokens": toks}, 8),
+                  lambda: M.decode_step({"embed": torch.zeros(8, 4)}, unknown, {},
+                                        toks[:, 0], 4)):
+        with pytest.raises(ValueError, match="unknown arch_type"):
+            entry()
 
 
 def _schema_rows(schema):

@@ -113,8 +113,10 @@ def test_serving_slice_imports_no_jax_and_ships_its_kernel_sources():
         "import sys\n"
         "import repro_torch.configs, repro_torch.configs.base\n"
         "import repro_torch.configs.whisper_base, repro_torch.configs.llama_3_2_vision_90b\n"
+        "import repro_torch.configs.arctic_480b\n"
+        "import repro_torch.configs.llama4_maverick_400b_a17b\n"
         "import repro_torch.models.params, repro_torch.models.layers\n"
-        "import repro_torch.models.ssm, repro_torch.models.attention\n"
+        "import repro_torch.models.ssm, repro_torch.models.attention, repro_torch.models.moe\n"
         "import repro_torch.models.model, repro_torch.models.convert\n"
         "import repro_torch.kernels.chunk_scan.ops, repro_torch.kernels.chunk_scan.kernel\n"
         "import repro_torch.kernels.decode_attn.ops, repro_torch.kernels.decode_attn.kernel\n"
@@ -155,11 +157,12 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(entry):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-1.6b", "whisper-base",
-                                  "llama-3.2-vision-90b"])
+                                  "llama-3.2-vision-90b", "arctic-480b",
+                                  "llama4-maverick-400b-a17b"])
 def test_each_family_serves_on_cuda_by_default_and_on_the_cpu_when_asked(arch):
-    """The dense, ssm, audio and vlm families' entry points (`init_model`,
-    `Engine`, `launch.serve`) resolve to CUDA unless asked, and serve on the
-    CPU."""
+    """The dense, ssm, audio, vlm and moe families' entry points
+    (`init_model`, `Engine`, `launch.serve`) resolve to CUDA unless asked,
+    and serve on the CPU."""
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import model as M
