@@ -240,6 +240,25 @@ Phases:
                  E): the picks equal but at counted near-ties (top-k margin
                  under 1e-5), the output and its routed part within 1%, the
                  held pairs counted (none fails)
+ 22. train       training on the card (no kernel: the training path takes
+                 the plain scans): (a) every registered arch reduced, one
+                 AdamW step (`make_train_step`) on a (2, 64) bigram batch
+                 against the same step of the port on the CPU (loss within
+                 2e-3, grad_norm within 1%, gradients within 0.1 of their
+                 scale at cosine 0.998, bf16 noise past that judged against
+                 the CPU's float32 gradient; updated weights equal up to
+                 rounding where the gradient is firm, within two steps
+                 elsewhere; MoE picks equal but at near-ties); (b) qwen2-7b
+                 at published widths cut to `TRAIN_QWEN_LAYERS` layers, (c)
+                 rwkv6-1.6b and (d) whisper-base whole (`TRAIN_RUNS`: 2 x
+                 4096, 2 x 4096, 16 x 448 with 1,500 stub frames; 20, 6 and
+                 20 AdamW steps on `batches_for` data): step ms (median of
+                 steps 3 on), tokens/s, peak GB, the loss a step (the first
+                 within 0.5 of ln V, the last below it), no chunk_scan
+                 launch, and (qwen2, whisper) one traced step's top device
+                 ops and busy share; (e) both chunk_scan entries raising on
+                 CUDA inputs that require grad under grad mode, and matching
+                 their plain versions under `torch.no_grad`
 Phase 1 also holds both batched kernels against their plain versions over M
 in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 x both
 noise or draw modes (x S in {2, 4} for alias_mh), the packed-table entry in
@@ -3836,7 +3855,7 @@ def phase_hybrid_serve():
     with torch.inference_mode():
         cache, pre_logits = M.prefill(params, cfg, {"tokens": tok[:, :512]}, 1024)
         _, dec_logits = M.decode_step(params, cfg, cache, tok[:, 512], 512)
-        h, _ = M.forward_hidden(params, cfg, {"tokens": tok})
+        h, _, _ = M.forward_hidden(params, cfg, {"tokens": tok})
         full = layers.logits_last(h[:, -1], M.unembed_table(params, cfg), cfg.final_softcap)
         consistency = _rel(dec_logits, full)
         # A prompt longer than the ring window and not a multiple of it: the
@@ -3854,7 +3873,7 @@ def phase_hybrid_serve():
         shift = -(RING_PROMPT % cache["ak"].shape[-3])
         unrolled = {key: torch.roll(t, shift, dims=-3) if key in ("ak", "av") else t.clone()
                     for key, t in cache.items()}
-        h, _ = M.forward_hidden(params, cfg, {"tokens": rtok})
+        h, _, _ = M.forward_hidden(params, cfg, {"tokens": rtok})
         table = M.unembed_table(params, cfg)
         ring_rels, ring_rels_unrolled = [], []
         for pos in range(RING_PROMPT, RING_PROMPT + RING_STEPS):
@@ -3995,7 +4014,7 @@ def prefill_decode_rels(params, cfg, toks, prompt, *, unroll=(), extra=None,
     if unroll:  # decode_step writes the cache in place, so the copy is made first
         faulty = {key: torch.roll(t, -(prompt % t.shape[-3]), dims=-3) if key in unroll
                   else t.clone() for key, t in cache.items()}
-    h, _ = M.forward_hidden(params, cfg, {"tokens": toks, **extra}, **cf)
+    h, _, _ = M.forward_hidden(params, cfg, {"tokens": toks, **extra}, **cf)
     table = M.unembed_table(params, cfg)
     rels, rels_faulty = [], []
     for pos in range(prompt, toks.shape[1]):
@@ -4107,7 +4126,7 @@ def last_logits(params, cfg, toks, positions):
     from repro_torch.models import layers
     from repro_torch.models import model as M
 
-    h, _ = M.forward_hidden(params, cfg, {"tokens": toks})
+    h, _, _ = M.forward_hidden(params, cfg, {"tokens": toks})
     table = M.unembed_table(params, cfg)
     return [layers.logits_last(h[:, p], table, cfg.final_softcap) for p in positions]
 
@@ -4768,6 +4787,387 @@ def phase_moe_parity():
                          prompt=MOE_PARITY_PROMPT, check=moe_layer_check)
 
 
+# -- phase 22: training ----------------------------------------------------------
+
+# (a) every registered arch reduced: one AdamW step on the card against the
+# port on the CPU, bf16 weights from seed 0, one (2, 64) bigram batch.
+TRAIN_LOSS_TOL, TRAIN_GRAD_REL, TRAIN_GRAD_COS = 2e-3, 0.1, 0.998
+TRAIN_NORM_REL = 1e-2  # grad_norm, card against CPU
+TRAIN_OPT_LR, TRAIN_OPT_DECAY = 3e-4, 0.01  # (a)'s AdamW step: OptConfig's defaults
+TRAIN_TIE = 1e-2  # top-k margin under which bf16 noise may flip a pick (the CPU tests')
+# (b)-(d) published widths on bigram data, AdamW with 5 warmup steps (cosine
+# to 0.1x over the run): qwen2-7b cut to TRAIN_QWEN_LAYERS of 28 layers (the
+# deepest cut whose peak stays at or under TRAIN_PEAK_GB: 14 layers 63.7 GB, 16
+# layers 70.9 GB on an H100 80GB HBM3 at 700 W, this phase's `train_run`),
+# rwkv6-1.6b and whisper-base whole. rwkv6 takes 6 steps: its plain scans make
+# a step ~13 s of host-bound launches on that card.
+TRAIN_QWEN_LAYERS = 14
+TRAIN_PEAK_GB = 70.0
+TRAIN_WARMUP = 5
+# The learning rates: 3e-4, but qwen2-7b's loss rose at it (11.94 -> 11.96
+# over 20 steps, a spike to 12.01 after the first full-rate step) and fell at
+# 1e-4 (-> 11.92); whisper-base's spiked at 1e-3 (the same card, PERF.md §6).
+TRAIN_RUNS = {  # arch: layers (None: all), sequence length, global batch, lr, steps
+    "qwen2-7b": dict(layers=TRAIN_QWEN_LAYERS, seq_len=4096, batch=2, lr=1e-4, steps=20),
+    # its traced step is not profiled: a step is ~300,000 launches, whose
+    # trace takes minutes to read back
+    "rwkv6-1.6b": dict(layers=None, seq_len=4096, batch=2, lr=3e-4, steps=6, profile_it=False),
+    # the decoder's 448-token context, 1,500 stub frames; 16 sequences
+    # (7,168 tokens, near the others' 8,192)
+    "whisper-base": dict(layers=None, seq_len=448, batch=16, lr=3e-4, steps=20),
+}
+
+
+class _FilingOptimizer:
+    """Stands in for the optimizer in `make_train_step`: files the
+    gradients it is given (float32 copies on the CPU), then updates."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, step):
+        from repro_torch.models.params import leaves
+
+        self.grads = {path: g.float().cpu() for path, g in leaves(grads)}
+        return self.opt.update(grads, state, params, step)
+
+
+@contextlib.contextmanager
+def _routing(picks=None):
+    """Files each MoE layer's router probabilities (the CPU copy, in call
+    order) while it runs; `picks` {layer: {token: expert ids}} are taken in
+    place of the layer's own at those tokens (gates renormalized over them,
+    as `moe.route` does)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    probs, orig = [], moe.route
+
+    def route(pr, k):
+        gates, idx = orig(pr, k)
+        forced = (picks or {}).get(len(probs), {})
+        probs.append(pr.detach().float().cpu())
+        if forced:
+            idx = idx.clone()
+            for tok, ids in forced.items():
+                idx[tok] = torch.as_tensor(ids, device=idx.device)
+            g = pr.gather(-1, idx)
+            gates = g / torch.clamp_min(g.sum(-1, keepdim=True), 1e-9)
+        return gates, idx
+
+    moe.route = route
+    try:
+        yield probs
+    finally:
+        moe.route = orig
+
+
+def train_step_once(cfg, params, batch, device, picks=None):
+    """One `make_train_step` step (AdamW for every arch, warmup 1: its first
+    step is bounded, lr x (sign(g) + decay x p)) of a copy of `params`
+    on `device`: loss, grad_norm, the gradients, the updated parameters
+    (float32 on the CPU, by path) and the MoE layers' router probabilities."""
+    import torch
+
+    from repro_torch.models.params import leaves
+    from repro_torch.train.optim import OptConfig, make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    def copy(tree):
+        return {k: copy(v) if isinstance(v, dict) else v.to(device, copy=True)
+                for k, v in tree.items()}
+
+    p = copy(params)
+    opt = _FilingOptimizer(make_optimizer(OptConfig(
+        lr=TRAIN_OPT_LR, weight_decay=TRAIN_OPT_DECAY, warmup_steps=1)))
+    with _routing(picks) as probs:
+        p, _, metrics = make_train_step(cfg, opt)(
+            p, opt.init(p), {k: torch.as_tensor(v, device=device) for k, v in batch.items()},
+            0)
+    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "grads": opt.grads, "params": {path: t.float().cpu() for path, t in leaves(p)},
+            "probs": probs}
+
+
+def _rel_cos(got, want):
+    """Largest gap over want's largest entry, and the cosine."""
+    got, want = got.double(), want.double()
+    scale = max(float(want.abs().max()), 1e-30)
+    norms = max(float((got * got).sum() * (want * want).sum()), 1e-120) ** 0.5
+    return float((got - want).abs().max()) / scale, float((got * want).sum()) / norms
+
+
+def _differing_picks(probs_a, probs_b, k):
+    """{layer: {token: a's expert ids}} where a's and b's top-k picks
+    differ, and the b margins there (k-th minus (k+1)-th probability)."""
+    import torch
+
+    out, margins = {}, []
+    for layer, (a, b) in enumerate(zip(probs_a, probs_b)):
+        ids_a = torch.topk(a, k, dim=-1).indices
+        top_b = torch.topk(b, min(k + 1, b.shape[-1]), dim=-1)
+        ids_b = top_b.indices[:, :k]
+        differ = (ids_a.sort(-1).values != ids_b.sort(-1).values).any(-1).nonzero()[:, 0]
+        if len(differ):
+            out[layer] = {int(t): ids_a[t].tolist() for t in differ}
+            vals = top_b.values
+            margins += [float(vals[t, k - 1] - vals[t, k]) for t in differ]
+    return out, margins
+
+
+def card_vs_cpu_train(name, seed=0):
+    """One AdamW step of the reduced `name` on the card against the port on
+    the CPU: the loss within TRAIN_LOSS_TOL, grad_norm within TRAIN_NORM_REL;
+    each gradient within TRAIN_GRAD_REL of its scale and cosine
+    TRAIN_GRAD_COS (the CPU parity tests' bounds); each updated parameter
+    equal up to rounding where the gradient is past TRAIN_GRAD_REL of its
+    leaf's largest, and within two AdamW steps elsewhere (a first step is
+    lr x the gradient's sign, which noise may flip where it is small). A gradient leaf past them
+    passes only where bf16 noise is past them on the CPU too (the CPU's bf16
+    gradient against the CPU's float32 one) and the card's bf16 gradient is
+    within twice that noise of the float32 one. MoE: picks that differ
+    between the two must be near-ties (TRAIN_TIE); the CPU step then runs
+    again with the card's picks there."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.lm import batches_for
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves
+
+    t0 = time.perf_counter()
+    cfg = configs.get(name).reduced()
+    params = M.init_model(cfg, seed=seed, device="cpu")
+    if "xblk" in params:  # nonzero gates, so that the cross blocks count
+        for gate in ("gate_attn", "gate_mlp"):
+            params["xblk"][gate].fill_(CROSS_GATE)
+    batch = next(batches_for(cfg, 64, 2, seed=seed))
+    card = train_step_once(cfg, params, batch, "cuda")
+    cpu = train_step_once(cfg, params, batch, "cpu")
+    forced, margins = _differing_picks(card["probs"], cpu["probs"], cfg.experts_per_token or 1)
+    if forced:
+        cpu = train_step_once(cfg, params, batch, "cpu", picks=forced)
+    failed, noisy = [], []
+    if any(m >= TRAIN_TIE for m in margins):
+        failed.append(f"picks differ past a near-tie: margins {margins}")
+    if abs(card["loss"] - cpu["loss"]) > TRAIN_LOSS_TOL:
+        failed.append(f"loss {card['loss']} vs {cpu['loss']}")
+    gn_rel = abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    if gn_rel > TRAIN_NORM_REL:
+        failed.append(f"grad_norm {card['grad_norm']} vs {cpu['grad_norm']}")
+    f32 = None
+    worst_g, worst_p = (0.0, 1.0, ""), (0.0, 1.0, "")
+    for path, want in cpu["grads"].items():
+        r, c = _rel_cos(card["grads"][path], want)
+        worst_g = max(worst_g, (r, c, "/".join(path)))
+        if r <= TRAIN_GRAD_REL and c >= TRAIN_GRAD_COS:
+            continue
+        if f32 is None:  # the same weights in float32 on the CPU: the yardstick
+            f32 = train_step_once(cfg, _widen(params), batch, "cpu", picks=forced)["grads"]
+        r_cpu, c_cpu = _rel_cos(want, f32[path])
+        r_card, c_card = _rel_cos(card["grads"][path], f32[path])
+        noisy.append(("/".join(path), r, c, r_cpu, c_cpu, r_card, c_card))
+        if (r_cpu <= TRAIN_GRAD_REL and c_cpu >= TRAIN_GRAD_COS) or r_card > 2 * r_cpu \
+                or 1 - c_card > 2 * (1 - c_cpu):
+            failed.append(f"gradient {'/'.join(path)}: rel {r:.4f} cos {c:.6f} "
+                          f"(against float32: cpu {r_cpu:.4f} / {c_cpu:.6f}, "
+                          f"card {r_card:.4f} / {c_card:.6f})")
+    # AdamW's first step moves an entry by lr * (sign(g) + decay * p): where
+    # the gradient is past the gradient bound of its leaf's scale both sides
+    # step alike (equal up to the rounding to the leaf's type); elsewhere a
+    # sign may flip, two steps apart at most.
+    before = dict(leaves(params))
+    step_off = 0
+    for path, want in cpu["params"].items():
+        got, g = card["params"][path], cpu["grads"][path].abs()
+        p0 = before[path].float()
+        # an ulp of the leaf's type at the larger of the two results bounds
+        # both roundings together
+        ulp = torch.maximum(got.abs(), want.abs()) * (
+            2.0 ** -7 if before[path].dtype == torch.bfloat16 else 2.0 ** -23)
+        d = (got - want).abs()
+        span = 2 * TRAIN_OPT_LR * (1 + TRAIN_OPT_DECAY * p0.abs()) + ulp
+        firm = g > TRAIN_GRAD_REL * g.max()
+        step_off += int((d > ulp + 1e-3 * TRAIN_OPT_LR).sum())
+        worst_p = max(worst_p, (float((d / span).max()), float(firm.float().mean()),
+                                "/".join(path)))
+        if (d > span).any() or (d[firm] > 2 * ulp[firm] + 1e-3 * TRAIN_OPT_LR).any():
+            failed.append(f"updated {'/'.join(path)}: {int((d > span).sum())} entries past two "
+                          f"steps, {int((d[firm] > 2 * ulp[firm]).sum())} firm ones apart")
+    return {"arch": name, "loss": card["loss"], "cpu_loss": cpu["loss"],
+            "grad_norm": card["grad_norm"], "cpu_grad_norm": cpu["grad_norm"],
+            "grad_norm_rel": gn_rel, "worst_grad": worst_g,
+            "worst_update_gap_over_two_steps": worst_p, "updated_entries_apart": step_off,
+            "s": time.perf_counter() - t0,
+            "grads_past_bounds_bf16_noise": noisy, "forced_picks": sum(map(len, forced.values())),
+            "forced_margins": margins, "failed": failed}
+
+
+def _widen(tree):
+    import torch
+
+    return {k: _widen(v) if isinstance(v, dict) else
+            (v.float() if v.dtype == torch.bfloat16 else v) for k, v in tree.items()}
+
+
+def train_run(name, *, layers, seq_len, batch, lr, steps, profile_it=True):
+    """`steps` AdamW steps of `name` at its published widths (cut to `layers`
+    layers if given) on `batches_for` data: the loss at every step, step ms
+    (median of steps 3 onward, host clock after a synchronize), tokens/s,
+    the peak memory; then one traced step (`torch.profiler`): its top
+    device ops and busy share. Gates: the first loss within 0.5 of ln V, the
+    last below the first, finite, the peak at most TRAIN_PEAK_GB, no
+    chunk_scan kernel launched (the training path takes the plain scans)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.data.lm import batches_for
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    from repro_torch.train.optim import OptConfig, make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    cfg = configs.get(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, seed=0, device="cuda")
+    opt = make_optimizer(OptConfig(lr=lr, warmup_steps=TRAIN_WARMUP,
+                                   decay_steps=steps + 1))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    data = batches_for(cfg, seq_len, batch, seed=0)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in next(data).items()}
+               for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches = cs_ops.chunk_scan.launches
+    losses, step_ms = [], []
+    for i in range(steps):
+        t1 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batches[i], i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof_out = {}
+    if profile_it:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            params, state, metrics = step_fn(params, state, batches[steps], steps)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t1) * 1e3
+        top, busy = device_summary(prof, 1, top=10, unit="step")
+        prof_out = {"step_ms_traced": traced_ms, "device_busy_ms_per_step": busy,
+                    "device_busy_share": busy / traced_ms, "profile_top_device_ms": top}
+    ms = statistics.median(step_ms[2:])
+    ln_v = math.log(cfg.vocab_size)
+    out = {"arch": name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params_b": count_params(params) / 1e9, "seq_len": seq_len, "batch": batch,
+           "optimizer": "adamw", "lr": lr, "warmup": TRAIN_WARMUP, "steps": steps,
+           "setup_s": setup_s, "step_ms_median_3_on": ms, "step_ms": step_ms,
+           "tokens_per_s": batch * seq_len / (ms / 1e3), "peak_gb": peak,
+           "ln_vocab": ln_v, "losses": losses,
+           "chunk_scan_launches": cs_ops.chunk_scan.launches - launches, **prof_out}
+    failed = []
+    if not np.all(np.isfinite(losses)):
+        failed.append("a loss is not finite")
+    if abs(losses[0] - ln_v) > 0.5:
+        failed.append(f"first loss {losses[0]} not within 0.5 of ln V {ln_v}")
+    if not losses[-1] < losses[0]:
+        failed.append(f"last loss {losses[-1]} not below the first {losses[0]}")
+    if peak > TRAIN_PEAK_GB:
+        failed.append(f"peak {peak:.2f} GB past {TRAIN_PEAK_GB}")
+    if out["chunk_scan_launches"]:
+        failed.append(f"{out['chunk_scan_launches']} chunk_scan launches in training")
+    out["failed"] = failed
+    del params, state, batches
+    free_cuda()
+    return out
+
+
+def scan_guard():
+    """Both chunk_scan entries on CUDA inputs that require grad, under grad
+    mode: each must raise (the kernels have no backward); under
+    `torch.no_grad` the same inputs launch and match the plain version."""
+    import torch
+
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, s, h, dk = 1, 64, 2, 32
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device="cuda")
+
+    w, k, v, q = rand(b, s, h, dk) * 0.5 + 0.5, rand(b, s, h, dk), rand(b, s, h, dk), rand(b, s, h, dk)
+    u = rand(h, dk)
+    wm, km, qm = rand(b, s, h) * 0.5 + 0.5, rand(b, s, dk), rand(b, s, dk)
+    calls = {"chunk_scan": lambda: cs_ops.chunk_scan(w, k, v, q, u, include_current=False,
+                                                     chunk=32),
+             "chunk_scan_mamba2": lambda: cs_ops.chunk_scan_mamba2(wm, km, qm, v, chunk=32)}
+    plains = {"chunk_scan": lambda: cs_ops.chunk_scan_plain(w, k, v, q, u,
+                                                            include_current=False, chunk=32),
+              "chunk_scan_mamba2": lambda: cs_ops.chunk_scan_mamba2_plain(wm, km, qm, v,
+                                                                          chunk=32)}
+    out, failed = {}, []
+    v.requires_grad_(True)
+    for name, call in calls.items():
+        try:
+            call()
+            failed.append(f"{name} returned under grad mode with an input that requires grad")
+            out[name] = "returned"
+        except RuntimeError as e:
+            out[name] = f"raised: {e}"[:120]
+        with torch.no_grad():
+            y, st = call()
+            y_p, st_p = plains[name]()
+        out[f"{name}_no_grad_max_abs_err"] = max(float((y - y_p).abs().max()),
+                                                 float((st - st_p).abs().max()))
+        if out[f"{name}_no_grad_max_abs_err"] > 1e-4:
+            failed.append(f"{name} under no_grad disagrees with its plain version")
+    out["failed"] = failed
+    return out
+
+
+def phase_train():
+    """Training on the card: (a) every registered arch reduced, card against
+    CPU; (b)-(d) qwen2-7b cut in depth, rwkv6-1.6b and whisper-base whole at
+    published widths (`TRAIN_RUNS`); (e) the chunk_scan kernels refusing a
+    gradient."""
+    import torch
+
+    from repro_torch.configs.base import REFERENCE_ARCHS
+
+    t0 = time.perf_counter()
+    prev = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        parity = [card_vs_cpu_train(n) for n in REFERENCE_ARCHS]
+    finally:
+        torch.set_num_threads(prev)
+    runs = [train_run(n, **spec) for n, spec in TRAIN_RUNS.items()]
+    guard = scan_guard()
+    out = {"phase": "train", "parity": parity, "runs": runs, "scan_guard": guard,
+           "phase_s": time.perf_counter() - t0}
+    emit(out)
+    failed = ([(r["arch"], f) for r in parity + runs for f in r["failed"]]
+              + [("scan_guard", f) for f in guard["failed"]])
+    if failed:
+        raise SystemExit(f"train: {failed}")
+    return out
+
+
 def served_rows(runs, name, timings):
     """The kernels line's by-shape rows of a served kernel: one a (arch,
     shape) a serving run called it at, with its calls there and the
@@ -4849,6 +5249,7 @@ def main() -> int:
     phase_cross_parity()
     moe = phase_moe_serve()
     phase_moe_parity()
+    phase_train()
     scan_general = scan_kern["served"][(2, 4096, 32, 64, 64, 32, "rwkv6")]
     t = scale["kernel"]
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"],

@@ -6,9 +6,10 @@ the dense family (`qwen2-7b`, `gemma-7b`, `gemma2-9b`, `gemma2-9b-sw`,
 (`zamba2-2.7b`), the audio family (`whisper-base`), the VLM family
 (`llama-3.2-vision-90b`) and the MoE family (`arctic-480b`,
 `llama4-maverick-400b-a17b`; `expert_share` for one card's share of their
-experts).
+experts). `configs.shapes` holds the reference's four input shapes.
 """
 
+from repro_torch.configs import shapes  # noqa: F401
 from repro_torch.configs.arctic_480b import ARCTIC_480B  # noqa: F401
 from repro_torch.configs.base import (ArchConfig, ExpertShare, expert_share, get,  # noqa: F401
                                       names, register)

@@ -4,7 +4,9 @@
 reference's `kernels/chunk_scan/ops.py` signature). On a CUDA tensor it
 validates its arguments and launches the hand-written Hopper kernels
 (`kernel.launch`, from `csrc/chunk_scan.cu`: prep, then scan), adding one to
-``chunk_scan.launches``; there is no fall back. On a CPU tensor it runs
+``chunk_scan.launches``; there is no fall back. The kernels have no
+backward, so under grad mode an input that requires grad makes both
+entries raise on a CUDA tensor (never a detached result). On a CPU tensor it runs
 `chunk_scan_plain`, the same chunked evaluation in eager PyTorch (the
 reference's `models/ssm.py::chunk_scan`), which is also the yardstick the
 kernel is held against on the card.
@@ -94,6 +96,18 @@ def chunk_scan_plain(w, k, v, q, u, *, include_current: bool, chunk: int = 64,
     return y.to(v.dtype), S
 
 
+def _refuse_grad(*tensors) -> None:
+    """The kernels have no backward: their outputs are written into fresh
+    buffers and carry no autograd graph. Under grad mode, with an input that
+    requires grad, raise rather than return a result whose gradient would
+    be silently left out. A caller that trains takes the plain versions
+    (`models.ssm`'s `use_kernel=False`, the reference's training default)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError("the chunk_scan kernels have no backward: an input requires grad "
+                           "under grad mode; use the plain version (use_kernel=False) to "
+                           "differentiate the scan")
+
+
 def _check_common(w, k, q, v, **optional) -> None:
     """Device, layout and types that both entries' kernels take (after `w`
     is brought to float32)."""
@@ -140,6 +154,7 @@ def chunk_scan(w, k, v, q, u, *, include_current: bool, chunk: int = 64,
                                 chunk=chunk, s0=s0)
     if v.device.type != "cuda":
         raise ValueError(f"no chunk_scan kernel for device {v.device}")
+    _refuse_grad(w, k, v, q, u, s0)
     if w.dtype == torch.bfloat16:
         w = w.float()
     if include_current:
@@ -225,6 +240,7 @@ def chunk_scan_mamba2(w, k, q, v, *, chunk: int = 32, s0: Optional[torch.Tensor]
         return chunk_scan_mamba2_plain(w, k, q, v, chunk=chunk, s0=s0)
     if v.device.type != "cuda":
         raise ValueError(f"no chunk_scan kernel for device {v.device}")
+    _refuse_grad(w, k, q, v, s0)
     if w.dtype == torch.bfloat16:
         w = w.float()
     _check_mamba2(w, k, q, v, s0, chunk)

@@ -46,7 +46,9 @@ dims, so the two packages compare like with like:
 
   build_schema(cfg)                          parameter declarations
   init_model(cfg, seed=, device=)            real params on a device
-  forward_hidden(params, cfg, batch)         -> (final hidden, raw caches)
+  forward_hidden(params, cfg, batch)         -> (final hidden, aux, raw caches)
+  forward_loss(params, cfg, batch)           -> (mean NLL + MoE aux, aux)
+  real_batch(cfg, kind, b, s, generator=)    a random batch
   prefill(params, cfg, batch, cache_len)     -> (cache, last-token logits)
   decode_step(params, cfg, cache, tokens, pos) -> (cache, logits)
   init_cache(cfg, b, cache_len, device=)     zero decode state
@@ -68,17 +70,28 @@ cf = E; a longer one runs at `capacity_factor`, the reference's 2.0 unless
 `forward_hidden` / `prefill` are given another. The flash attention visits
 only the tiles that can hold an unmasked entry (the reference's
 "triangular" strategy, `models/attention.py`). The mesh's `constrain` has
-no counterpart on one card. Training (`forward_loss`, `unembed_chunked`)
-waits (ROADMAP.md queue 1, item 13).
+no counterpart on one card.
+
+Training is `forward_loss`: the full forward with `train=True` (a MoE
+layer at the config's training capacity, its aux losses summed into the
+loss; with `cfg.remat` each layer, pair or group under
+`torch.utils.checkpoint`, the reference's `jax.checkpoint` of each scan
+body) and `use_kernel=False` by default, as the reference's, so the RWKV6
+and Mamba2 scans take their plain versions, which autograd differentiates
+(the chunk_scan kernels have no backward and refuse grad mode); then the
+NLL chunked over the sequence both ways (`layers.unembed_chunked`). The
+serving entries keep `use_kernel=True`, the port's default.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -87,7 +100,8 @@ from repro_torch.models import moe
 from repro_torch.models import params as plib
 from repro_torch.models import ssm
 from repro_torch.models.attention import flash_attention
-from repro_torch.models.layers import embed, logits_last, mlp, rms_norm, rope
+from repro_torch.models.layers import (embed, logits_last, mlp, rms_norm, rope,
+                                       unembed_chunked)
 from repro_torch.models.params import PDef
 
 ACT_DTYPE = torch.bfloat16  # the weights' type, and so the activations' and caches'
@@ -386,20 +400,32 @@ def _gated(p, name, y, x):
     return torch.tanh(p[name]).to(x.dtype) * y if name in p else y
 
 
-def _mlp_or_moe(p, h, cfg: ArchConfig, capacity_factor=PREFILL_CAPACITY):
-    """The block's MLP, or its MoE layer under the reference's serving
-    capacity: no drop for a one-token input (cf = E; every decode step),
-    `capacity_factor` for longer ones."""
+def _zero_aux(device) -> dict:
+    """The MoE aux losses' running sums: float32 zeros on `device`."""
+    return {"load_balance": torch.zeros((), device=device),
+            "router_z": torch.zeros((), device=device)}
+
+
+def _mlp_or_moe(p, h, cfg: ArchConfig, capacity_factor, aux, *, train=False):
+    """The block's MLP, or its MoE layer with its `load_balance` and
+    `router_z` added to `aux` (a dict of running sums; None: not kept).
+    Capacity: in training `capacity_factor` as given (None: the config's
+    training factor); in serving the reference's policy, no drop for a
+    one-token input (cf = E; every decode step), `capacity_factor` for
+    longer ones. Returns (out, aux)."""
     if not cfg.num_experts:
-        return mlp(h, p["mlp"], cfg.mlp_variant)
-    cf = float(cfg.num_experts) if h.shape[1] == 1 else capacity_factor
-    return moe.moe_layer(p["moe"], h, cfg, capacity_factor=cf)[0]
+        return mlp(h, p["mlp"], cfg.mlp_variant), aux
+    cf = capacity_factor if train or h.shape[1] > 1 else float(cfg.num_experts)
+    out, a = moe.moe_layer(p["moe"], h, cfg, capacity_factor=cf)
+    if aux is not None:
+        aux = {k: aux[k] + a[k] for k in aux}
+    return out, aux
 
 
-def _block_full(p, x, cfg: ArchConfig, *, positions, window=0, causal=True, cross_src=None,
-                capacity_factor=PREFILL_CAPACITY):
+def _block_full(p, x, cfg: ArchConfig, aux, *, positions, window=0, causal=True,
+                cross_src=None, capacity_factor=PREFILL_CAPACITY, train=False):
     """(residual) -> attn -> (residual) -> mlp or moe, each branch
-    tanh-gated in a VLM cross block. Returns (x, kv)."""
+    tanh-gated in a VLM cross block. Returns (x, kv, aux)."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     attn_out, kv = _attn_full(p["attn"], h, cfg, positions=positions, window=window,
                               causal=causal, cross_src=cross_src)
@@ -407,10 +433,10 @@ def _block_full(p, x, cfg: ArchConfig, *, positions, window=0, causal=True, cros
         attn_out = rms_norm(attn_out, p["ln_post_attn"], cfg.norm_eps)
     x = x + _gated(p, "gate_attn", attn_out, x)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    m = _mlp_or_moe(p, h, cfg, capacity_factor)
+    m, aux = _mlp_or_moe(p, h, cfg, capacity_factor, aux, train=train)
     if cfg.post_norms:
         m = rms_norm(m, p["ln_post_mlp"], cfg.norm_eps)
-    return x + _gated(p, "gate_mlp", m, x), kv
+    return x + _gated(p, "gate_mlp", m, x), kv, aux
 
 
 def _block_decode(p, x, cfg: ArchConfig, ck, cv, pos: int, *, window=0, ring=False,
@@ -422,7 +448,7 @@ def _block_decode(p, x, cfg: ArchConfig, ck, cv, pos: int, *, window=0, ring=Fal
         attn_out = rms_norm(attn_out, p["ln_post_attn"], cfg.norm_eps)
     x = x + _gated(p, "gate_attn", attn_out, x)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    m = _mlp_or_moe(p, h, cfg)
+    m, _ = _mlp_or_moe(p, h, cfg, PREFILL_CAPACITY, None)
     if cfg.post_norms:
         m = rms_norm(m, p["ln_post_mlp"], cfg.norm_eps)
     return x + _gated(p, "gate_mlp", m, x), ck, cv
@@ -440,8 +466,29 @@ def _sinusoid(s: int, d: int, dtype, device, offset: int = 0) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
+def _maybe_ckpt(fn, cfg: ArchConfig, train: bool):
+    """`fn`, or `fn` under non-reentrant `torch.utils.checkpoint` when
+    training with `cfg.remat`: the reference's `_maybe_ckpt` around each
+    scan body, so that a layer's (a pair's, a group's) activations are
+    recomputed in the backward and only its inputs are kept."""
+    if not (train and cfg.remat):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
+
+
+def _unstack(tree) -> list:
+    """A stacked parameter tree as the list of its layers' trees: every leaf
+    unbound along its first dim (views; one autograd node a leaf, whose
+    backward stacks the layers' gradients once)."""
+    if not isinstance(tree, dict):
+        return list(tree.unbind(0))
+    subs = {k: _unstack(v) for k, v in tree.items()}
+    n = len(next(iter(subs.values())))
+    return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+
+
 # ===========================================================================
-# Full-sequence forward (prefill)
+# Full-sequence forward (training and prefill)
 # ===========================================================================
 
 
@@ -455,154 +502,263 @@ def _local_window(cfg: ArchConfig) -> int:
     return cfg.sliding_window if cfg.attn_pattern in ("local", "local_global") else 0
 
 
-def _forward_dense(params, cfg, tokens, *, collect_kv=False,
-                   capacity_factor=PREFILL_CAPACITY):
+def _forward_dense(params, cfg, tokens, *, train, collect_kv, capacity_factor):
     """dense and moe families (gemma2's local/global pairs and llama4's
-    dense/MoE pairs included). Returns (hidden, [(k, v) a layer] or, for
-    pairs, ([(k, v) first], [(k, v) second]), or None)."""
+    dense/MoE pairs included). Returns (hidden, aux, [(k, v) a layer] or,
+    for pairs, ([(k, v) first], [(k, v) second]), or None)."""
     b, s = tokens.shape
     x = _embed_in(params, cfg, tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    window = _local_window(cfg)
-    run = dict(positions=positions, capacity_factor=capacity_factor)
+    run = dict(positions=positions, capacity_factor=capacity_factor, train=train)
     if cfg.attn_pattern == "local_global" or _moe_pairs(cfg):
         if _moe_pairs(cfg):
             pair = ((params["dense_blk"], _pair_dense_cfg(cfg), 0), (params["moe_blk"], cfg, 0))
         else:
-            pair = ((params["local"], cfg, window), (params["global"], cfg, 0))
-        kvs = ([], [])
-        for i in range(cfg.num_layers // 2):
-            for (stack, c, w), out in zip(pair, kvs):
-                x, kv = _block_full(_layer(stack, i), x, c, window=w, **run)
-                out.append(kv)
+            pair = ((params["local"], cfg, _local_window(cfg)), (params["global"], cfg, 0))
+
+        def body(x, aux, pp):
+            kv_pair = []
+            for p, (_, c, w) in zip(pp, pair):
+                x, kv, aux = _block_full(p, x, c, aux, window=w, **run)
+                kv_pair.append(kv)
+            return x, aux, kv_pair
+
+        units = list(zip(*(_unstack(stack) for stack, _, _ in pair)))
     else:
-        kvs = []
-        for i in range(cfg.num_layers):
-            x, kv = _block_full(_layer(params["blk"], i), x, cfg, window=window, **run)
-            kvs.append(kv)
+        window = _local_window(cfg)
+
+        def body(x, aux, p):
+            x, kv, aux = _block_full(p, x, cfg, aux, window=window, **run)
+            return x, aux, kv
+
+        units = _unstack(params["blk"])
+    body = _maybe_ckpt(body, cfg, train)
+    aux, kvs = _zero_aux(x.device), []
+    for unit in units:
+        x, aux, kv = body(x, aux, unit)
+        kvs.append(kv)
+    if cfg.attn_pattern == "local_global" or _moe_pairs(cfg):
+        kvs = tuple(list(side) for side in zip(*kvs))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x, (kvs if collect_kv else None)
+    return x, aux, (kvs if collect_kv else None)
 
 
-def _forward_rwkv(params, cfg, tokens, *, collect_state=False):
-    """ssm family (RWKV6). Returns (hidden, [(S, ax_last, fx_last) a layer]
-    or None)."""
+def _forward_rwkv(params, cfg, tokens, *, train, collect_state, use_kernel):
+    """ssm family (RWKV6). Returns (hidden, aux (zeros), [(S, ax_last,
+    fx_last) a layer] or None)."""
     b, s = tokens.shape
     x = rms_norm(_embed_in(params, cfg, tokens), params["ln0"], cfg.norm_eps)
     zero_prev = torch.zeros(b, 1, cfg.d_model, dtype=x.dtype, device=x.device)
-    states = []
-    for i in range(cfg.num_layers):
-        p = _layer(params["blk"], i)
+
+    def body(x, p):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        y, (ax_last, S) = ssm.rwkv6_time_mix(p["att"], h, zero_prev, None, cfg)
+        y, (ax_last, S) = ssm.rwkv6_time_mix(p["att"], h, zero_prev, None, cfg,
+                                             use_kernel=use_kernel)
         x = x + y
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         y, fx_last = ssm.rwkv6_channel_mix(p["ffn"], h, zero_prev)
-        x = x + y
-        states.append((S, ax_last, fx_last))
+        return x + y, (S, ax_last, fx_last)
+
+    body = _maybe_ckpt(body, cfg, train)
+    states = []
+    for p in _unstack(params["blk"]):
+        x, st = body(x, p)
+        states.append(st)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x, (states if collect_state else None)
+    return x, _zero_aux(x.device), (states if collect_state else None)
 
 
-def _forward_hybrid(params, cfg, tokens, *, collect_state=False):
+def _forward_hybrid(params, cfg, tokens, *, train, collect_state, use_kernel,
+                    capacity_factor):
     """zamba2: groups of mamba2 layers with a weight-shared attention block.
-    Returns (hidden, per-group [((k, v), [(S, conv) per layer])] or None)."""
+    Returns (hidden, aux, per-group [((k, v), [(S, conv) per layer])] or
+    None)."""
     b, s = tokens.shape
     x = _embed_in(params, cfg, tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     shared = params["shared"]
-    groups, per = _hybrid_groups(cfg)
-    states = []
-    for gi in range(groups):
+
+    def group(x, aux, pp):
         # Weight-shared attention block (sliding window for long context).
-        x, kv = _block_full(shared, x, cfg, positions=positions, window=cfg.sliding_window)
+        x, kv, aux = _block_full(shared, x, cfg, aux, positions=positions,
+                                 window=cfg.sliding_window, capacity_factor=capacity_factor,
+                                 train=train)
         sts = []
-        for li in range(per):
-            p = _layer(params["blk"], gi, li)
+        for p in _unstack(pp):
             h = rms_norm(x, p["ln"], cfg.norm_eps)
-            y, st = ssm.mamba2_mix(p, h, None, None, cfg)
+            y, st = ssm.mamba2_mix(p, h, None, None, cfg, use_kernel=use_kernel)
             x = x + y
             sts.append(st)
-        states.append((kv, sts))
+        return x, aux, (kv, sts)
+
+    group = _maybe_ckpt(group, cfg, train)
+    aux, states = _zero_aux(x.device), []
+    for pp in _unstack(params["blk"]):
+        x, aux, st = group(x, aux, pp)
+        states.append(st)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x, (states if collect_state else None)
+    return x, aux, (states if collect_state else None)
 
 
-def _forward_vlm(params, cfg, tokens, patches, *, collect_kv=False):
+def _forward_vlm(params, cfg, tokens, patches, *, train, collect_kv, capacity_factor):
     """vlm: each group's self-attention blocks, then its gated cross block
-    over the patches. Returns (hidden, per-group ([(k, v) a self layer],
-    (xk, xv)) or None)."""
+    over the patches. Returns (hidden, aux, per-group ([(k, v) a self
+    layer], (xk, xv)) or None)."""
     b, s = tokens.shape
     x = _embed_in(params, cfg, tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     patches = patches.to(x.dtype)
-    kvs = []
-    for gi in range(n_cross(cfg)):
+    run = dict(positions=positions, capacity_factor=capacity_factor, train=train)
+
+    def group(x, aux, pp, px):
         kv_self = []
-        for li in range(cfg.cross_attn_every - 1):
-            x, kv = _block_full(_layer(params["blk"], gi, li), x, cfg, positions=positions)
+        for p in _unstack(pp):
+            x, kv, aux = _block_full(p, x, cfg, aux, **run)
             kv_self.append(kv)
-        x, kv_cross = _block_full(_layer(params["xblk"], gi), x, cfg, positions=positions,
-                                  cross_src=patches)
-        kvs.append((kv_self, kv_cross))
+        x, kv_cross, aux = _block_full(px, x, cfg, aux, cross_src=patches, **run)
+        return x, aux, (kv_self, kv_cross)
+
+    group = _maybe_ckpt(group, cfg, train)
+    aux, kvs = _zero_aux(x.device), []
+    for pp, px in zip(_unstack(params["blk"]), _unstack(params["xblk"])):
+        x, aux, kv = group(x, aux, pp, px)
+        kvs.append(kv)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x, (kvs if collect_kv else None)
+    return x, aux, (kvs if collect_kv else None)
 
 
-def _encode_audio(params, cfg, frames, dtype):
+def _encode_audio(params, cfg, frames, dtype, train):
     """Whisper's encoder over the stub's frame embeddings (B, T, D):
     sinusoids added, non-causal blocks, its final norm."""
     t = frames.shape[1]
     x = frames.to(dtype) + _sinusoid(t, cfg.d_model, dtype, frames.device)[None]
     positions = torch.arange(t, device=x.device)[None].expand(frames.shape[0], t)
-    for i in range(cfg.encoder_layers):
-        x, _ = _block_full(_layer(params["enc"], i), x, cfg, positions=positions,
-                           causal=False)
+
+    def body(x, p):
+        return _block_full(p, x, cfg, None, positions=positions, causal=False)[0]
+
+    body = _maybe_ckpt(body, cfg, train)
+    for p in _unstack(params["enc"]):
+        x = body(x, p)
     return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
 
 
-def _forward_audio(params, cfg, tokens, frames, *, collect_kv=False):
+def _forward_audio(params, cfg, tokens, frames, *, train, collect_kv):
     """audio: the encoder, then each decoder layer's causal block and its
-    pre-normed cross-attention to the encoder output. Returns (hidden,
-    [((k, v), (xk, xv)) a layer] or None)."""
+    pre-normed cross-attention to the encoder output. Returns (hidden, aux
+    (zeros), [((k, v), (xk, xv)) a layer] or None)."""
     b, s = tokens.shape
     x = _embed_in(params, cfg, tokens)
-    enc = _encode_audio(params, cfg, frames, x.dtype)
+    enc = _encode_audio(params, cfg, frames, x.dtype, train)
     x = x + _sinusoid(s, cfg.d_model, x.dtype, x.device)[None]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    kvs = []
-    for i in range(cfg.num_layers):
-        p = _layer(params["dec"], i)
-        x, kv_self = _block_full(p, x, cfg, positions=positions)
+
+    def body(x, p):
+        x, kv_self, _ = _block_full(p, x, cfg, None, positions=positions)
         h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
         co, kv_cross = _attn_full(p["xattn"], h, cfg, positions=positions, cross_src=enc)
-        x = x + co
-        kvs.append((kv_self, kv_cross))
+        return x + co, (kv_self, kv_cross)
+
+    body = _maybe_ckpt(body, cfg, train)
+    kvs = []
+    for p in _unstack(params["dec"]):
+        x, kv = body(x, p)
+        kvs.append(kv)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x, (kvs if collect_kv else None)
+    return x, _zero_aux(x.device), (kvs if collect_kv else None)
 
 
-def forward_hidden(params, cfg: ArchConfig, batch, *, collect=False,
-                   capacity_factor=PREFILL_CAPACITY):
-    """Dispatch to the family forward. Returns (hidden, caches-raw).
-    `capacity_factor`: a MoE layer's over 2+ tokens."""
+def forward_hidden(params, cfg: ArchConfig, batch, *, train=False, use_kernel=True,
+                   collect=False, capacity_factor=None):
+    """Dispatch to the family forward. Returns (hidden, aux, caches-raw):
+    aux the MoE layers' `load_balance` and `router_z` summed over layers
+    (float32 0-d; zeros without MoE), as the reference's.
+
+    `train`: a MoE layer takes the training capacity (`capacity_factor`
+    None: the config's, 1.25), and with `cfg.remat` each layer (a pair, a
+    group) runs under `torch.utils.checkpoint`. Otherwise a MoE layer runs
+    at the serving capacity (`capacity_factor` None: `PREFILL_CAPACITY`; a
+    one-token input never drops). `use_kernel`: the RWKV6 and Mamba2 scans
+    through the chunk_scan kernel's wrappers (True, the port's serving
+    default; the kernels have no backward) or its plain versions (False,
+    the reference's default and the training path)."""
     _require_family(cfg)
+    if capacity_factor is None and not train:
+        capacity_factor = PREFILL_CAPACITY
+    tokens = batch["tokens"]
     if cfg.arch_type in ("dense", "moe"):
-        return _forward_dense(params, cfg, batch["tokens"], collect_kv=collect,
+        return _forward_dense(params, cfg, tokens, train=train, collect_kv=collect,
                               capacity_factor=capacity_factor)
     if cfg.arch_type == "ssm":
-        return _forward_rwkv(params, cfg, batch["tokens"], collect_state=collect)
+        return _forward_rwkv(params, cfg, tokens, train=train, collect_state=collect,
+                             use_kernel=use_kernel)
     if cfg.arch_type == "vlm":
-        return _forward_vlm(params, cfg, batch["tokens"], batch["patches"],
-                            collect_kv=collect)
+        return _forward_vlm(params, cfg, tokens, batch["patches"], train=train,
+                            collect_kv=collect, capacity_factor=capacity_factor)
     if cfg.arch_type == "audio":
-        return _forward_audio(params, cfg, batch["tokens"], batch["frames"],
+        return _forward_audio(params, cfg, tokens, batch["frames"], train=train,
                               collect_kv=collect)
-    return _forward_hybrid(params, cfg, batch["tokens"], collect_state=collect)
+    return _forward_hybrid(params, cfg, tokens, train=train, collect_state=collect,
+                           use_kernel=use_kernel, capacity_factor=capacity_factor)
 
 
 def unembed_table(params, cfg: ArchConfig):
     return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+# ===========================================================================
+# Loss
+# ===========================================================================
+
+
+def loss_chunk(s: int) -> int:
+    """The loss's sequence chunk: `s` up to 512 tokens, else 512 halved
+    until it divides `s` (the reference's rule)."""
+    chunk = s if s <= 512 else 512
+    while s % chunk:
+        chunk //= 2
+    return chunk
+
+
+def forward_loss(params, cfg: ArchConfig, batch, *, use_kernel=False):
+    """Mean next-token NLL + MoE aux losses: (loss, aux) with aux["nll"],
+    and the summed `load_balance` and `router_z`. batch: tokens, labels
+    (B, S) (+ the frontend stub's patches or frames). The forward runs with
+    `train=True`; `use_kernel` defaults to False as the reference's does,
+    so the RWKV6 and Mamba2 scans take their differentiable plain versions."""
+    h, aux, _ = forward_hidden(params, cfg, batch, train=True, use_kernel=use_kernel)
+    labels = batch["labels"]
+    b, s = labels.shape
+    nll = unembed_chunked(h, unembed_table(params, cfg), labels, chunk=loss_chunk(s),
+                          final_cap=cfg.final_softcap)
+    loss = nll / (b * s)
+    aux = dict(aux, nll=loss)
+    if cfg.num_experts:
+        loss = (loss + cfg.load_balance_loss * aux["load_balance"] / cfg.num_layers
+                + cfg.router_zloss * aux["router_z"] / cfg.num_layers)
+    return loss, aux
+
+
+def real_batch(cfg: ArchConfig, kind: str, b: int, s: int, *,
+               generator: torch.Generator) -> dict:
+    """A random batch on the generator's device, drawn from `generator`:
+    tokens (B, S) int32 (kind "train" adds labels, "decode" is tokens (B,)
+    alone), and the frontend stub's output, normal x 0.02 in bf16 (`patches`
+    for vlm, `frames` for audio). The reference's `jax.random` draws cannot
+    be matched; parity tests take `data.lm`'s numpy batches instead."""
+    kw = dict(generator=generator, device=generator.device)
+    if kind == "decode":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (b,), dtype=torch.int32, **kw)}
+    if kind not in ("train", "prefill"):
+        raise ValueError(f"unknown batch kind {kind!r}")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32, **kw)}
+    if kind == "train":
+        batch["labels"] = torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32, **kw)
+    stub = {"vlm": ("patches", cfg.num_frontend_tokens),
+            "audio": ("frames", cfg.encoder_tokens)}.get(cfg.arch_type)
+    if stub:
+        batch[stub[0]] = torch.randn((b, stub[1], cfg.d_model), dtype=ACT_DTYPE, **kw) * 0.02
+    return batch
 
 
 # ===========================================================================
@@ -702,8 +858,8 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int, *,
     b, s = tokens.shape
     if s > cache_len:
         raise ValueError(f"prompt of {s} tokens past the cache of {cache_len}")
-    h, raw = forward_hidden(params, cfg, batch, collect=True,
-                            capacity_factor=capacity_factor)
+    h, _, raw = forward_hidden(params, cfg, batch, collect=True,
+                               capacity_factor=capacity_factor)
     logits = logits_last(h[:, -1], unembed_table(params, cfg), cfg.final_softcap)
     w = _window(cfg, cache_len)
     desc = _cache_desc(cfg, b, cache_len, params["embed"].dtype)

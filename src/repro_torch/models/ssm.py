@@ -11,11 +11,16 @@ instances of the diagonal-decay recurrence
   Mamba2 (SSD): d_t = w_t = exp(-Δt·exp(A_log)) (scalar per head,
     broadcast over dk), u_t = 1, k = B, q = C, v = Δt·x.
 
-Prefill runs the chunked scan through the kernel's wrappers (the Hopper
+With `use_kernel=True` (the port's default, which its serving path runs)
+prefill takes the chunked scan through the kernel's wrappers (the Hopper
 kernels on CUDA tensors, their plain versions on the CPU):
 `rwkv6_time_mix` through the general entry
 (`kernels/chunk_scan/ops.chunk_scan`, rwkv6 mode, chunk 32), `mamba2_mix`
-through the Mamba2 entry (`ops.chunk_scan_mamba2`). The decode steps
+through the Mamba2 entry (`ops.chunk_scan_mamba2`). The reference defaults
+to `use_kernel=False` and trains so: then both take the plain versions
+(`chunk_scan_plain`, `chunk_scan_mamba2_plain`) on any device, which
+autograd differentiates; the kernels have no backward and raise under grad
+mode. The decode steps
 (`rwkv6_time_mix_step`, `mamba2_mix_step`) take the one token through
 `recurrence_step`, the reference's chunk-1 plain scan in a single update
 (not a kernel there either).
@@ -111,12 +116,13 @@ def _rwkv6_out(p, y, g, cfg):
     return y @ p["w_o"]
 
 
-def rwkv6_time_mix(p, x, x_prev, state, cfg, *, chunk=32):
+def rwkv6_time_mix(p, x, x_prev, state, cfg, *, chunk=32, use_kernel=True):
     """RWKV6 attention replacement. x: (B,S,D). Returns (y, (x_last, S)).
-    The scan goes through the kernel's general entry in rwkv6 mode."""
+    The scan goes through the kernel's general entry in rwkv6 mode
+    (`use_kernel`), else through its plain version."""
     r, k, v, g, w = _rwkv6_in(p, x, _token_shift(x, x_prev), cfg)
-    y, S = cs_ops.chunk_scan(w, k, v, r, p["u"], include_current=False, chunk=chunk,
-                             s0=state)
+    scan = cs_ops.chunk_scan if use_kernel else cs_ops.chunk_scan_plain
+    y, S = scan(w, k, v, r, p["u"], include_current=False, chunk=chunk, s0=state)
     return _rwkv6_out(p, y, g, cfg), (x[:, -1:], S)
 
 
@@ -192,14 +198,14 @@ def _mamba2_out(p, y, xz, z, cfg):
     return y @ p["out_proj"]
 
 
-def mamba2_mix(p, x, state, conv_state, cfg, *, chunk=32):
+def mamba2_mix(p, x, state, conv_state, cfg, *, chunk=32, use_kernel=True):
     """Mamba2 block core. x: (B,S,D). Returns (y, (S, conv_state)).
 
-    The scan goes through the kernel's Mamba2 entry, which takes the decay
-    as (B, S, H) and k, q as (B, S, ns): nothing is broadcast over heads."""
+    The scan goes through the kernel's Mamba2 entry (`use_kernel`), else its
+    plain version; both take the decay as (B, S, H) and k, q as (B, S, ns)."""
     z, xz, (a, k, q, v), conv_state = _mamba2_in(p, x, conv_state, cfg)
-    y, S = cs_ops.chunk_scan_mamba2(a, k.contiguous(), q.contiguous(), v, chunk=chunk,
-                                    s0=state)
+    scan = cs_ops.chunk_scan_mamba2 if use_kernel else cs_ops.chunk_scan_mamba2_plain
+    y, S = scan(a, k.contiguous(), q.contiguous(), v, chunk=chunk, s0=state)
     return _mamba2_out(p, y, xz, z, cfg), (S, conv_state)
 
 

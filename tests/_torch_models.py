@@ -137,7 +137,7 @@ def decode_from_reference_cache(name: str, prompt: int, cache_len: int):
 
 def full_logits(p, cfg, toks: torch.Tensor, capacity_factor=M.PREFILL_CAPACITY) -> np.ndarray:
     """The port's last-token logits of one causal forward over `toks`."""
-    h, _ = M.forward_hidden(p, cfg, port_batch(cfg, toks), capacity_factor=capacity_factor)
+    h, _, _ = M.forward_hidden(p, cfg, port_batch(cfg, toks), capacity_factor=capacity_factor)
     return layers.logits_last(h[:, -1], M.unembed_table(p, cfg), cfg.final_softcap).numpy()
 
 

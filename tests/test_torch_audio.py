@@ -107,7 +107,7 @@ def test_forward_hidden_matches_the_reference():
     cfg_r, cfg, p_r, p = model(NAME)
     toks = tokens(cfg, PROMPT)
     h_r, _, _ = ref_model.forward_hidden(p_r, cfg_r, ref_batch(cfg, toks), train=False)
-    h, raw = M.forward_hidden(p, cfg, port_batch(cfg, toks))
+    h, _, raw = M.forward_hidden(p, cfg, port_batch(cfg, toks))
     assert raw is None and h.shape == (2, PROMPT, cfg.d_model) and h.dtype == torch.bfloat16
     assert rel(h.float().numpy(), np.asarray(h_r, np.float32)) < CACHE_TOL
 

@@ -30,7 +30,10 @@ decode_attn sum in other orders than their plain versions: float32 within
 where 64 chunks of state carry) and 2e-5 (decode_attn); bf16 outputs within
 the reference's bf16 tolerances (5e-2 for y, 2e-2 for the state); bf16
 attention within one bf16 ulp (atol 1e-5, rtol 1e-2), since both sides
-round one float32 result.
+round one float32 result. The chunk_scan kernels have no backward: both
+entries raise under grad mode with an input that requires grad, and a
+reduced train step on the card (the plain scans) matches the CPU's (loss
+within 2e-3; gradients as `tests/test_torch_train_parity.py` holds them).
 """
 
 import numpy as np
@@ -1438,3 +1441,132 @@ def test_moe_family_on_card_matches_the_cpu(card, arch):
     picks = [moe.route(moe.router_probs(x.to(dev), r.to(dev))[0], cfg.experts_per_token)[1]
              for dev, r in ((card, router), ("cpu", router))]
     assert torch.equal(picks[0].cpu(), picks[1])
+
+
+@pytest.mark.cuda
+def test_chunk_scan_kernels_refuse_a_gradient_on_card(card):
+    """The kernels have no backward: under grad mode, with a CUDA input that
+    requires grad, both entries raise (never a detached result); under
+    `torch.no_grad` and `torch.inference_mode` they launch and match their
+    plain versions."""
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+
+    w, k, v, q, u, _ = _scan_inputs(1, 64, 2, 32, 32, torch.float32, 3, card)
+    wm, km, qm = w[..., 0].contiguous(), k[:, :, 0].contiguous(), q[:, :, 0].contiguous()
+    calls = {
+        "general": (lambda: cs_ops.chunk_scan(w, k, v, q, u, include_current=False, chunk=32),
+                    lambda: cs_ops.chunk_scan_plain(w, k, v, q, u, include_current=False,
+                                                    chunk=32)),
+        "mamba2": (lambda: cs_ops.chunk_scan_mamba2(wm, km, qm, v, chunk=32),
+                   lambda: cs_ops.chunk_scan_mamba2_plain(wm, km, qm, v, chunk=32)),
+    }
+    for name, (call, plain) in calls.items():
+        for t in (v, k if name == "general" else km):
+            t.requires_grad_(True)
+            before = cs_ops.chunk_scan.launches
+            with pytest.raises(RuntimeError, match="no backward"):
+                call()
+            assert cs_ops.chunk_scan.launches == before, name
+            t.requires_grad_(False)
+        v.requires_grad_(True)
+        for mode in (torch.no_grad, torch.inference_mode):
+            with mode():
+                before = cs_ops.chunk_scan.launches
+                y, st = call()
+                assert cs_ops.chunk_scan.launches == before + 1
+                y_p, st_p = plain()
+            torch.testing.assert_close(y, y_p, atol=3e-5, rtol=3e-5)
+            torch.testing.assert_close(st, st_p, atol=3e-5, rtol=3e-5)
+        v.requires_grad_(False)
+        # No input that requires grad: the kernel runs under grad mode too.
+        before = cs_ops.chunk_scan.launches
+        call()
+        assert cs_ops.chunk_scan.launches == before + 1
+
+
+def _train_step(cfg, params, batch, device):
+    """One AdamW step of a copy of `params` on `device`: (loss, grad_norm,
+    the gradients as float32 CPU tensors by path)."""
+    from repro_torch.models.params import leaves
+    from repro_torch.train.optim import OptConfig, make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    opt = make_optimizer(OptConfig(name=cfg.optimizer, warmup_steps=1))
+    seen = {}
+
+    class Filing:
+        def update(self, grads, state, p, step):
+            seen.update({path: g.float().cpu() for path, g in leaves(grads)})
+            return opt.update(grads, state, p, step)
+
+    p = _copy(params, device)  # the step updates its parameters in place
+    p, _, metrics = make_train_step(cfg, Filing())(
+        p, opt.init(p), {k: torch.as_tensor(a, device=device) for k, a in batch.items()}, 0)
+    return float(metrics["loss"]), float(metrics["grad_norm"]), seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-1.6b"])
+def test_train_step_on_card_matches_the_cpu(card, arch):
+    """A reduced train step on the card (the plain scans under grad, no
+    kernel launched) against the port on the CPU: same weights, same bigram
+    batch; the loss within 2e-3, grad_norm within 1e-2 of it and every
+    gradient leaf within 0.1 of its scale with cosine >= 0.998, or, where
+    bf16 noise is past those bounds on the CPU itself (its bf16 gradient
+    against its float32 one), within twice that noise of the float32
+    gradient."""
+    from repro_torch import configs
+    from repro_torch.data.lm import batches_for
+    from repro_torch.kernels.chunk_scan import ops as cs_ops
+    from repro_torch.models import model as M
+
+    cfg = configs.get(arch).reduced()
+    params = M.init_model(cfg, seed=0, device="cpu")
+    batch = next(batches_for(cfg, 64, 2))
+    before = cs_ops.chunk_scan.launches
+    loss, gnorm, g = _train_step(cfg, params, batch, card)
+    assert cs_ops.chunk_scan.launches == before
+    loss_c, gnorm_c, g_c = _train_step(cfg, params, batch, "cpu")
+    assert abs(loss - loss_c) < 2e-3, (loss, loss_c)
+    assert abs(gnorm - gnorm_c) <= 1e-2 * gnorm_c, (gnorm, gnorm_c)
+    g32 = None
+
+    def rel_cos(a, b):
+        a, b = a.double(), b.double()
+        return (float((a - b).abs().max() / b.abs().max()),
+                float((a * b).sum() / ((a * a).sum() * (b * b).sum()).sqrt()))
+
+    for path, want in g_c.items():
+        r, c = rel_cos(g[path], want)
+        if r <= 0.1 and c >= 0.998:
+            continue
+        if g32 is None:
+            wide = _copy(params, "cpu")
+            for key, t in list(_flat(wide)):
+                if t.dtype == torch.bfloat16:
+                    _set(wide, key, t.float())
+            g32 = _train_step(cfg, wide, batch, "cpu")[2]
+        r_cpu, c_cpu = rel_cos(want, g32[path])
+        r_card, c_card = rel_cos(g[path], g32[path])
+        assert r_cpu > 0.1 or c_cpu < 0.998, (path, r, c)
+        assert r_card <= 2 * r_cpu and 1 - c_card <= 2 * (1 - c_cpu), (path, r_card, r_cpu)
+
+
+def _copy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _copy(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def _flat(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _set(tree, path, value):
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = value

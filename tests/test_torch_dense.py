@@ -202,7 +202,7 @@ def test_float32_weights_run_the_same_path(name):
     toks = torch.tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 73)))
     cache, pre = M.prefill(wide, cfg, {"tokens": toks[:, :70]}, 128)
     assert all(t.dtype == torch.float32 for t in cache.values())
-    h, _ = M.forward_hidden(wide, cfg, {"tokens": toks})
+    h, _, _ = M.forward_hidden(wide, cfg, {"tokens": toks})
     table = M.unembed_table(wide, cfg)
     for i in range(3):
         cache, dec = M.decode_step(wide, cfg, cache, toks[:, 70 + i], 70 + i)

@@ -278,7 +278,7 @@ def test_prefill_decode_consistency(model):
     t = torch.tensor(toks[:, :41])
     cache, _ = M.prefill(p, cfg, {"tokens": t[:, :40]}, 64)
     _, dec = M.decode_step(p, cfg, cache, t[:, 40], 40)
-    h, _ = M.forward_hidden(p, cfg, {"tokens": t})
+    h, _, _ = M.forward_hidden(p, cfg, {"tokens": t})
     full = layers.logits_last(h[:, -1], M.unembed_table(p, cfg), cfg.final_softcap)
     assert _rel(dec.numpy(), full.numpy()) < 0.02
 
@@ -297,7 +297,7 @@ def past_the_window(model):
     out = []
     for i in range(3):
         cache, dec = M.decode_step(p, cfg, cache, toks[:, s + i], s + i)
-        h, _ = M.forward_hidden(p, cfg, {"tokens": toks[:, :s + i + 1]})
+        h, _, _ = M.forward_hidden(p, cfg, {"tokens": toks[:, :s + i + 1]})
         full = layers.logits_last(h[:, -1], M.unembed_table(p, cfg), cfg.final_softcap)
         out.append((dec.numpy(), full.numpy()))
     return out

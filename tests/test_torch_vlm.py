@@ -125,7 +125,7 @@ def test_forward_hidden_matches_the_reference():
     cfg_r, cfg, p_r, p = model(NAME)
     toks = tokens(cfg, PROMPT)
     h_r, _, _ = ref_model.forward_hidden(p_r, cfg_r, ref_batch(cfg, toks), train=False)
-    h, raw = M.forward_hidden(p, cfg, port_batch(cfg, toks))
+    h, _, raw = M.forward_hidden(p, cfg, port_batch(cfg, toks))
     assert raw is None and h.shape == (2, PROMPT, cfg.d_model) and h.dtype == torch.bfloat16
     assert rel(h.float().numpy(), np.asarray(h_r, np.float32)) < CACHE_TOL
 
@@ -198,7 +198,7 @@ def test_gated_block_matches_the_reference(value):
     aux = {"load_balance": jnp.float32(0.0), "router_z": jnp.float32(0.0)}
     out_r, (k_r, _), _ = ref_model._block_full(pr, jb(x), cfg_r, aux, positions=pos,
                                                cross_src=jb(src), train=False)
-    out, (k, _) = M._block_full(pt, tb(x), cfg, positions=None, cross_src=tb(src))
+    out, (k, _), _ = M._block_full(pt, tb(x), cfg, None, positions=None, cross_src=tb(src))
     assert rel(out.float().numpy(), np.asarray(out_r, np.float32)) < CACHE_TOL
     assert rel(k.float().numpy(), np.asarray(k_r, np.float32)) < CACHE_TOL
     if value == 0.0:
