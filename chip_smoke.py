@@ -259,6 +259,25 @@ Phases:
                  ops and busy share; (e) both chunk_scan entries raising on
                  CUDA inputs that require grad under grad mode, and matching
                  their plain versions under `torch.no_grad`
+ 23. dryrun      the paper's production RLDA sweep (`launch.dryrun_rlda`: K
+                 256, V 250,000, D 200,000, `w_bits` 8, 16,777,216 tokens of
+                 a seeded corpus made on the card, blocks of 8,192): (a)
+                 token-parallel, `core.gibbs.sweep` (2,048 Gibbs launches a
+                 sweep, gated), a warm-up, 3 timed sweeps and 1 traced:
+                 sweep ms, peak, busy share and top ops, the invariants and
+                 the largest counts beside int32's fixed-point limit; (b)
+                 client-server at W 16 and 32 stacked workers, one sync a
+                 sweep (the same, plus sync bytes; peak gated under 70 GB);
+                 the `cuda` route once (one Philox launch); (c) the Gibbs
+                 kernel against its plain version on the sweep's first,
+                 middle and last blocks and on the first 2^17 tokens in both
+                 noise modes, timed at the block in both modes and as one
+                 Philox launch over all the tokens, with bounds from the
+                 rows read; (d) `launch.dryrun`'s estimate of each
+                 `TRAIN_RUNS` run against the peak phase 22 measured (within
+                 10%), its depth extrapolation against a full-depth `meta`
+                 run of qwen2-7b at train_4k, and every arch and shape's
+                 static `fits_card` on the card
 Phase 1 also holds both batched kernels against their plain versions over M
 in {1, 5, 64} ragged models x K in {12, 128, 1000} x f32/`w_bits` 8 x both
 noise or draw modes (x S in {2, 4} for alias_mh), the packed-table entry in
@@ -303,7 +322,8 @@ line's `lda_gibbs.resample`, `lda_gibbs.resample_quant` and
 mode (`by_shape`), counted where the wrapper launches (`launches`,
 `launches_philox`): lda_gibbs.resample's are the main path's blocks, the
 popular product's single launches, each offload case's blocks and the
-mesh phase's by run and shape (lda_gibbs.resample_many's: the zoo's, each
+mesh phase's by run and shape and the dryrun phase's production blocks and
+Philox launch (lda_gibbs.resample_many's: the zoo's, each
 offload case's server-only stacks and the mesh phase's stacked workers);
 alias_mh.resample's are the case study's on `alias`,
 the popular product's on int32 tables (`large_fit` and `packed`'s exact
@@ -5168,6 +5188,269 @@ def phase_train():
     return out
 
 
+# -- phase 23: dryrun ------------------------------------------------------------
+
+# The paper's production RLDA sweep (`launch.dryrun_rlda`: K 256, V 250,000,
+# D 200,000, `w_bits` 8, 16,777,216 tokens, blocks of 8,192), token-parallel
+# and client-server at W 16 and 32 (the pod meshes' data axes), one sync a
+# sweep; row 1 at its shapes; the one-card estimate (`launch.dryrun`)
+# against the train phase's measured peaks.
+DRYRUN_TOKENS = 16_777_216
+DRYRUN_BLOCK = 8192
+DRYRUN_WORKERS = (16, 32)
+DRYRUN_SLICE = 1 << 17  # the plain version's (N, K) scores fit at this slice, not at N
+DRYRUN_KEY = (2 ** 64 - 777, 40)
+# The estimate against the train phase's measured peak: a design target (the
+# estimate runs the same code on `meta`; it misses the allocator's rounding
+# and cuBLAS workspaces), not a tolerance to widen.
+ESTIMATE_REL = 0.10
+EXTRAPOLATION_SLACK = 4096  # bytes: the depth extrapolation against a full-depth run
+
+
+def _rlda_run(label, **kw):
+    """One `dryrun_rlda.run_one` on the card, its launches counted from 0,
+    then one more sweep traced: the record's numbers, the busy share and
+    the top device ops; and the live result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import dryrun_rlda
+    from repro_torch.kernels.lda_gibbs import ops
+
+    free_cuda()
+    ops.resample.launches = ops.resample.launches_philox = 0
+    ops.resample.tokens = 0
+    rec = dryrun_rlda.run_one(False, num_tokens=DRYRUN_TOKENS, block=DRYRUN_BLOCK,
+                              device="cuda", tag=label, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rec["step"]()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    # 5 sweeps: a warm-up, 3 timed, 1 traced
+    launches, tokens = ops.resample.launches, ops.resample.tokens
+    top, busy = device_summary(prof, 1, top=8)
+    out = {k: rec[k] for k in ("mode", "setup_s", "sweep_ms", "sweep_ms_all",
+                               "launches_per_sweep", "bound", "invariants", "counts",
+                               "static_per_device", "static_card_bytes", "peak_bytes")}
+    out.update({k: rec[k] for k in ("workers", "sync_bytes_per_device",
+                                    "sync_bytes_all_workers", "bound_with_noise")
+                if k in rec},
+               label=label, peak_gb=rec["peak_bytes"] / 1e9, launches=launches,
+               launches_philox=ops.resample.launches_philox,
+               tokens_per_launch=tokens / max(launches, 1),
+               traced_sweep_ms=traced_ms, device_busy_ms_per_sweep=busy,
+               device_busy_share=busy / traced_ms, profile_top_device_ms=top)
+    return out, rec
+
+
+def rlda_kernel_checks(cfg, corpus, state, reps=20):
+    """Row 1 at the production shapes: against `resample_plain` on the
+    sweep's own first, middle and last (8,192, K 256) blocks (its decoded
+    float32 tables, injected noise) and on the first 2^17 tokens with the
+    stored int32 tables in both noise modes; the (8,192, K 256) block timed
+    in both modes (`_lda_timing`); one Philox launch over all the tokens,
+    the `cuda` backend's route at this shape, timed by CUDA events over raw
+    launches and by graph, against its bound."""
+    import torch
+
+    from repro_torch.core import codec
+    from repro_torch.kernels.lda_gibbs import kernel, ops
+
+    n, k, b = corpus.num_tokens, cfg.num_topics, DRYRUN_BLOCK
+    decoded = codec.decode_counts(cfg, state)
+    ids = (corpus.docs, corpus.words, state.z, corpus.weights)
+    hp_real = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=None)
+    hp_fixed = dict(hp_real, w_bits=cfg.w_bits)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    blocks = {}
+    for name, lo in (("first", 0), ("middle", n // 2 // b * b), ("last", n - b)):
+        args = (*(t[lo:lo + b] for t in ids), *decoded)
+        bad, flips, near, gap = compare((*args, ops.gumbel((b, k), gen, "cuda")), **hp_real)
+        blocks[name] = {"start": lo, "mismatch": bad, "near_tie_flips": flips,
+                        "near_ties": near, "max_abs_err": gap}
+    sl = (*(t[:DRYRUN_SLICE] for t in ids), state.n_dt, state.n_wt, state.n_t)
+    noise = ops.gumbel((DRYRUN_SLICE, k), gen, "cuda")
+    sliced = {}
+    for mode, key in (("injected", None), ("philox", DRYRUN_KEY)):
+        bad, flips, near, gap = compare((*sl, noise), philox=key, **hp_fixed)
+        sliced[mode] = {"mismatch": bad, "near_tie_flips": flips, "near_ties": near,
+                        "max_abs_err": gap}
+    sliced["plain_ms_philox"] = cuda_ms(
+        lambda: ops.resample_plain(*sl, ops.philox_noise(sl[2], sl[6], DRYRUN_KEY),
+                                   **hp_fixed), 3, warmup=1)
+    first = (*(t[:b] for t in ids), *decoded)
+    block = _lda_timing(first, ops.gumbel((b, k), gen, "cuda"), DRYRUN_KEY, hp_real,
+                        False, b, 0, reps)
+    # A block reads only its tokens' rows of the tables: its bound counts
+    # those rows (`_lda_timing` counts whole tables, a sweep's need).
+    rows = int(first[0].unique().numel() + first[1].unique().numel())
+    for mode in ("injected", "philox"):
+        t = block[mode]
+        t["bound_ms_whole_tables"] = t["bound_ms"]
+        t["bytes"], t["bound_ms"], t["bound_by"] = lda_bound(b, 0, k, (rows + 1) * k * 4,
+                                                             mode == "philox")
+    block["rows_read"] = rows
+    full = (*ids, state.n_dt, state.n_wt, state.n_t)
+    z_out = torch.empty_like(state.z)
+
+    def raw():
+        kernel.launch(*full, None, z_out, alpha=cfg.alpha, beta=cfg.beta,
+                      beta_bar=cfg.beta_bar, scale=2.0 ** -(cfg.w_bits + 1), philox=DRYRUN_KEY)
+
+    rows = int(corpus.docs.unique().numel() + corpus.words.unique().numel())
+    moved, bound_ms, bound_by = lda_bound(n, 0, k, (rows + 1) * k * 4, True)
+    whole = {"ms": cuda_ms(raw, 5, warmup=1), "graph_ms": graph_ms(raw, launches=2, reps=3),
+             "plain_ms": None, "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
+             "rows_read": rows,
+             "plain_ms_note": f"the plain version cannot hold (N, K) scores at N={n}; "
+                              f"its ms on the first {DRYRUN_SLICE} tokens: "
+                              f"{sliced['plain_ms_philox']}"}
+    mismatch = (sum(r["mismatch"] for r in blocks.values())
+                + sliced["injected"]["mismatch"] + sliced["philox"]["mismatch"]
+                + block["mismatch"])
+    max_err = max([r["max_abs_err"] for r in blocks.values()]
+                  + [sliced[m]["max_abs_err"] for m in ("injected", "philox")]
+                  + [block["max_abs_err"]])
+    return {"blocks": blocks, "slice": sliced,
+            "block_shape": f"N={b} K={k} D={cfg.num_docs} V={cfg.vocab_size} float tables",
+            "block": block, "whole_shape": f"N={n} K={k} D={cfg.num_docs} V={cfg.vocab_size} "
+                                           f"w_bits={cfg.w_bits}",
+            "whole": whole, "mismatch": mismatch, "max_abs_err": max_err}
+
+
+def _batch_bytes(cfg, b, s):
+    """(bytes of the estimate's own batch: `abstract_batch`, bf16 frontend
+    stub; bytes of one batch as `train_run` holds it: `batches_for`'s arrays,
+    whose stub is float32)."""
+    from repro_torch.data.lm import batches_for
+    from repro_torch.models import model as M
+
+    stub = sum(t.numel() * t.element_size()
+               for t in M.abstract_batch(cfg, "train", b, s).values())
+    return stub, sum(a.nbytes for a in next(batches_for(cfg, s, b, seed=0)).values())
+
+
+def estimate_checks(train_runs):
+    """`launch.dryrun`'s card estimate of each `TRAIN_RUNS` run at its own
+    depth, batch and length (the step's peak on `meta`, its own batch
+    swapped for the `steps + 1` batches `train_run` makes up front, in
+    their own types: whisper's stub frames are float32 there, and the
+    step's bf16 cast of them, 0.4% of its peak, is not counted) against the
+    peak the train phase measured; the depth extrapolation against a
+    full-depth `meta` run of qwen2-7b at `train_4k`; and the static verdict
+    (`fits_card`) of every arch and shape on the card mesh."""
+    from repro_torch import configs
+    from repro_torch.configs import shapes as shapes_lib
+    from repro_torch.configs.base import REFERENCE_ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    runs = []
+    for r in train_runs:
+        spec = TRAIN_RUNS[r["arch"]]
+        cfg = configs.get(r["arch"])
+        if spec["layers"]:
+            cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+        t0 = time.perf_counter()
+        est = dryrun.estimate(cfg, "train", r["batch"], r["seq_len"])
+        stub, held = _batch_bytes(cfg, r["batch"], r["seq_len"])
+        extra = (spec["steps"] + 1) * held - stub
+        predicted = est["peak_bytes"] + extra
+        measured = r["peak_gb"] * 1e9
+        runs.append({"arch": r["arch"], "layers": cfg.num_layers, "batch": r["batch"],
+                     "seq_len": r["seq_len"], "estimate_step_peak_gb": est["peak_bytes"] / 1e9,
+                     "held_batches_gb": extra / 1e9, "estimate_gb": predicted / 1e9,
+                     "measured_gb": r["peak_gb"], "rel_err": (predicted - measured) / measured,
+                     "flops": est["flops"], "depth": {k: est[k] for k in (
+                         "groups", "group_layers", "extrapolated")},
+                     "estimate_s": time.perf_counter() - t0})
+    cfg = configs.get("qwen2-7b")
+    shp = shapes_lib.get("train_4k")
+    t0 = time.perf_counter()
+    est = dryrun.estimate(cfg, "train", shp.global_batch, shp.seq_len)
+    full = dryrun.measure_step(cfg, "train", shp.global_batch, shp.seq_len)
+    depth = {"arch": "qwen2-7b", "shape": "train_4k", "estimate": est, "full_depth": full,
+             "peak_diff_bytes": est["peak_bytes"] - full["peak_bytes"],
+             "seconds": time.perf_counter() - t0}
+    card = mesh_lib.make_card_mesh()
+    t0 = time.perf_counter()
+    grid = {}
+    for arch in REFERENCE_ARCHS:
+        grid[arch] = {}
+        for shape_name in shapes_lib.SHAPES:
+            rec = dryrun.record(arch, shape_name, card, activations=False)
+            grid[arch][shape_name] = ("skipped" if "skipped" in rec else
+                                      {"fits_card": rec["fits_card"],
+                                       "static_gb": rec["memory"]["total_bytes"] / 1e9})
+    return {"runs": runs, "depth_check": depth, "static_grid": grid,
+            "card_bytes": rec["memory"]["card_bytes"] if "memory" in rec else None,
+            "grid_s": time.perf_counter() - t0}
+
+
+def phase_dryrun(train):
+    """The production RLDA sweep on the card, token-parallel (a) and
+    client-server at W 16 and 32 (b); row 1 at its shapes (c); the
+    estimate against the train phase (d). Launch counts are zeroed just
+    before each run and read just after."""
+    import torch
+
+    from repro_torch.core import codec
+    from repro_torch.launch import dryrun_rlda
+    from repro_torch.kernels.lda_gibbs import ops
+
+    t0 = time.perf_counter()
+    tp, rec = _rlda_run("token_parallel")
+    cfg = dryrun_rlda.production_lda_config()
+    corpus, state = rec["corpus"], rec["result"]
+    kernels = rlda_kernel_checks(cfg, corpus, state)
+    # The `cuda` backend's route at this shape: one sweep, one Philox launch.
+    ops.resample.launches = ops.resample.launches_philox = 0
+    cuda_state = ops.sweep(cfg, state, corpus, torch.Generator(device="cuda").manual_seed(3))
+    cuda_route = {"launches": ops.resample.launches,
+                  "launches_philox": ops.resample.launches_philox,
+                  "invariants": dryrun_rlda.check_counts(cfg, corpus, cuda_state.z,
+                                                         *codec.decode_counts(cfg, cuda_state))}
+    del rec, corpus, state, cuda_state
+    cs = [_rlda_run(f"client_server_w{w}", client_server=True, workers=w, sync_every=1)[0]
+          for w in DRYRUN_WORKERS]
+    est = estimate_checks(train["runs"])
+    out = {"phase": "dryrun", "config": {"num_topics": cfg.num_topics,
+                                         "vocab_size": cfg.vocab_size,
+                                         "num_docs": cfg.num_docs, "w_bits": cfg.w_bits,
+                                         "tokens": DRYRUN_TOKENS, "block": DRYRUN_BLOCK},
+           "token_parallel": tp, "client_server": cs, "cuda_route": cuda_route,
+           "kernel": kernels, "estimate": est, "phase_s": time.perf_counter() - t0}
+    emit(out)
+    failed = []
+    expect = DRYRUN_TOKENS // DRYRUN_BLOCK
+    if tp["launches_per_sweep"] != expect or tp["launches"] != 5 * expect:
+        failed.append(f"token-parallel launches: {tp['launches_per_sweep']} a sweep, "
+                      f"{tp['launches']} in 5 sweeps (want {expect} and {5 * expect})")
+    for r in [tp] + cs:
+        if not r["invariants"]["ok"]:
+            failed.append(f"{r['label']}: invariants {r['invariants']}")
+    for r in cs:
+        if r["peak_gb"] > TRAIN_PEAK_GB:
+            failed.append(f"{r['label']}: peak {r['peak_gb']:.2f} GB past {TRAIN_PEAK_GB}")
+    if cuda_route["launches_philox"] != 1 or not cuda_route["invariants"]["ok"]:
+        failed.append(f"cuda route: {cuda_route}")
+    if kernels["mismatch"]:
+        failed.append(f"row 1 disagrees with its plain version: {kernels['mismatch']} tokens")
+    for r in est["runs"]:
+        if abs(r["rel_err"]) > ESTIMATE_REL:
+            failed.append(f"{r['arch']}: estimate {r['estimate_gb']:.3f} GB against "
+                          f"{r['measured_gb']:.3f} measured ({r['rel_err']:+.3f})")
+    d = est["depth_check"]
+    if (d["estimate"]["flops"] != d["full_depth"]["flops"]
+            or abs(d["peak_diff_bytes"]) > EXTRAPOLATION_SLACK):
+        failed.append(f"depth extrapolation: {d['estimate']} against {d['full_depth']}")
+    if failed:
+        raise SystemExit(f"dryrun: {failed}")
+    return out
+
+
 def served_rows(runs, name, timings):
     """The kernels line's by-shape rows of a served kernel: one a (arch,
     shape) a serving run called it at, with its calls there and the
@@ -5249,13 +5532,14 @@ def main() -> int:
     phase_cross_parity()
     moe = phase_moe_serve()
     phase_moe_parity()
-    phase_train()
+    train = phase_train()
+    dry = phase_dryrun(train)
     scan_general = scan_kern["served"][(2, 4096, 32, 64, 64, 32, "rwkv6")]
     t = scale["kernel"]
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"],
             *(r[key]["max_abs_err"] for r in offload.values()
               for key in ("first_block", "typical_block")),
-            mesh_max_err(mesh, "lda_gibbs.resample")]
+            mesh_max_err(mesh, "lda_gibbs.resample"), dry["kernel"]["max_abs_err"]]
     if block_timing["mismatch"]:
         raise SystemExit("kernel disagrees with its plain version at the main-path shape")
     a = large["kernel"]
@@ -5291,6 +5575,20 @@ def main() -> int:
                  **{mode: {key: timing[mode][key] for key in timed}
                     for mode in ("injected", "philox")}}
                 for timing, n, n_philox, phases, extra in counted]
+    # The production RLDA sweep (`dryrun`): its (8,192, K 256) blocks, all
+    # injected (token-parallel, and the client-server workers' blocks of up
+    # to 8,192), and the `cuda` route's one Philox launch over all tokens.
+    dk, dry_runs = dry["kernel"], [dry["token_parallel"]] + dry["client_server"]
+    by_shape += [
+        {"shape": dk["block_shape"], "phases": "dryrun",
+         "launches_injected": sum(r["launches"] for r in dry_runs), "launches_philox": 0,
+         "launches_by_run": {r["label"]: r["launches"] for r in dry_runs},
+         "tokens_per_launch": {r["label"]: r["tokens_per_launch"] for r in dry_runs},
+         **{mode: {key: dk["block"][mode][key] for key in timed}
+            for mode in ("injected", "philox")}},
+        {"shape": dk["whole_shape"], "phases": "dryrun (the cuda route)",
+         "launches_injected": 0, "launches_philox": dry["cuda_route"]["launches_philox"],
+         "philox": dk["whole"]}]
     # lda_gibbs.resample_many by shape: the zoo's larger bucket (its main
     # path, `zoo`), and each offload case's server-only replay, whose
     # coalesced refit windows go to `refine_batch`, timed at its largest

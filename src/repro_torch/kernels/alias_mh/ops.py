@@ -47,6 +47,7 @@ import torch
 from repro_torch.core import codec, quant
 from repro_torch.core.alias import mh_rounds, sweep_draws, sweep_tables
 from repro_torch.core.types import Corpus, LDAConfig, LDAState
+from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.lda_gibbs.ops import _scale, check_philox_key, philox_key, philox_plain
 
 #: Tag XORed into the Philox key's high word, apart from the Gibbs kernel's
@@ -189,11 +190,12 @@ def mh_resample(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w,
     float32 — the stale alias tables (V,K)/(D,K), and either the (S, N)
     draws or a Philox key `philox` = (seed, offset) under which the kernel
     draws `mh_steps` rounds. CPU tensors take the plain version (on
-    `philox_mh_draws_plain`'s draws in the Philox mode); CUDA tensors
-    launch the kernel."""
+    `philox_mh_draws_plain`'s draws in the Philox mode), and so do `meta`
+    tensors (the dry run's shape propagation); CUDA tensors launch the
+    kernel."""
     args = (docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w, thresh_d, alias_d)
     hp = dict(alpha=alpha, beta=beta, beta_bar=beta_bar, w_bits=w_bits)
-    if z.device.type == "cpu":
+    if z.device.type in PLAIN_DEVICES:
         if philox is not None or any(x is None for x in (j_prop, u_prop, u_acc)):
             _check(*args, j_prop, u_prop, u_acc, w_bits, philox=philox, mh_steps=mh_steps)
             j_prop, u_prop, u_acc = philox_draws(z, n_t, philox, mh_steps)
@@ -273,12 +275,12 @@ def mh_resample_many(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w
     count tables (M, D, K)/(M, V, K)/(M, K) — int32 fixed point when
     `w_bits` is set, else float32 — their stale alias tables, and either
     the (M, S, N) draws or a Philox key `philox`, an (M, 2) int64 table of
-    (seed, offset) rows (`philox_keys`), with `mh_steps` rounds. CPU tensors
-    take the plain version; CUDA tensors launch the batched kernel once for
-    all M models."""
+    (seed, offset) rows (`philox_keys`), with `mh_steps` rounds. CPU (and
+    `meta`) tensors take the plain version; CUDA tensors launch the batched
+    kernel once for all M models."""
     args = (docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w, thresh_d, alias_d)
     hp = dict(alpha=alpha, beta=beta, beta_bar=beta_bar, w_bits=w_bits)
-    if z.device.type == "cpu":
+    if z.device.type in PLAIN_DEVICES:
         if philox is not None or any(x is None for x in (j_prop, u_prop, u_acc)):
             _check(*args, j_prop, u_prop, u_acc, w_bits, many=True, philox=philox,
                    mh_steps=mh_steps)

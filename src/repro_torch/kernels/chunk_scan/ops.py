@@ -37,6 +37,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import PLAIN_DEVICES
+
 LOG_W_MIN = -20.0  # decays below e^-20 are numerically zero already
 MAX_CHUNK = 64  # the kernel's largest chunk
 MAX_DK = 256  # the Mamba2 entry's widest k
@@ -148,8 +150,9 @@ def chunk_scan(w, k, v, q, u, *, include_current: bool, chunk: int = 64,
     tensors take the plain version; CUDA tensors launch the kernel (two
     launches: a prep kernel a chunk, then the scan over 16 state columns a
     block), which reads w in float32 (a bf16 `w` is widened here, exactly)
-    and `u` in float32 (widened here too: it is (H, dk))."""
-    if v.device.type == "cpu":
+    and `u` in float32 (widened here too: it is (H, dk)). `meta` tensors take
+    the plain version too (the dry run's shape propagation)."""
+    if v.device.type in PLAIN_DEVICES:
         return chunk_scan_plain(w, k, v, q, u, include_current=include_current,
                                 chunk=chunk, s0=s0)
     if v.device.type != "cuda":
@@ -235,8 +238,9 @@ def chunk_scan_mamba2(w, k, q, v, *, chunk: int = 32, s0: Optional[torch.Tensor]
     `chunk_scan(..., include_current=True)` on the broadcast inputs. CPU
     tensors take the plain version; CUDA tensors launch the kernel (two
     launches: a prep kernel, then the scan), which reads w in float32 (a
-    bf16 `w` is widened here, exactly)."""
-    if v.device.type == "cpu":
+    bf16 `w` is widened here, exactly). `meta` tensors take the plain
+    version too."""
+    if v.device.type in PLAIN_DEVICES:
         return chunk_scan_mamba2_plain(w, k, q, v, chunk=chunk, s0=s0)
     if v.device.type != "cuda":
         raise ValueError(f"no chunk_scan kernel for device {v.device}")

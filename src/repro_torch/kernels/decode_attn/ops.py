@@ -30,6 +30,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import PLAIN_DEVICES
+
 NEG_INF = -1e30
 MAX_G = 8  # query heads per kv head the kernel holds
 MAX_HD = 256
@@ -194,9 +196,10 @@ def _check(q, k_cache, v_cache, length, pos, window, ring) -> None:
 def decode_attention(q, k_cache, v_cache, *, length, pos, window: int = 0,
                      ring: bool = False, cap: float = 0.0, kv_block: int = 512):
     """(B, Hq, hd) in q's type. `length` and `pos` are host integers. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version, and so do `meta` tensors (the dry run's
+    shape propagation); CUDA tensors launch the kernel."""
     del kv_block  # the TPU's cache tile; the kernel picks its own
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention_plain(q, k_cache, v_cache, length=length, pos=pos,
                                       window=window, ring=ring, cap=cap)
     if q.device.type != "cuda":

@@ -66,6 +66,11 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool) -> torch.Tenso
 
 #: Vocabulary rows `logits_last` widens to float32 at a time off the card.
 LOGITS_CHUNK = 8192
+#: Devices whose bf16 products take one float32-output GEMM
+#: (`torch.mm(..., out_dtype=torch.float32)`): the card, and `meta`, which
+#: stands for the card in the dry run's estimate (`launch.dryrun`). The CPU
+#: has no such GEMM and widens its operands instead.
+OUT_DTYPE_GEMM_DEVICES = ("cuda", "meta")
 
 
 def logits_last(h_last: torch.Tensor, table: torch.Tensor,
@@ -77,7 +82,7 @@ def logits_last(h_last: torch.Tensor, table: torch.Tensor,
     elsewhere the table is widened to float32 `LOGITS_CHUNK` rows at a time
     (bf16 products are exact in float32), never whole: at a 256,000 x 3,584
     vocabulary the whole table in float32 is 3.7 GB."""
-    if table.device.type == "cuda" and table.dtype != torch.float32:
+    if table.device.type in OUT_DTYPE_GEMM_DEVICES and table.dtype != torch.float32:
         logits = torch.mm(h_last.to(table.dtype), table.T, out_dtype=torch.float32)
     else:
         hf = h_last.float()
@@ -91,7 +96,7 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     GEMM that reads bf16 operands in their own type
     (`torch.mm(..., out_dtype=torch.float32)`), elsewhere on operands
     widened to float32 (bf16 products are exact in float32)."""
-    if a.device.type == "cuda" and a.dtype != torch.float32:
+    if a.device.type in OUT_DTYPE_GEMM_DEVICES and a.dtype != torch.float32:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 

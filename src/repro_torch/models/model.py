@@ -70,7 +70,10 @@ cf = E; a longer one runs at `capacity_factor`, the reference's 2.0 unless
 `forward_hidden` / `prefill` are given another. The flash attention visits
 only the tiles that can hold an unmasked entry (the reference's
 "triangular" strategy, `models/attention.py`). The mesh's `constrain` has
-no counterpart on one card.
+no counterpart on one card; the dry run's `abstract_model`,
+`abstract_cache` and `abstract_batch` (`meta` tensors) and the specs of a
+pod's layout (`model_pspecs`, `cache_pspecs`, `batch_pspecs`: plain tuples,
+`sharding.specs`) are the reference's.
 
 Training is `forward_loss`: the full forward with `train=True` (a MoE
 layer at the config's training capacity, its aux losses summed into the
@@ -316,6 +319,18 @@ def build_schema(cfg: ArchConfig) -> dict:
 def init_model(cfg: ArchConfig, *, seed: int = 0, device: DeviceLike = None) -> dict:
     """Real parameters on `device` (default CUDA), drawn from `seed`."""
     return plib.init_params(build_schema(cfg), seed=seed, device=device)
+
+
+def abstract_model(cfg: ArchConfig) -> dict:
+    """The parameter tree as `meta` tensors (the dry run's)."""
+    return plib.abstract_params(build_schema(cfg))
+
+
+def model_pspecs(cfg: ArchConfig, mesh) -> dict:
+    """Each parameter's spec on `mesh` (`sharding.specs`: plain tuples)."""
+    from repro_torch.sharding.specs import build_rules
+
+    return plib.partition_specs(build_schema(cfg), build_rules(cfg, mesh))
 
 
 def _layer(tree, *idx):
@@ -761,6 +776,44 @@ def real_batch(cfg: ArchConfig, kind: str, b: int, s: int, *,
     return batch
 
 
+def abstract_batch(cfg: ArchConfig, kind: str, b: int, s: int) -> dict:
+    """A batch as `meta` tensors (the dry run's): the shapes and types of
+    `real_batch`'s."""
+    def meta(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind == "decode":
+        return {"tokens": meta((b,))}
+    if kind not in ("train", "prefill"):
+        raise ValueError(f"unknown batch kind {kind!r}")
+    batch = {"tokens": meta((b, s))}
+    if kind == "train":
+        batch["labels"] = meta((b, s))
+    if cfg.arch_type == "vlm":
+        batch["patches"] = meta((b, cfg.num_frontend_tokens, cfg.d_model), ACT_DTYPE)
+    if cfg.arch_type == "audio":
+        batch["frames"] = meta((b, cfg.encoder_tokens, cfg.d_model), ACT_DTYPE)
+    return batch
+
+
+def batch_pspecs(cfg: ArchConfig, mesh, kind: str, b: int) -> dict:
+    """Each batch entry's spec on `mesh`: the batch dim over the batch axes
+    when it divides, the rest replicated."""
+    from repro_torch.sharding.specs import batch_spec
+
+    bspec = batch_spec(mesh, b)
+    if kind == "decode":
+        return {"tokens": (bspec,)}
+    out = {"tokens": (bspec, None)}
+    if kind == "train":
+        out["labels"] = (bspec, None)
+    if cfg.arch_type == "vlm":
+        out["patches"] = (bspec, None, None)
+    if cfg.arch_type == "audio":
+        out["frames"] = (bspec, None, None)
+    return out
+
+
 # ===========================================================================
 # Decode caches
 # ===========================================================================
@@ -820,6 +873,70 @@ def init_cache(cfg: ArchConfig, b: int, cache_len: int, *, device: DeviceLike = 
     dev = resolve_device(device)
     return {k: torch.zeros(sh, dtype=dt, device=dev)
             for k, (sh, dt) in _cache_desc(cfg, b, cache_len).items()}
+
+
+_KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", None)
+
+
+def _cache_axes(cfg: ArchConfig, name: str) -> tuple:
+    """The logical axes of cache entry `name` (the reference's third field
+    of `_cache_desc`): stacked layer dims, then batch, then a KV cache's
+    sequence and heads; static cross keys and recurrent states shard the
+    batch only."""
+    at = cfg.arch_type
+    if at == "ssm":
+        return ("layers", "batch", None, None, None) if name == "S" else (
+            "layers", "batch", None, None)
+    if at == "hybrid" and name in ("S", "conv"):
+        return ("layers", "layers", "batch") + (None,) * (3 if name == "S" else 2)
+    if name in ("xk", "xv"):
+        return ("layers", "batch", None, None, None)
+    if at == "vlm":
+        return ("layers",) + _KV_AXES
+    return _KV_AXES
+
+
+def abstract_cache(cfg: ArchConfig, b: int, cache_len: int) -> dict:
+    """The decode state as `meta` tensors (the dry run's)."""
+    return {k: torch.empty(sh, dtype=dt, device="meta")
+            for k, (sh, dt) in _cache_desc(cfg, b, cache_len).items()}
+
+
+def cache_pspecs(cfg: ArchConfig, mesh, b: int, cache_len: int, *,
+                 kind: str = "decode") -> dict:
+    """Each cache entry's spec on `mesh`: batch over the batch axes when it
+    divides; then, over 'model', the KV heads at prefill or the sequence."""
+    from repro_torch.sharding.specs import batch_spec
+
+    bspec = batch_spec(mesh, b)
+    msize = dict(zip(mesh.axis_names, mesh.devices.shape)).get("model", 0)
+    out = {}
+    for k, (sh, _) in _cache_desc(cfg, b, cache_len).items():
+        axes = _cache_axes(cfg, k)
+        dims = dict(zip(axes, sh))
+        # Prefill caches shard KV heads over 'model': the layout of k/v as
+        # tensor parallelism computes them, so the prefill's output needs no
+        # full-cache all-gather. Decode keeps the cache sequence-sharded
+        # (flash-decode partial softmax), the engine resharding once.
+        kv_heads = dims.get("kv_heads", 0)
+        head_ok = kind != "decode" and msize and kv_heads > 0 and kv_heads % msize == 0
+        # Heads that do not divide the model axis shard the sequence
+        # instead: at prefill per-layer all-to-alls replace the head
+        # all-gather, at decode it is the flash-decode layout. Ring
+        # (windowed) caches stay whole at prefill: resharding the ring-tail
+        # slice costs more than it saves.
+        seq_len = dims.get("kv_seq", 0)
+        seq_ok = msize and seq_len % msize == 0 and (kind == "decode" or seq_len >= cache_len)
+        spec = []
+        for ax in axes:
+            if ax == "batch":
+                spec.append(bspec)
+            elif (ax == "kv_heads" and head_ok) or (ax == "kv_seq" and not head_ok and seq_ok):
+                spec.append("model")
+            else:
+                spec.append(None)
+        out[k] = tuple(spec)
+    return out
 
 
 # ===========================================================================

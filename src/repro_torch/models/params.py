@@ -8,9 +8,11 @@ threefry and torch's Philox streams differ, so the same seed gives other
 weights than the reference's; tests carry the reference's weights across
 with `models.convert.params_from_reference` instead.
 
-The dry-run's `abstract_params` and the mesh's `partition_specs` have no
-counterpart on one card. `count_params` and `tree_bytes` take a tree of
-tensors or of `PDef`s (so a full config is counted without allocating it).
+`abstract_params` gives the dry run's tensors on the `meta` device (shape
+and dtype, no storage); `partition_specs` maps each leaf's logical axes
+through a rule table (`sharding.specs.build_rules`) to a plain-tuple spec.
+`count_params` and `tree_bytes` take a tree of tensors or of `PDef`s (so a
+full config is counted without allocating it).
 """
 
 from __future__ import annotations
@@ -90,6 +92,27 @@ def init_params(schema: Schema, *, seed: int = 0, device: DeviceLike = None) -> 
             node = node.setdefault(p, {})
         node[path[-1]] = arr
     return out
+
+
+def abstract_params(schema: Schema) -> dict:
+    """The parameter tree as `meta` tensors (the dry run's: no allocation)."""
+    return map_tree(lambda pdef: torch.empty(pdef.shape, dtype=DTYPES[pdef.dtype],
+                                               device="meta"), schema)
+
+
+def partition_specs(schema: Schema, rules: dict) -> dict:
+    """The spec tree: each leaf's logical axes through `rules` (unknown axes
+    replicate). A dim its mesh axis does not divide must already be out of
+    the rules (`sharding.specs.build_rules` drops it)."""
+    return map_tree(lambda pdef: tuple(rules.get(a) for a in pdef.axes), schema)
+
+
+def map_tree(fn, tree):
+    """`fn` of every leaf of a nested dict (a schema's `PDef`s, a tree of
+    tensors), in a tree of the same keys."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _itemsize(x) -> int:

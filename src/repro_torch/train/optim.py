@@ -15,8 +15,9 @@ weight decay on leaves of 2+ dims, the new parameter. The schedule and the
 bias corrections are computed in float32 on 0-d tensors, so they round as
 the reference's do. One card holds one copy of a model: `update` writes
 the new parameters and state into their tensors in place (under
-`torch.no_grad`) and returns the same trees. `abstract_state` and
-`state_pspecs` (the dry-run's and the mesh's) have no counterpart yet.
+`torch.no_grad`) and returns the same trees. `abstract_state` (the dry
+run's: `init` of `meta` parameters) and `state_pspecs` (a pod's layout,
+`sharding.specs` tuples) are the reference's, leaf for leaf.
 """
 
 from __future__ import annotations
@@ -187,6 +188,23 @@ class Optimizer:
                   else g.to(torch.float32, copy=True))
             self._leaf(self.cfg, gf, _at(state, path), _at(params, path), lr, t)
         return params, state
+
+    def abstract_state(self, abstract_params):
+        """The state tree as `meta` tensors, all float32: `init` of the
+        dry run's `meta` parameters (`models.params.abstract_params`)."""
+        return self.init(abstract_params)
+
+    def state_pspecs(self, param_pspecs):
+        """The state's specs: each moment takes its parameter's spec; a
+        factored statistic drops the spec entry of the dim it averages."""
+        def conv(spec):
+            if self._leaf is _adamw_leaf:
+                return {"m": spec, "v": spec}
+            if len(spec) >= 2:
+                return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+            return {"v": spec}
+
+        return _map(conv, param_pspecs)
 
 
 def make_optimizer(cfg: OptConfig) -> Optimizer:

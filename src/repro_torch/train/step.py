@@ -11,6 +11,10 @@ synchronized). Gradients come from `torch.autograd.grad` of
 `models.model.forward_loss` with respect to detached views of the
 parameters, so the caller's tensors keep `requires_grad` as they were.
 
+`train_step.grads(params, batch)` -> (loss, aux, gradient tree) and
+`train_step.apply(params, opt_state, grads, step)` -> (params, opt_state,
+grad_norm) are its two halves (the dry run measures them apart).
+
 `cfg.microbatch` > 1 splits the batch into that many sequential
 microbatches: each one's gradients are added into buffers of
 `cfg.grad_accum_dtype` (float32 buffers when it is "float32", not bf16
@@ -62,7 +66,10 @@ def make_train_step(cfg, opt: Optimizer, *, use_kernel: bool = False):
             grads = torch.autograd.grad(loss, free, allow_unused=True, materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, paths, list(grads)
 
-    def train_step(params, opt_state, batch, step):
+    def grads_of(params, batch):
+        """(loss, aux, the gradient tree): summed over the microbatches in
+        `accum_dtype` buffers and divided by their count when
+        `cfg.microbatch` > 1."""
         if cfg.microbatch > 1:
             loss_sum, aux_sum, acc = 0.0, None, None
             for mb in _split_microbatches(batch, cfg.microbatch):
@@ -75,14 +82,25 @@ def make_train_step(cfg, opt: Optimizer, *, use_kernel: bool = False):
                 del grads
                 loss_sum = loss_sum + loss
                 aux_sum = aux if aux_sum is None else {k: aux_sum[k] + aux[k] for k in aux}
-            grads = _tree(paths, [a.div_(cfg.microbatch) for a in acc])
-            loss = loss_sum / cfg.microbatch
-            aux = {k: v / cfg.microbatch for k, v in aux_sum.items()}
-        else:
-            loss, aux, paths, grads = loss_and_grads(params, batch)
-            grads = _tree(paths, grads)
+            return (loss_sum / cfg.microbatch,
+                    {k: v / cfg.microbatch for k, v in aux_sum.items()},
+                    _tree(paths, [a.div_(cfg.microbatch) for a in acc]))
+        loss, aux, paths, grads = loss_and_grads(params, batch)
+        return loss, aux, _tree(paths, grads)
+
+    def apply(params, opt_state, grads, step):
+        """The gradient's global norm, then the optimizer's in-place update:
+        (params, opt_state, grad_norm)."""
         gnorm = global_norm(grads)
         params, opt_state = opt.update(grads, opt_state, params, step)
+        return params, opt_state, gnorm
+
+    def train_step(params, opt_state, batch, step):
+        loss, aux, grads = grads_of(params, batch)
+        params, opt_state, gnorm = apply(params, opt_state, grads, step)
         return params, opt_state, dict(aux, loss=loss, grad_norm=gnorm)
 
+    # The step's two halves, for the dry run to measure apart.
+    train_step.grads = grads_of
+    train_step.apply = apply
     return train_step

@@ -17,6 +17,8 @@ here the wrapper takes the plain version because the tensors lie on the
 CPU.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -205,6 +207,10 @@ def test_wrapper_checks_what_the_kernel_takes():
     refused(13, good[13][:1].contiguous(), "u_acc must be float32")
     refused(12, good[12].t().contiguous().t(), "contiguous")
     refused(5, torch.empty(good[5].shape, dtype=torch.int32, device="meta"), "n_wt is on meta")
-    # No kernel for a device other than the card; the CPU takes the plain version.
+    # No kernel for a device other than the card; the CPU takes the plain
+    # version, and so does `meta` (the dry run's shape propagation).
+    z = ops.mh_resample(*(t.to("meta") for t in good), w_bits=8, **HP)
+    assert z.device.type == "meta" and z.shape == good[2].shape
+    elsewhere = SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no alias_mh kernel"):
-        ops.mh_resample(*(t.to("meta") for t in good), w_bits=8, **HP)
+        ops.mh_resample(*[elsewhere] * 11, w_bits=8, **HP)

@@ -20,6 +20,8 @@ the proposal step itself never differs.
 The kernel itself runs only on the card (`test_torch_cuda.py`).
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -262,8 +264,11 @@ def test_wrappers_refuse_a_bad_key():
                 torch.tensor([[1, 0], [2, 0]]), (1, 0)):
         with pytest.raises(ValueError, match="key must be a contiguous int64"):
             ops.mh_resample_many(*stack, philox=bad, mh_steps=2, **HP)
+    z = ops.mh_resample(*(t.to("meta") for t in arrays), philox=(1, 0), mh_steps=2, **HP)
+    assert z.device.type == "meta"  # `meta` takes the plain version, as the CPU
+    elsewhere = SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no alias_mh kernel"):
-        ops.mh_resample(*(t.to("meta") for t in arrays), philox=(1, 0), mh_steps=2, **HP)
+        ops.mh_resample(*[elsewhere] * 11, philox=(1, 0), mh_steps=2, **HP)
 
 
 def _stack(k, w_bits, lengths, seed, d=50, v=200):

@@ -23,6 +23,8 @@ here the wrappers take the plain versions because the tensors lie on the
 CPU.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -191,8 +193,11 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     assert (ops.resample_many.launches, alias_ops.mh_resample_many.launches) == before
     with pytest.raises(ValueError, match="no lda_gibbs kernel"):
         ops.resample_many(*(t.to("meta") for t in g), w_bits=8, **HP)
+    z = alias_ops.mh_resample_many(*(t.to("meta") for t in a), w_bits=8, **HP)
+    assert z.device.type == "meta"  # `meta` takes the plain version, as the CPU
+    elsewhere = SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no alias_mh kernel"):
-        alias_ops.mh_resample_many(*(t.to("meta") for t in a), w_bits=8, **HP)
+        alias_ops.mh_resample_many(*[elsewhere] * 11, w_bits=8, **HP)
 
 
 def test_batched_checks_refuse_what_the_kernels_do_not_take():

@@ -34,6 +34,10 @@ round one float32 result. The chunk_scan kernels have no backward: both
 entries raise under grad mode with an input that requires grad, and a
 reduced train step on the card (the plain scans) matches the CPU's (loss
 within 2e-3; gradients as `tests/test_torch_train_parity.py` holds them).
+lda_gibbs at the production RLDA sweep's block (8192 tokens, K 256, `w_bits`
+8 or float32 tables) holds the near-tie rule in both noise modes, and
+`launch.dryrun_rlda.run_one` at 2^20 tokens of that config keeps its count
+invariants.
 """
 
 import numpy as np
@@ -1570,3 +1574,51 @@ def _set(tree, path, value):
     for k in path[:-1]:
         tree = tree[k]
     tree[path[-1]] = value
+
+
+def _production_block(n, seed, device, w_bits):
+    """n tokens of the production RLDA corpus (K 256, V 250,000, D 200,000)
+    with its initial state's tables: int32 fixed point with `w_bits`, else
+    decoded to float32 as `core.gibbs.sweep` hands them to a block."""
+    from repro_torch.launch import dryrun_rlda
+
+    cfg = dryrun_rlda.production_lda_config()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    corpus = dryrun_rlda.synthetic_corpus(cfg, 1 << 20, gen)
+    state = codec.encode_state(cfg, types.init_state(cfg, corpus, gen))
+    tables = ((state.n_dt, state.n_wt, state.n_t) if w_bits is not None
+              else codec.decode_counts(cfg, state))
+    ids = (corpus.docs[:n], corpus.words[:n], state.z[:n], corpus.weights[:n])
+    noise = ops.gumbel((n, cfg.num_topics), gen, device)
+    return cfg, (*ids, *tables, noise)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+def test_production_block_matches_plain_on_card(card, w_bits):
+    """Row 1's K > 32 body at the production sweep's block, (8192, K 256),
+    on the production corpus's tables, in both noise modes."""
+    cfg, args = _production_block(8192, 5, card, w_bits)
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=w_bits)
+    key = (2 ** 63 + 77, 2 ** 20)
+    for kernel_noise, kernel_key, plain_noise in (
+            (args[7], None, args[7]), (None, key, ops.philox_noise(args[2], args[6], key))):
+        before = ops.resample.launches
+        got = ops.resample(*args[:7], kernel_noise, philox=kernel_key, **hp)
+        torch.cuda.synchronize()
+        assert ops.resample.launches == before + 1
+        want = ops.resample_plain(*args[:7], plain_noise, **hp)
+        scores = ops.perturbed_scores(*args[:7], plain_noise, **hp)
+        _assert_same_but_near_ties(got, want, scores)
+
+
+@pytest.mark.cuda
+def test_production_sweep_at_2_20_tokens_on_card(card, tmp_path):
+    """`dryrun_rlda.run_one` at 2^20 tokens of the production config: 128
+    launches a sweep of (8192, K 256) blocks, the invariants hold."""
+    from repro_torch.launch import dryrun_rlda
+
+    rec = dryrun_rlda.run_one(False, num_tokens=1 << 20, device="cuda", outdir=str(tmp_path))
+    assert rec["invariants"]["ok"], rec["invariants"]
+    assert rec["launches_per_sweep"] == (1 << 20) // 8192
+    assert rec["peak_bytes"] > 0 and rec["sweep_ms"] > 0

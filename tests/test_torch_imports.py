@@ -181,3 +181,39 @@ def test_each_family_serves_on_cuda_by_default_and_on_the_cpu_when_asked(arch):
     results = serve.main(["--arch", arch, "--requests", "1", "--prompt-len", "8",
                           "--max-new", "2", "--cache-len", "32", "--device", "cpu"])
     assert results[0].tokens.shape == (2,)
+
+
+def test_pod_modules_import_no_jax_and_set_no_environment():
+    """`launch.mesh`, `sharding.specs`, `launch.dryrun` and
+    `launch.dryrun_rlda` import neither JAX nor the reference, and set no
+    environment variable when imported (the reference's dry runs set
+    `XLA_FLAGS`; the port has no such need)."""
+    code = (
+        "import os, sys\n"
+        "before = dict(os.environ)\n"
+        "import repro_torch.launch.mesh, repro_torch.sharding, repro_torch.sharding.specs\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.dryrun_rlda\n"
+        "from repro_torch.models.model import abstract_model, abstract_cache, abstract_batch\n"
+        "from repro_torch.models.model import model_pspecs, cache_pspecs, batch_pspecs\n"
+        "from repro_torch.models.params import abstract_params, partition_specs\n"
+        "assert dict(os.environ) == before\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=False)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_production_sweep_runs_on_cuda_by_default_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device resolves, nothing to raise")
+    from repro_torch.launch import dryrun_rlda
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_rlda.run_one(False, num_tokens=4096, outdir=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_rlda.main(["--tokens", "4096"])
