@@ -7,6 +7,20 @@ Phases:
   0. setup       the card (nvidia-smi name and power limit), torch/CUDA/nvcc
                  versions; builds every kernel from `src/repro_torch/**/csrc`
                  (one nvcc per source, all started together)
+  0b. analysis   (a) the port's vedalint (`python -m repro_torch.analysis` on
+                 `src/repro_torch tools chip_smoke.py` of the tree on the
+                 card): exit code, findings by rule, seconds; (b) the
+                 `cuda-smem-budget` rule's static shared-memory bytes of each
+                 kernel against ptxas's `bytes smem` for every compiled entry
+                 function of that kernel (setup's build reports, demangled
+                 with `cu++filt`): equal wherever the rule resolves the sizes,
+                 and every entry within the 48 KB a block has statically;
+                 (c) row 1's K > 32 body near the top of its K range (2 K
+                 floats of dynamic shared memory: 48 KB at K 6,144, 64 KB at
+                 8,192, past the default 48 KB, so opted in): the single entry
+                 and the batched one at M 2 on N 4,096 tokens, D 64, V 512, in
+                 both noise modes against their plain versions, timed and
+                 bounded
   1. kernels     each kernel against its plain PyTorch version on the card,
                  over a grid of shapes and count formats (and, for alias_mh,
                  MH round counts; for every lda_gibbs entry and both
@@ -353,6 +367,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -456,7 +471,8 @@ def phase_setup():
         futures = {name: pool.submit(b) for name, b in builds.items()}
         reports = {name: f.result() for name, f in futures.items()}
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in rep.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in rep.splitlines()
+                    if "registers" in ln or "spill" in ln or "Compiling entry function" in ln]
              for name, (_, rep) in reports.items()}
     emit({
         "phase": "setup",
@@ -471,6 +487,173 @@ def phase_setup():
         "ptxas": ptxas,
     })
     return smi
+
+
+# -- phase 0b --------------------------------------------------------------
+
+VEDALINT_PATHS = ("src/repro_torch", "tools", "chip_smoke.py")
+K_LIMIT = dict(n=4096, d=64, v=512, m=2, ks=(6144, 8192))
+
+
+def ptxas_entries(report: str) -> list[dict]:
+    """Each entry function of an `nvcc -Xptxas -v` report: its mangled
+    name, registers and static shared-memory bytes (ptxas leaves `bytes
+    smem` out when there are none)."""
+    import re
+
+    out, entry = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = {"mangled": m.group(1), "registers": None, "smem": 0}
+            out.append(entry)
+            continue
+        if entry is not None and "Used" in line and "registers" in line:
+            entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(smem.group(1)) if smem else 0
+            entry = None
+    return out
+
+
+def kernel_of(demangled: str) -> str:
+    """`void (anonymous namespace)::merge_kernel<float>(float const*, ...)`
+    -> `merge_kernel`: the name before the parameter list, template
+    arguments (which may hold parentheses) skipped."""
+    depth, head = 0, []
+    for ch in demangled.replace("(anonymous namespace)::", ""):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif ch == "(" and depth == 0:
+            break
+        elif depth == 0:
+            head.append(ch)
+    return "".join(head).split()[-1].split("::")[-1]
+
+
+def smem_against_ptxas() -> dict:
+    """(b): for each kernel source, the rule's static `__shared__` bytes of
+    each `__global__` kernel against ptxas's for each of its compiled entry
+    functions (all instantiations), from the build reports kept beside the
+    libraries."""
+    from repro_torch.analysis import AnalysisConfig, load_modules
+    from repro_torch.analysis.rules.cuda_smem import static_smem
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.alias_mh import kernel as alias_kernel
+    from repro_torch.kernels.chunk_scan import kernel as scan_kernel
+    from repro_torch.kernels.decode_attn import kernel as attn_kernel
+    from repro_torch.kernels.lda_gibbs import kernel as lda_kernel
+
+    config = AnalysisConfig()
+    builds = {lda_kernel.SOURCE: lda_kernel.build, alias_kernel.SOURCE: alias_kernel.build,
+              scan_kernel.SOURCE: scan_kernel.build,
+              scan_kernel.MAMBA2_SOURCE: scan_kernel.build_mamba2,
+              attn_kernel.SOURCE: attn_kernel.build}
+    entries = {src: ptxas_entries(build()[1]) for src, build in builds.items()}
+    if not all(entries.values()):
+        raise SystemExit("a build report has no entry function: "
+                         f"{[str(s.name) for s, e in entries.items() if not e]}")
+    names = [e["mangled"] for es in entries.values() for e in es]
+    cufilt = Path(_build.nvcc()).parent / "cu++filt"
+    demangled = subprocess.run([str(cufilt)], input="\n".join(names) + "\n",
+                               capture_output=True, text=True, timeout=120,
+                               check=True).stdout.splitlines()
+    if len(demangled) != len(names):
+        raise SystemExit(f"cu++filt gave {len(demangled)} names for {len(names)}")
+    by_mangled = dict(zip(names, demangled))
+    out, bad = {}, []
+    for src, es in entries.items():
+        rel = src.relative_to(ROOT).as_posix()
+        (mod,) = load_modules([src], root=ROOT)
+        rule = static_smem(mod, config)
+        rows = {}
+        for e in es:
+            name = kernel_of(by_mangled[e["mangled"]])
+            row = rows.setdefault(name, {"entries": 0, "ptxas_bytes": [],
+                                         "rule_bytes": rule.get(name, {}).get("bytes"),
+                                         "assumed": rule.get(name, {}).get("assumed")})
+            row["entries"] += 1
+            if e["smem"] not in row["ptxas_bytes"]:
+                row["ptxas_bytes"].append(e["smem"])
+            if e["smem"] > config.smem_default_bytes:
+                bad.append(f"{rel} {name}: {e['smem']} B static")
+        for name, row in rows.items():
+            row["resolved"] = row["rule_bytes"] is not None and not row["assumed"]
+            row["agrees"] = (row["ptxas_bytes"] == [row["rule_bytes"]]
+                             if row["resolved"] else None)
+            if row["agrees"] is False:
+                bad.append(f"{rel} {name}: rule {row['rule_bytes']} B, ptxas "
+                           f"{row['ptxas_bytes']}")
+        out[rel] = rows
+    return {"kernels": out, "bad": bad}
+
+
+def k_limit_checks(reps=10) -> dict:
+    """(c): row 1's K > 32 body at `K_LIMIT`'s K (2 K floats of dynamic
+    shared memory a block), single entry and batched at M 2, both noise
+    modes against the plain versions, timed (`_lda_timing`) and bounded."""
+    import torch
+
+    n, d, v, m = (K_LIMIT[key] for key in ("n", "d", "v", "m"))
+    hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * v, w_bits=None)
+    out = {"single": {}, "batched": {}}
+    for k in K_LIMIT["ks"]:
+        args = _random_inputs(n, k, None, d=d, v=v, seed=k)
+        row = {"shape": f"N={n} K={k} D={d} V={v} w_bits=None", "smem_bytes": 2 * k * 4}
+        row.update(_lda_timing(args[:7], args[7], (2 ** 64 - 5 - k, 4 * k), hp, False, n, 0,
+                               reps))
+        out["single"][k] = row
+        args = _stack_random_inputs(m, n, k, None, d, v, seed=k + 1)
+        table = torch.stack([torch.arange(m, device="cuda") * 7919 + k,
+                             torch.arange(m, device="cuda") * 4 + 4 * k], 1)
+        live = int((args[3] > 0).sum())
+        row = {"shape": f"M={m} N={n} K={k} D={d} V={v} w_bits=None", "smem_bytes": 2 * k * 4,
+               "live_tokens": live}
+        row.update(_lda_timing(args[:7], args[7], table, hp, True, live, m * n - live, reps))
+        out["batched"][k] = row
+        del args
+    return out
+
+
+def vedalint_run() -> dict:
+    """(a): `python -m repro_torch.analysis` on the tree on the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--format", "json",
+                           *VEDALINT_PATHS], cwd=ROOT, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+                          check=False)
+    report = json.loads(proc.stdout) if proc.returncode in (0, 1) else {}
+    return {"exit": proc.returncode, "counts": report.get("counts"),
+            "files": report.get("files_checked"),
+            "suppressed": len(report.get("suppressed", ())),
+            "seconds": time.perf_counter() - t0,
+            "findings": report.get("findings"), "stderr": proc.stderr[-2000:]}
+
+
+def phase_analysis():
+    """The port's static analysis on the tree shipped to the card, its
+    shared-memory figures against ptxas's, and the K > 32 body past 48 KB."""
+    lint = vedalint_run()
+    findings, stderr = lint.pop("findings"), lint.pop("stderr")
+    t0 = time.perf_counter()
+    smem = smem_against_ptxas()
+    smem_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    limit = k_limit_checks()
+    out = {"phase": "analysis", "vedalint": lint, "smem": smem["kernels"],
+           "smem_s": smem_s, "k_limit": limit, "k_limit_s": time.perf_counter() - t0}
+    emit(out)
+    if lint["exit"] != 0:
+        raise SystemExit(f"vedalint exits {lint['exit']} on the port: {findings} {stderr}")
+    if smem["bad"]:
+        raise SystemExit(f"shared memory against ptxas: {smem['bad']}")
+    bad = {f"{entry} K {k}": row["mismatch"] for entry, rows in limit.items()
+           for k, row in rows.items() if row["mismatch"]}
+    if bad:
+        raise SystemExit(f"the K > 32 body disagrees with its plain version: {bad}")
+    return out
 
 
 # -- phase 1 ---------------------------------------------------------------
@@ -1628,6 +1811,8 @@ def phase_zoo(sets):
     for b in buckets:
         cfg, corpora, states = b["cfg"], b["corpora"], b["states"]
         m, n = corpora.docs.shape
+        # vedalint: disable=generator-hygiene -- one seed each bucket on purpose: the buckets
+        # differ in shape, so each draws its own noise, the same each run
         noise = ops.gumbel((m, n, cfg.num_topics),
                            torch.Generator(device="cuda").manual_seed(77), "cuda")
         z_many = ops.sweep_many(cfg, states, corpora, noise).z
@@ -2132,6 +2317,8 @@ def phase_packed():
     sweep_ms = {}
     for name in ("cuda_exact", "cuda_int8", "cuda_int4"):
         r = runs[name]
+        # vedalint: disable=generator-hygiene -- the same stream for each run on purpose: exact
+        # and packed sweeps are timed on the same draws
         gen = torch.Generator(device="cuda").manual_seed(7)
         state = r["state"]
         times = []
@@ -2214,6 +2401,8 @@ def phase_packed_case_study():
             cfg = dataclasses.replace(prep.cfg, quant=spec)
             ops.resample_quant.launches = ops.resample_quant.launches_philox = 0
             ops.resample.launches = ops.pack_word_table.launches = 0
+            # vedalint: disable=generator-hygiene -- the same seed on the card and on the CPU on
+            # purpose: their perplexities are compared
             gen = torch.Generator(device=device).manual_seed(0)
             t0 = time.perf_counter()
             state = get_backend("cuda").run(cfg, prep.corpus, gen, 100)
@@ -2841,6 +3030,8 @@ def mesh_exactness(tally):
     for local, oracle in (("gibbs", lambda g: gibbs.run(cfg, corpus, g, 3)),
                           ("cuda", lambda g: get_backend("cuda").run(cfg, corpus, g, 3)),
                           ("mh", lambda g: get_backend("alias").run(cfg, corpus, g, 3))):
+        # vedalint: disable=generator-hygiene -- the same seed for each engine on purpose: each is
+        # held bit for bit against its oracle on a clone
         gen = torch.Generator(device="cuda").manual_seed(3)
         twin = _clone(gen)
         st, counts = mesh_counted(
@@ -2944,6 +3135,8 @@ def mesh_popular(exact_ppx, tally):
         sampler = service.sampler("pserver")
         cfg, corpus = handle.cfg, handle.model.corpus
         plan = sampler._fit.plan(cfg, corpus)
+        # vedalint: disable=generator-hygiene -- the same seed for each grid and engine on
+        # purpose: their sweep times are compared on the same draws
         gen = torch.Generator(device="cuda").manual_seed(21)
         state = handle.model.state
         sweep_ms = []
@@ -3053,6 +3246,8 @@ def mesh_kernels(servers, reps=50):
         one = tuple(inp[f][0] for f in ("docs", "words", "z", "wts", "n_dt", "cache", "n_t"))
         hp = dict(alpha=cfg.alpha, beta=cfg.beta, beta_bar=cfg.beta_bar, w_bits=None)
         live = int((one[3] > 0).sum())
+        # vedalint: disable=generator-hygiene -- one fixed seed for each server's kernel check, as
+        # every kernel phase draws its inputs: the checks are reproducible
         gen = torch.Generator(device="cuda").manual_seed(123)
         shape = (f"N={t} K={k} D={plan.d_local} V={plan.cap} (support; vocab "
                  f"{cfg.vocab_size}) w_bits=None")
@@ -5481,6 +5676,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_setup()
+    analysis = phase_analysis()
     kern = phase_kernels()
     alias_kern = phase_alias_kernel()
     batched_kern = phase_batched_kernels()
@@ -5539,7 +5735,8 @@ def main() -> int:
     errs = [kern["max_abs_err"], block_timing["max_abs_err"], t["max_abs_err"],
             *(r[key]["max_abs_err"] for r in offload.values()
               for key in ("first_block", "typical_block")),
-            mesh_max_err(mesh, "lda_gibbs.resample"), dry["kernel"]["max_abs_err"]]
+            mesh_max_err(mesh, "lda_gibbs.resample"), dry["kernel"]["max_abs_err"],
+            *(r["max_abs_err"] for r in analysis["k_limit"]["single"].values())]
     if block_timing["mismatch"]:
         raise SystemExit("kernel disagrees with its plain version at the main-path shape")
     a = large["kernel"]
@@ -5589,6 +5786,14 @@ def main() -> int:
         {"shape": dk["whole_shape"], "phases": "dryrun (the cuda route)",
          "launches_injected": 0, "launches_philox": dry["cuda_route"]["launches_philox"],
          "philox": dk["whole"]}]
+    # Row 1's K > 32 body near the top of its K range (`analysis` (c)):
+    # checks, not launches of a path.
+    k_rows = [{"shape": r["shape"], "phases": "analysis (K limit check)",
+               "launches_injected": 0, "launches_philox": 0, "smem_bytes": r["smem_bytes"],
+               **{mode: {key: r[mode][key] for key in timed}
+                  for mode in ("injected", "philox")}}
+              for entry in ("single", "batched") for r in analysis["k_limit"][entry].values()]
+    by_shape += k_rows[:len(K_LIMIT["ks"])]
     # lda_gibbs.resample_many by shape: the zoo's larger bucket (its main
     # path, `zoo`), and each offload case's server-only replay, whose
     # coalesced refit windows go to `refine_batch`, timed at its largest
@@ -5606,6 +5811,7 @@ def main() -> int:
                       **{mode: {key: timing[mode][key] for key in timed}
                          for mode in ("injected", "philox")}}
                      for timing, n, n_philox, phases, extra in many_counted]
+    many_by_shape += k_rows[len(K_LIMIT["ks"]):]
     # alias_mh.resample by shape and draw mode: the case study on `alias`
     # (the main path), the popular product's int32 tables (`large_fit` and
     # `packed`'s exact `alias` run) and its packed int8 tables (`packed`).
@@ -5716,7 +5922,8 @@ def main() -> int:
         "launches": zoo["launches"]["lda_gibbs.resample_many"],
         "launches_philox": zoo["launches_philox"]["lda_gibbs.resample_many"],
         "max_abs_err": max(batched_kern["lda_gibbs.resample_many"]["max_abs_err"],
-                           *(timing["max_abs_err"] for timing, *_ in many_counted)),
+                           *(timing["max_abs_err"] for timing, *_ in many_counted),
+                           *(r["max_abs_err"] for r in analysis["k_limit"]["batched"].values())),
         **{key: zk["philox"][key]
            for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,

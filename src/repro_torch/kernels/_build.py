@@ -48,11 +48,14 @@ def library_path(source: Path, name: str) -> Path:
 
 def build(source: Path, name: str) -> tuple[Path, str]:
     """Compile `source` into ``lib<name>-<hash>.so`` if it is not built yet;
-    returns (path, the compiler's report — ptxas registers/spills — or ""
-    when cached)."""
+    returns (path, the compiler's report — ptxas registers, spills and
+    shared memory of each entry function). The report is kept beside the
+    library (``lib<name>-<hash>.ptxas.txt``, written before the library), so
+    a cached build returns it too ("" for a library built without one)."""
     out = library_path(source, name)
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
-        return out, ""
+        return out, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -62,6 +65,10 @@ def build(source: Path, name: str) -> tuple[Path, str]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n"
                                f"{proc.stderr}")
+        fd, tmp_report = tempfile.mkstemp(suffix=".txt", dir=BUILD_DIR)
+        with os.fdopen(fd, "w") as f:
+            f.write(proc.stderr)
+        os.replace(tmp_report, report)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

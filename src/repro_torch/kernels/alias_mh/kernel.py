@@ -29,7 +29,7 @@ BODIES = {"auto": -1, "direct": 0, "tables": 1}
 
 def build() -> tuple[Path, str]:
     """Compile the library if it is not built yet; returns (path, the
-    compiler's report — ptxas registers/spills — or "" when cached)."""
+    compiler's ptxas report, kept beside the library when cached)."""
     return _build.build(SOURCE, NAME)
 
 

@@ -28,7 +28,7 @@ MAX_SMEM_BYTES = 232448  # what one block can opt into on sm_90
 
 def build() -> tuple[Path, str]:
     """Compile the general entry's library if it is not built yet; returns
-    (path, the compiler's report — ptxas registers/spills — or "" when
+    (path, the compiler's ptxas report, kept beside the library when
     cached)."""
     return _build.build(SOURCE, NAME)
 

@@ -23,7 +23,7 @@ NAME = "decode_attn"
 
 def build() -> tuple[Path, str]:
     """Compile the library if it is not built yet; returns (path, the
-    compiler's report — ptxas registers/spills — or "" when cached)."""
+    compiler's ptxas report, kept beside the library when cached)."""
     return _build.build(SOURCE, NAME)
 
 

@@ -73,7 +73,11 @@
 // t & 3 of its chunk's Philox call.
 // K > 32: a warp a token; lane l scores topic chunks
 // 4c .. 4c+3 for c = l, l + 32, ... (one Philox call a chunk), then a
-// butterfly picks the maximum with ties to the lower topic.
+// butterfly picks the maximum with ties to the lower topic. The block keeps
+// the (K,) totals and their logs in 2 K floats of dynamic shared memory:
+// past the 48 KB a kernel has by default above K 6,144, so the kernel is
+// opted in to the card's limit once per instantiation (K <= 8,192 takes 64
+// KB).
 //
 // Quant entry (packed word table): the word-topic counts arrive as a
 // (V, Kc) uint8 code table — Kc = K for int8, ceil(K/2) nibble-packed (low
@@ -109,6 +113,8 @@ constexpr int kThreads = 256;         // the K > 32 path, the log tables, packin
 constexpr int kTokenThreads = 128;    // the K <= 32 path, a thread a token
 constexpr int kGroupThreads = 256;    // the K <= 32 path, few tokens
 constexpr int kWarpTokens = 4;        // tokens a warp takes in the K > 32 path
+constexpr int kMaxK = 8192;           // topics a call may have
+constexpr int kMaxSmem = 232448;      // bytes a block can opt into on sm_90
 constexpr unsigned kPhiloxKeyTag = 0x4C444147u;
 constexpr float kFltMin = 1.17549435e-38f;
 
@@ -558,6 +564,13 @@ long long workspace_floats(int m, int n, int d, int v, int k) {
   return static_cast<long long>(m) * (static_cast<long long>(d) + v) * k;
 }
 
+// Opt a kernel in to the card's shared-memory limit once per process (per
+// instantiation); each launch then asks for what its K needs.
+template <typename K>
+cudaError_t opt_in(K kern) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+}
+
 template <typename T, bool kBatched, bool kPhilox, int kCodeBits>
 cudaError_t launch_body(const int32_t* docs, const int32_t* words, const int32_t* z,
                         const float* weights, const void* n_dt, const void* n_wt,
@@ -603,12 +616,15 @@ cudaError_t launch_body(const int32_t* docs, const int32_t* words, const int32_t
   } else if (k <= 32) {
     if (few) LDA_GROUP_LAUNCH(32); else LDA_TOKEN_LAUNCH(8);
   } else {
+    auto body = resample_warp_kernel<T, kBatched, kPhilox, kCodeBits>;
+    static const cudaError_t ok = opt_in(body);
+    if (ok != cudaSuccess) return ok;
     const long long per = static_cast<long long>(kThreads / 32) * kWarpTokens;
     const dim3 grid(static_cast<unsigned>((n + per - 1) / per), static_cast<unsigned>(m));
     const size_t smem = 2 * static_cast<size_t>(k) * sizeof(float);
-    resample_warp_kernel<T, kBatched, kPhilox, kCodeBits><<<grid, kThreads, smem, stream>>>(
-        docs, words, z, weights, dt, wt, codes, w_scales, tt, noise, keys, seed, offset, z_out,
-        n, d, v, k, alpha, beta, beta_bar, scale, vec);
+    body<<<grid, kThreads, smem, stream>>>(docs, words, z, weights, dt, wt, codes, w_scales,
+                                           tt, noise, keys, seed, offset, z_out, n, d, v, k,
+                                           alpha, beta, beta_bar, scale, vec);
   }
 #undef LDA_GROUP_LAUNCH
 #undef LDA_TOKEN_LAUNCH
@@ -616,7 +632,7 @@ cudaError_t launch_body(const int32_t* docs, const int32_t* words, const int32_t
 }
 
 cudaError_t check_shape(int m, int d, int v, int k) {
-  if (k <= 0 || k > 8192 || m > 65535 || d < 0 || v < 0) return cudaErrorInvalidValue;
+  if (k <= 0 || k > kMaxK || m > 65535 || d < 0 || v < 0) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 

@@ -35,7 +35,7 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, str]:
     """Compile the library if it is not built yet; returns (path, the
-    compiler's report — ptxas registers/spills — or "" when cached)."""
+    compiler's ptxas report, kept beside the library when cached)."""
     return _build.build(SOURCE, NAME)
 
 

@@ -37,7 +37,9 @@ within 2e-3; gradients as `tests/test_torch_train_parity.py` holds them).
 lda_gibbs at the production RLDA sweep's block (8192 tokens, K 256, `w_bits`
 8 or float32 tables) holds the near-tie rule in both noise modes, and
 `launch.dryrun_rlda.run_one` at 2^20 tokens of that config keeps its count
-invariants.
+invariants. At K 8,192, the most the entries admit, the K > 32 body's 64 KB
+of shared memory a block (past the default 48 KB) holds the near-tie rule
+in both noise modes, single and batched.
 """
 
 import numpy as np
@@ -402,6 +404,33 @@ def test_both_noise_modes_match_plain_on_card(card, k, n, v, w_bits, many):
             before[0] + 1, before[1] + (kernel_key is not None))
         want = plain(*args[:7], plain_noise, w_bits=w_bits, **HP)
         scores = ops.perturbed_scores(*args[:7], plain_noise, w_bits=w_bits, **HP)
+        _assert_same_but_near_ties(got.flatten(), want.flatten(), scores.reshape(-1, k))
+        frozen = args[3] == 0
+        assert torch.equal(got[frozen], args[2][frozen])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("many", [False, True])
+def test_warp_body_past_48kb_of_shared_memory_matches_plain_on_card(card, many):
+    # K 8,192, the most the entries admit: the K > 32 body's 2 K floats of
+    # totals and logs take 64 KB of dynamic shared memory a block, past the
+    # 48 KB a kernel has unless it is opted in.
+    k, n, d, v = 8192, 4096, 64, 512
+    if many:
+        args = _stack_inputs(2, n, k, None, seed=7, device=card, d=d, v=v)
+        key = torch.tensor([[2 ** 62 + 5, 8], [-3, 2 ** 40]], device=card)
+        wrapper, plain = ops.resample_many, ops.resample_many_plain
+    else:
+        args = _inputs(n, k, None, seed=7, device=card, d=d, v=v)
+        key = (2 ** 64 - 3, 2 ** 33 + 12)
+        wrapper, plain = ops.resample, ops.resample_plain
+    hp = dict(alpha=0.1, beta=0.01, beta_bar=0.01 * v)
+    noise = ops.philox_noise(args[2], args[6], key)
+    for kernel_noise, kernel_key, plain_noise in ((args[7], None, args[7]), (None, key, noise)):
+        got = wrapper(*args[:7], kernel_noise, philox=kernel_key, **hp)
+        torch.cuda.synchronize()
+        want = plain(*args[:7], plain_noise, **hp)
+        scores = ops.perturbed_scores(*args[:7], plain_noise, **hp)
         _assert_same_but_near_ties(got.flatten(), want.flatten(), scores.reshape(-1, k))
         frozen = args[3] == 0
         assert torch.equal(got[frozen], args[2][frozen])
