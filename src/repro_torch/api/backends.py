@@ -43,6 +43,14 @@ All backends speak *stored* `LDAState` at the boundary (fixed point when
 ``cfg.w_bits`` is set) so a model fit by one can be refined by another.
 Backends run on the device of the corpus they are given; their
 `torch.Generator` must be on that device too.
+
+Every sweep runs inside a `sweep` span (`repro_torch.obs.trace`; attrs
+`route` and `tokens`) and counts in `vedalia_sweeps_total{route}`. The
+span is not device-timed: its events would sit at the sweep boundaries and
+at the head and tail of each request, where they cost the device idle
+time; the rebuild and the alias tables inside it are. An engine call that
+runs n sweeps in one program (`pserver`'s fused run, `sparse`, the stacked
+`run_many`) is one span with `sweeps` n, and counts n.
 """
 
 from __future__ import annotations
@@ -55,6 +63,18 @@ import torch
 
 from repro_torch.core.codec import decode_state, encode_state
 from repro_torch.core.types import Corpus, LDAConfig, LDAState, init_state
+from repro_torch.obs import metrics, trace
+
+_SWEEPS = metrics.counter(
+    "vedalia_sweeps_total", "Sweeps run, by sampler route.", labels=("route",))
+
+
+def _swept(route: str, corpus: Corpus, n: int = 1):
+    """The `sweep` span around `n` sweeps of `route` over `corpus` (a
+    stacked corpus counts every slot), counted in `vedalia_sweeps_total`."""
+    _SWEEPS.inc(n, route=route)
+    attrs = {} if n == 1 else {"sweeps": n}
+    return trace.span("sweep", route=route, tokens=corpus.docs.numel(), **attrs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,12 +263,8 @@ class TorchSampler(_BaseSampler):
     def sweep(self, cfg, state, corpus, gen):
         from repro_torch.core import gibbs
 
-        return gibbs.sweep(cfg, state, corpus, gen, self.block)
-
-    def run(self, cfg, corpus, gen, num_sweeps, state=None):
-        from repro_torch.core import gibbs
-
-        return gibbs.run(cfg, corpus, gen, num_sweeps, state=state, block=self.block)
+        with _swept(self.name, corpus):
+            return gibbs.sweep(cfg, state, corpus, gen, self.block)
 
 
 #: The `QuantSpec` modes a packed-table sweep honors (`cuda`, `alias`).
@@ -266,7 +282,8 @@ class CudaSampler(_BaseSampler):
     def sweep(self, cfg, state, corpus, gen):
         from repro_torch.kernels.lda_gibbs import ops as kops
 
-        return kops.sweep(cfg, state, corpus, gen)
+        with _swept(self.name, corpus):
+            return kops.sweep(cfg, state, corpus, gen)
 
 
 @register_backend("distributed", SamplerCapabilities(device_kind="pod"))
@@ -295,12 +312,13 @@ class DistributedSampler(_BaseSampler):
     def sweep(self, cfg, state, corpus, gen):
         from repro_torch.core import distributed
 
-        real = decode_state(cfg, state)
-        fn = distributed.make_client_server_sweep(cfg, self.comm, block=self.block,
-                                                  sync_every=self.sync_every)
-        z, n_dt, n_wt, n_t = fn(corpus.docs, corpus.words, real.z, corpus.weights, real.n_dt,
-                                real.n_wt, gen)
-        return encode_state(cfg, LDAState(z=z, n_dt=n_dt, n_wt=n_wt, n_t=n_t))
+        with _swept(self.name, corpus):
+            real = decode_state(cfg, state)
+            fn = distributed.make_client_server_sweep(cfg, self.comm, block=self.block,
+                                                      sync_every=self.sync_every)
+            z, n_dt, n_wt, n_t = fn(corpus.docs, corpus.words, real.z, corpus.weights,
+                                    real.n_dt, real.n_wt, gen)
+            return encode_state(cfg, LDAState(z=z, n_dt=n_dt, n_wt=n_wt, n_t=n_t))
 
 
 @register_backend("pserver", SamplerCapabilities(device_kind="pod"))
@@ -331,10 +349,12 @@ class PServerSampler(_BaseSampler):
         self.staleness = staleness
 
     def sweep(self, cfg, state, corpus, gen):
-        return self._fit.sweep(cfg, state, corpus, gen)
+        with _swept(self.name, corpus):
+            return self._fit.sweep(cfg, state, corpus, gen)
 
     def run(self, cfg, corpus, gen, num_sweeps, state=None):
-        return self._fit.run(cfg, corpus, gen, num_sweeps, state=state)
+        with _swept(self.name, corpus, num_sweeps):
+            return self._fit.run(cfg, corpus, gen, num_sweeps, state=state)
 
 
 @register_backend(
@@ -360,7 +380,8 @@ class AliasSampler(_BaseSampler):
     def sweep(self, cfg, state, corpus, gen):
         from repro_torch.kernels.alias_mh import ops as kops
 
-        return kops.mh_sweep(cfg, state, corpus, gen, self.mh_steps)
+        with _swept(self.name, corpus):
+            return kops.mh_sweep(cfg, state, corpus, gen, self.mh_steps)
 
     def run_many(self, cfg, corpora, gens, num_sweeps, states=None, lengths=None):
         """Stacked multi-sweep alias fit/refit (cold when `states` is None)
@@ -372,8 +393,9 @@ class AliasSampler(_BaseSampler):
 
         if states is None:
             states = batch.init_many(cfg, corpora, gens, lengths)
-        return alias.run_many(cfg, states, corpora, gens, num_sweeps, self.mh_steps,
-                              lengths)
+        with _swept(self.name, corpora, num_sweeps):
+            return alias.run_many(cfg, states, corpora, gens, num_sweeps, self.mh_steps,
+                                  lengths)
 
 
 @register_backend("sparse", SamplerCapabilities(device_kind="phone"))
@@ -400,20 +422,21 @@ class SparseSampler(_BaseSampler):
         # (z, weights): for incremental updates the corpus freezes old
         # tokens by zeroing their weights while their mass must keep
         # participating in the conditional.
-        seed = int(torch.randint(0, np.iinfo(np.int32).max, (1,), generator=gen,
-                                 device=gen.device))
-        s = cls(
-            cfg,
-            codec.as_numpy(corpus.docs),
-            codec.as_numpy(corpus.words),
-            codec.as_numpy(state.z),
-            weights=codec.as_numpy(corpus.weights).astype(np.float64),
-            seed=seed,
-            counts=codec.decode_counts_np(cfg, state),
-        )
-        s.run(num_sweeps)
-        z = torch.as_tensor(s.z.astype(np.int32), device=corpus.device)
-        return codec.rebuild_state(cfg, corpus, z)
+        with _swept(self.name, corpus, num_sweeps):
+            seed = int(torch.randint(0, np.iinfo(np.int32).max, (1,), generator=gen,
+                                     device=gen.device))
+            s = cls(
+                cfg,
+                codec.as_numpy(corpus.docs),
+                codec.as_numpy(corpus.words),
+                codec.as_numpy(state.z),
+                weights=codec.as_numpy(corpus.weights).astype(np.float64),
+                seed=seed,
+                counts=codec.decode_counts_np(cfg, state),
+            )
+            s.run(num_sweeps)
+            z = torch.as_tensor(s.z.astype(np.int32), device=corpus.device)
+            return codec.rebuild_state(cfg, corpus, z)
 
     def sweep(self, cfg, state, corpus, gen):
         return self._sequential(cfg, state, corpus, gen, 1)
@@ -452,14 +475,16 @@ class BatchedSampler(_BaseSampler):
         """One sweep over stacked models (one generator per model)."""
         from repro_torch.core import batch
 
-        return batch.sweep_batch(cfg, states, corpora, gens, lengths)
+        with _swept(self.name, corpora):
+            return batch.sweep_batch(cfg, states, corpora, gens, lengths)
 
     def run_many(self, cfg, corpora, gens, num_sweeps, states=None, lengths=None):
         """Batched multi-sweep fit/refit: cold when `states` is None."""
         from repro_torch.core import batch
 
-        return batch.fit_many(cfg, corpora, gens, num_sweeps, states=states,
-                              lengths=lengths)
+        with _swept(self.name, corpora, num_sweeps):
+            return batch.fit_many(cfg, corpora, gens, num_sweeps, states=states,
+                                  lengths=lengths)
 
     def sweep(self, cfg, state, corpus, gen):
         return _unstack1(self.sweep_batch(cfg, _stack1(state), _stack1(corpus), [gen]))

@@ -24,6 +24,7 @@ and M sequential fits from those seeds are the same chains.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Sequence
 
@@ -37,7 +38,7 @@ from repro_torch.core.rlda import Review, RLDACorpus
 from repro_torch.core.types import LDAState
 from repro_torch.core.views import ModelView
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.obs import metrics, timers
+from repro_torch.obs import metrics, timers, trace
 
 #: Backend-labelled service-op latency. Device ops (`fit`, `refine`,
 #: `update`) stop via `DeviceTimer.sync(state)` so async launches can't
@@ -50,6 +51,29 @@ _VIEW_BYTES = metrics.histogram(
     "vedalia_service_view_bytes",
     "Serialized view payload size (what a device downloads).",
     labels=(), buckets=metrics.BYTE_BUCKETS)
+
+
+@contextlib.contextmanager
+def _op(op: str, backend: str, **attrs):
+    """One service op's `service.<op>` span (attrs `backend`, `sweeps`,
+    `tokens`) and its `_OP_SECONDS` timer.
+
+    The body hands the op's output to the yielded `wait`. The timer then
+    waits for the output's device work (only while obs is on:
+    `DeviceTimer.sync`) and the device-timed spans inside resolve, both
+    inside the span, so the span covers all the host time the op costs. A
+    host-side op hands nothing and stops unsynced. The span itself is not
+    device-timed: events recorded before the op's first launch and read
+    after its synchronize would lengthen the time the device waits between
+    requests.
+    """
+    timer = timers.DeviceTimer(_OP_SECONDS, op=op, backend=backend)
+    out = []
+    with trace.span(f"service.{op}", backend=backend, **attrs):
+        timer.start()
+        yield out.append
+        timer.sync(out[0] if out else None)
+        trace.resolve()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,11 +299,11 @@ class VedaliaService:
             backend, num_tokens=prep.corpus.num_tokens, task="fit",
             device_kind=device_kind)
         sweeps = num_sweeps if num_sweeps is not None else self.num_sweeps
-        timer = timers.DeviceTimer(_OP_SECONDS, op="fit", backend=backend)
-        timer.start()
-        state = self.sampler(backend).run(
-            prep.cfg, prep.corpus, self._generator(seed), sweeps)
-        timer.sync(state.n_wt)
+        with _op("fit", backend, sweeps=sweeps,
+                 tokens=prep.corpus.num_tokens) as wait:
+            state = self.sampler(backend).run(
+                prep.cfg, prep.corpus, self._generator(seed), sweeps)
+            wait(state.n_wt)
         model = update.UpdatableModel(
             cfg=prep.cfg, corpus=prep.corpus, state=state)
         return self._register(ModelHandle(
@@ -358,12 +382,12 @@ class VedaliaService:
         from repro_torch.serving import batch_engine
 
         sweeps = num_sweeps if num_sweeps is not None else self.num_sweeps
-        timer = timers.DeviceTimer(_OP_SECONDS, op="fit_batch", backend=backend)
-        timer.start()
-        states, _ = batch_engine.run_batched(
-            sampler, [p.cfg for p in preps], [p.corpus for p in preps],
-            self._generators(len(preps), seed), sweeps)
-        timer.sync(states[-1].n_wt)
+        with _op("fit_batch", backend, sweeps=sweeps,
+                 tokens=total_tokens) as wait:
+            states, _ = batch_engine.run_batched(
+                sampler, [p.cfg for p in preps], [p.corpus for p in preps],
+                self._generators(len(preps), seed), sweeps)
+            wait(states[-1].n_wt)
         return [
             self._register(ModelHandle(
                 handle_id=self._new_id(), prep=p,
@@ -407,12 +431,12 @@ class VedaliaService:
         backend = self._resolve(
             backend or handle.backend,
             num_tokens=handle.model.corpus.num_tokens, task="update")
-        timer = timers.DeviceTimer(_OP_SECONDS, op="refine", backend=backend)
-        timer.start()
-        handle.model.state = self.sampler(backend).run(
-            handle.cfg, handle.model.corpus, self._generator(seed), num_sweeps,
-            state=handle.model.state)
-        timer.sync(handle.model.state.n_wt)
+        with _op("refine", backend, sweeps=num_sweeps,
+                 tokens=handle.model.corpus.num_tokens) as wait:
+            handle.model.state = self.sampler(backend).run(
+                handle.cfg, handle.model.corpus, self._generator(seed), num_sweeps,
+                state=handle.model.state)
+            wait(handle.model.state.n_wt)
         handle.sweeps_run += num_sweeps
         handle.backend = backend
         return handle
@@ -453,13 +477,13 @@ class VedaliaService:
             return handles
         from repro_torch.serving import batch_engine
 
-        timer = timers.DeviceTimer(_OP_SECONDS, op="refine_many", backend=backend)
-        timer.start()
-        states, _ = batch_engine.run_batched(
-            sampler, [h.cfg for h in unique], [h.model.corpus for h in unique],
-            self._generators(len(unique), seed), num_sweeps,
-            states=[h.model.state for h in unique])
-        timer.sync(states[-1].n_wt)
+        with _op("refine_many", backend, sweeps=num_sweeps,
+                 tokens=sum(h.model.corpus.num_tokens for h in unique)) as wait:
+            states, _ = batch_engine.run_batched(
+                sampler, [h.cfg for h in unique], [h.model.corpus for h in unique],
+                self._generators(len(unique), seed), num_sweeps,
+                states=[h.model.state for h in unique])
+            wait(states[-1].n_wt)
         for h, st in zip(unique, states):
             h.model.state = st
             h.sweeps_run += num_sweeps
@@ -491,21 +515,21 @@ class VedaliaService:
             backend or handle.backend,
             num_tokens=handle.model.corpus.num_tokens, task="update")
         handle.backend = backend
-        timer = timers.DeviceTimer(_OP_SECONDS, op="update", backend=backend)
-        timer.start()
-        handle.model = update.add_documents(
-            handle.model,
-            prep_new.corpus.docs.numpy() + cfg.num_docs,
-            prep_new.corpus.words.numpy(),
-            prep_new.corpus.weights.numpy(),
-            self._generator(seed),
-            update_sweeps=(update_sweeps if update_sweeps is not None
-                           else self.update_sweeps),
-            sampler=self.sampler(backend),
-            # Explicit: token-free trailing reviews still count as docs.
-            num_docs=cfg.num_docs + len(new_reviews),
-        )
-        timer.sync(handle.model.state.n_wt)
+        sweeps = update_sweeps if update_sweeps is not None else self.update_sweeps
+        tokens = handle.model.corpus.num_tokens + prep_new.corpus.num_tokens
+        with _op("update", backend, sweeps=sweeps, tokens=tokens) as wait:
+            handle.model = update.add_documents(
+                handle.model,
+                prep_new.corpus.docs.numpy() + cfg.num_docs,
+                prep_new.corpus.words.numpy(),
+                prep_new.corpus.weights.numpy(),
+                self._generator(seed),
+                update_sweeps=sweeps,
+                sampler=self.sampler(backend),
+                # Explicit: token-free trailing reviews still count as docs.
+                num_docs=cfg.num_docs + len(new_reviews),
+            )
+            wait(handle.model.state.n_wt)
         # Corpus and per-review metadata must cover the appended documents.
         handle.prep = dataclasses.replace(
             prep,
@@ -546,14 +570,13 @@ class VedaliaService:
                 handle.cfg, handle.state,
                 mass_coverage=mass_coverage, max_topics=max_topics)
             topics = core
-        timer = timers.DeviceTimer(
-            _OP_SECONDS, op="view", backend=handle.backend)
-        timer.start()
-        topic_ids = [int(t) for t in topics]
-        view = views_lib.build_view(
-            handle.prep, handle.state, topic_ids, top_n=top_n)
-        payload = view.to_json()
-        timer.stop()  # host-side op: nothing async to wait out
+        # host-side op: nothing async to wait out
+        with _op("view", handle.backend, sweeps=0,
+                 tokens=handle.model.corpus.num_tokens):
+            topic_ids = [int(t) for t in topics]
+            view = views_lib.build_view(
+                handle.prep, handle.state, topic_ids, top_n=top_n)
+            payload = view.to_json()
         _VIEW_BYTES.observe(len(payload))
         return ViewResponse(
             handle_id=handle.handle_id,

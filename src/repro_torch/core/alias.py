@@ -32,6 +32,11 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core.types import Corpus, LDAConfig, LDAState, build_counts
+from repro_torch.obs import metrics, trace
+
+_TABLES_S = metrics.counter(
+    "vedalia_alias_tables_device_seconds_total",
+    "Device seconds of the alias table builds (`alias.tables` spans).")
 
 
 def _build_rows(mass: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -108,9 +113,11 @@ def sweep_draws(gen: Optional[torch.Generator], n: int, k: int, mh_steps: int,
 def sweep_tables(cfg: LDAConfig, n_dt: torch.Tensor, n_wt: torch.Tensor):
     """The stale proposal tables of a sweep from real-unit counts:
     ``(thresh_w, alias_w, thresh_d, alias_d)`` with q_w ∝ n_wt + β over
-    (V, K) and q_d ∝ n_dt + α over (D, K)."""
-    thresh_w, alias_w = build_alias_tables(n_wt + cfg.beta)
-    thresh_d, alias_d = build_alias_tables(n_dt + cfg.alpha)
+    (V, K) and q_d ∝ n_dt + α over (D, K). The `alias.tables` span,
+    device-timed into `vedalia_alias_tables_device_seconds_total`."""
+    with trace.span("alias.tables", on=n_wt.device, counter=_TABLES_S):
+        thresh_w, alias_w = build_alias_tables(n_wt + cfg.beta)
+        thresh_d, alias_d = build_alias_tables(n_dt + cfg.alpha)
     return thresh_w, alias_w, thresh_d, alias_d
 
 

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import fractional, quant
 from repro_torch.core.quant import QuantSpec, spec_for
 from repro_torch.core.types import Corpus, LDAConfig, LDAState, build_counts
+from repro_torch.obs import metrics, trace
 
 __all__ = [
     "QuantSpec",
@@ -41,6 +42,11 @@ __all__ = [
     "rebuild_state",
     "as_numpy",
 ]
+
+
+_REBUILD_S = metrics.counter(
+    "vedalia_rebuild_device_seconds_total",
+    "Device seconds of count rebuilds (`codec.rebuild` spans).")
 
 
 def as_numpy(x) -> np.ndarray:
@@ -114,8 +120,10 @@ class StateCodec:
 
     def rebuild_state(self, cfg: LDAConfig, corpus: Corpus, z) -> LDAState:
         """Scatter-rebuild counts from assignments and store (rebuild in
-        real units, encode once)."""
-        return self.encode_state(build_counts(cfg, corpus, z))
+        real units, encode once): the `codec.rebuild` span, device-timed
+        into `vedalia_rebuild_device_seconds_total`."""
+        with trace.span("codec.rebuild", on=corpus.device, counter=_REBUILD_S):
+            return self.encode_state(build_counts(cfg, corpus, z))
 
     # -- read-only packed tables (int8 / int4_packed modes) -----------------
 

@@ -6,7 +6,8 @@
     obs.enable()                              # default is off (zero-cost)
 
 See `repro_torch.obs.config` for the switch contract, `.metrics` for the
-registry, `.trace` for spans + Chrome/JSONL export, and `.timers` for
+registry, `.trace` for spans (on the profiler's clock, device-timed on
+request) + Chrome export, and `.timers` for
 `torch.cuda.synchronize`-aware timing. Metric names, types and labels are
 those of the reference package, so one dashboard reads both.
 """

@@ -3,7 +3,8 @@
 Every obs instrument (metrics, spans, device timers) checks one module
 flag before doing any work, so a process that never calls `enable()` pays
 nothing beyond a single attribute read per instrumented call — the
-"zero-cost-when-disabled" contract `benchmarks/obs_bench.py` gates.
+"zero-cost-when-disabled" contract `tests/test_torch_obs.py` holds the
+spans to (no `record_function`, no CUDA event, nothing buffered).
 
 Disabled is the default. Serving deployments, benches, and tests that
 want telemetry opt in explicitly:

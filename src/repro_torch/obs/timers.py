@@ -76,7 +76,8 @@ class DeviceTimer:
 
     def sync(self, value=None) -> Optional[float]:
         """Wait for `value`'s device work, stop, observe; returns elapsed
-        seconds (None when disabled or never started)."""
+        seconds (None when disabled or never started). With no `value` (a
+        host-side region) it stops without waiting."""
         if not config._enabled or self._t0 is None:
             return None
         _block(value)
@@ -85,8 +86,4 @@ class DeviceTimer:
         if self._hist is not None:
             self._hist.observe(self.elapsed_s, **self._labels)
         return self.elapsed_s
-
-    def stop(self) -> Optional[float]:
-        """Stop without waiting on a device value (host-side regions)."""
-        return self.sync(None)
 

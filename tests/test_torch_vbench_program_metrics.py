@@ -1,0 +1,5 @@
+"""`vbench/tests/test_vbench_program_metrics.py`, collected with the port's tests."""
+
+from _torch_vbench import reexport
+
+reexport("test_vbench_program_metrics", globals())
