@@ -30,6 +30,18 @@ Phases:
                  body it picks, direct or log tables); near-ties are exempt
                  and counted; each library's Philox4x32-10 words against
                  cuRAND's `curand_Philox4x32_10` on 2^20 counters
+  1b. alias_tables
+                 the alias-table kernel at the production sweep's shapes (K
+                 256, 250,000 word and 200,000 doc rows, 16.8 M tokens): one
+                 `alias` sweep from random topics (one alias_tables and one
+                 alias_mh launch), then on its counts the kernel's tables
+                 bit for bit `build_alias_tables` (the thresholds' bits and
+                 the aliases), timed by CUDA events over raw launches and
+                 through the wrapper, against the plain build and the bytes
+                 bound; the case study (`main_path_alias_tables`), the
+                 popular product (`large_fit`, `packed`'s int8 run) and the
+                 zoo's larger bucket (`zoo_alias`) are checked and timed so
+                 at their own shapes
   2. main path   the §5 case study (`examples/quickstart.py`'s config) over the
                  wire through an in-process `VedaliaClient(device="cuda")`:
                  fit 30, refine 70, two view syncs, top reviews, perplexity,
@@ -352,7 +364,12 @@ both with
 a serving run makes; a cross call under its own key).
 `lda_gibbs.pack_word_table`, the packed sweep's
 table build, is no TPU kernel (the reference quantizes with jnp before its
-Pallas call); its row names the jnp function it replaces.
+Pallas call); its row names the jnp function it replaces. Nor is
+`alias_tables.build`, the `alias` sweep's Vose tables (jnp in the
+reference): its row gives its launches by shape, each timed shape checked
+bit for bit; every phase that runs the `alias` route (main path,
+large_fit, zoo_alias, packed, stream, offload, mesh) zeroes its counter
+before a run and holds it to one launch a card MH sweep.
 
 Prints one JSON line per phase, then the kernels line, then
 `{"ok": true, "device": {...}}` as the last line. Any failure raises and
@@ -456,6 +473,7 @@ def phase_setup():
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.alias_mh import kernel as alias_kernel
+    from repro_torch.kernels.alias_tables import kernel as tables_kernel
     from repro_torch.kernels.chunk_scan import kernel as scan_kernel
     from repro_torch.kernels.decode_attn import kernel as attn_kernel
     from repro_torch.kernels.lda_gibbs import kernel as lda_kernel
@@ -464,6 +482,7 @@ def phase_setup():
                     "--format=csv,noheader"]).splitlines()[0]
     print(smi, flush=True)
     builds = {"lda_gibbs.resample": lda_kernel.build, "alias_mh.resample": alias_kernel.build,
+              "alias_tables.build": tables_kernel.build,
               "chunk_scan": scan_kernel.build, "chunk_scan_mamba2": scan_kernel.build_mamba2,
               "decode_attn": attn_kernel.build}
     t0 = time.perf_counter()
@@ -542,12 +561,14 @@ def smem_against_ptxas() -> dict:
     from repro_torch.analysis.rules.cuda_smem import static_smem
     from repro_torch.kernels import _build
     from repro_torch.kernels.alias_mh import kernel as alias_kernel
+    from repro_torch.kernels.alias_tables import kernel as tables_kernel
     from repro_torch.kernels.chunk_scan import kernel as scan_kernel
     from repro_torch.kernels.decode_attn import kernel as attn_kernel
     from repro_torch.kernels.lda_gibbs import kernel as lda_kernel
 
     config = AnalysisConfig()
     builds = {lda_kernel.SOURCE: lda_kernel.build, alias_kernel.SOURCE: alias_kernel.build,
+              tables_kernel.SOURCE: tables_kernel.build,
               scan_kernel.SOURCE: scan_kernel.build,
               scan_kernel.MAMBA2_SOURCE: scan_kernel.build_mamba2,
               attn_kernel.SOURCE: attn_kernel.build}
@@ -891,6 +912,42 @@ def phase_alias_kernel():
     return out
 
 
+def phase_alias_tables():
+    """The alias-table kernel at the production sweep's shapes
+    (`launch.dryrun_rlda`: K 256, 250,000 word rows and 200,000 doc rows,
+    16,777,216 tokens), on the counts after one `alias` sweep from random
+    topics: that sweep's launches (one of each kernel), then the tables bit
+    for bit `build_alias_tables`, timed against it and its bound."""
+    import torch
+
+    from repro_torch.core import codec
+    from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.alias_tables import ops as table_ops
+    from repro_torch.launch import dryrun_rlda
+
+    cfg = dryrun_rlda.production_lda_config()
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    corpus = dryrun_rlda.synthetic_corpus(cfg, DRYRUN_TOKENS, gen)
+    z = torch.randint(0, cfg.num_topics, (DRYRUN_TOKENS,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    state = codec.rebuild_state(cfg, corpus, z)
+    table_ops.build_tables.launches = alias_ops.mh_resample.launches = 0
+    state = alias_ops.mh_sweep(cfg, state, corpus, gen)
+    torch.cuda.synchronize()
+    launches = {"alias_tables.build": table_ops.build_tables.launches,
+                "alias_mh.resample": alias_ops.mh_resample.launches}
+    _, _, (n_dt, n_wt) = alias_ops.sweep_counts(cfg, state)
+    out = {"phase": "alias_tables", "tokens": DRYRUN_TOKENS, "launches": launches,
+           "kernel": alias_tables_timing(cfg, n_dt, n_wt)}
+    emit(out)
+    if launches != {"alias_tables.build": 1, "alias_mh.resample": 1}:
+        raise SystemExit(f"one production alias sweep launched {launches}")
+    if out["kernel"]["mismatch"]:
+        raise SystemExit(f"the alias_tables kernel differs from the plain build at the "
+                         f"production shapes: {out['kernel']['mismatch']} entries")
+    return out
+
+
 def _stack_random_inputs(m, n, k, w_bits, d, v, seed, mh_steps=None):
     """A ragged stack of m models on the card (each model's tokens past its
     own length, between n/2 and n, are weight-0 padding; 10% of its real
@@ -1064,24 +1121,30 @@ def phase_main_path(backend):
 
     from repro_torch.data import reviews
     from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.alias_tables import ops as table_ops
     from repro_torch.kernels.lda_gibbs import ops
 
     corp = reviews.generate(reviews.SyntheticSpec(**QUICKSTART))
     ops.resample.launches = ops.resample.launches_philox = 0
     alias_ops.mh_resample.launches = alias_ops.mh_resample.launches_philox = 0
+    table_ops.build_tables.launches = 0
     client, fit, sync, resync, tops, ppx, fit_s, total_s = _quickstart_run(
         "cuda", corp.reviews, backend)
     torch.cuda.synchronize()
     launches = {"lda_gibbs.resample": ops.resample.launches,
-                "alias_mh.resample": alias_ops.mh_resample.launches}
+                "alias_mh.resample": alias_ops.mh_resample.launches,
+                "alias_tables.build": table_ops.build_tables.launches}
     launches_philox = {"lda_gibbs.resample": ops.resample.launches_philox,
                        "alias_mh.resample": alias_ops.mh_resample.launches_philox}
     service = client.server.service
     _check_invariants(service, fit.handle_id)
     handle = service.handles[fit.handle_id]
     n = handle.model.corpus.num_tokens
-    expected = {"jnp": {"lda_gibbs.resample": 100 * math.ceil(n / 4096), "alias_mh.resample": 0},
-                "alias": {"lda_gibbs.resample": 0, "alias_mh.resample": 100}}[backend]
+    expected = {"jnp": {"lda_gibbs.resample": 100 * math.ceil(n / 4096), "alias_mh.resample": 0,
+                        "alias_tables.build": 0},
+                "alias": {"lda_gibbs.resample": 0, "alias_mh.resample": 100,
+                          "alias_tables.build": 100}}[backend]
+    check_table_launches(f"main path ({backend})", launches)
     if backend == "jnp" and launches["lda_gibbs.resample"] == 0:
         raise SystemExit("the main path launched no lda_gibbs kernel")
     if launches_philox["lda_gibbs.resample"]:  # the `torch` route injects its blocks' noise
@@ -1417,6 +1480,62 @@ def alias_kernel_timing(cfg, corpus, state, mh_steps, reps=50):
     return out
 
 
+def alias_tables_timing(cfg, n_dt, n_wt, reps=20):
+    """The alias-table kernel on one sweep's real-unit counts (leading (M,)
+    axes kept), as `core.alias.sweep_tables` calls it: its two tables
+    against `build_alias_tables` on the same card tensors, bit for bit
+    (`mismatch`: entries whose threshold bits or alias differ), its ms (CUDA
+    events over raw launches into allocated outputs, PyTorch's row sums made
+    beforehand where the kernel does not sum), `wrapper_ms` (through
+    `ops.build_tables`), the plain build's ms (`build_alias_tables` of both
+    tables) and the bound: each count read once, each threshold and alias
+    written once."""
+    import torch
+
+    from repro_torch.core import alias
+    from repro_torch.kernels.alias_tables import kernel, ops
+
+    k = n_wt.shape[-1]
+    before = ops.build_tables.launches
+    got = ops.build_tables(n_wt, cfg.beta, n_dt, cfg.alpha)
+    want = (*alias.build_alias_tables(n_wt + cfg.beta),
+            *alias.build_alias_tables(n_dt + cfg.alpha))
+    torch.cuda.synchronize()
+    mismatch = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                   for g, w in zip(got, want, strict=True))
+    del got, want
+    parts = []
+    for counts, prior in ((n_wt, cfg.beta), (n_dt, cfg.alpha)):
+        row_sum = None if ops.sums_in_kernel(counts) else (counts + prior).sum(-1)
+        parts.append((counts, float(prior), row_sum, torch.empty_like(counts),
+                      torch.empty(counts.shape, dtype=torch.int32, device=counts.device)))
+    rows = (n_wt.numel() + n_dt.numel()) // k
+    nbytes = 12 * rows * k
+    out = {
+        "shape": f"V={tuple(n_wt.shape[:-1])} D={tuple(n_dt.shape[:-1])} K={k}",
+        "rows": rows, "sums_in_kernel": [ops.sums_in_kernel(n_wt), ops.sums_in_kernel(n_dt)],
+        "mismatch": mismatch,
+        "ms": cuda_ms(lambda: kernel.launch(*parts, k), reps),
+        "wrapper_ms": cuda_ms(lambda: ops.build_tables(n_wt, cfg.beta, n_dt, cfg.alpha), reps),
+        "plain_ms": cuda_ms(lambda: (alias.build_alias_tables(n_wt + cfg.beta),
+                                     alias.build_alias_tables(n_dt + cfg.alpha)),
+                            max(3, reps // 4), warmup=1),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes, "bound_by": "bytes",
+    }
+    ops.build_tables.launches = before  # timing launches are no path's
+    return out
+
+
+def check_table_launches(where, launches):
+    """One alias-table launch a card MH sweep: every `alias` sweep
+    (`mh_sweep`, `mh_sweep_many`, the mesh `mh` engine) builds both of its
+    tables in one `alias_tables` launch beside its one alias_mh launch."""
+    mh = launches.get("alias_mh.resample", 0) + launches.get("alias_mh.resample_many", 0)
+    if launches["alias_tables.build"] != mh:
+        raise SystemExit(f"{where}: {launches['alias_tables.build']} alias_tables launches "
+                         f"for {mh} alias_mh launches")
+
+
 def alias_bodies_at(cfg, corpus, state, mh_steps):
     """Both bodies of the single-model alias_mh entry forced at one sweep's
     inputs, in both draw modes: ms by CUDA graph (device time; the tables
@@ -1499,6 +1618,7 @@ def phase_large_fit(exact_ppx):
 
     from repro_torch.api import VedaliaClient
     from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.alias_tables import ops as table_ops
     from repro_torch.kernels.lda_gibbs import ops
 
     corp, _ = popular_reviews()
@@ -1506,13 +1626,15 @@ def phase_large_fit(exact_ppx):
     client = VedaliaClient(device="cuda", backend="auto")
     ops.resample.launches = 0
     alias_ops.mh_resample.launches = alias_ops.mh_resample.launches_philox = 0
+    table_ops.build_tables.launches = 0
     t0 = time.perf_counter()
     fit = client.fit(corp.reviews, num_topics=12, base_vocab=POPULAR["vocab_size"],
                      w_bits=8, num_sweeps=100, seed=0)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = {"lda_gibbs.resample": ops.resample.launches,
-                "alias_mh.resample": alias_ops.mh_resample.launches}
+                "alias_mh.resample": alias_ops.mh_resample.launches,
+                "alias_tables.build": table_ops.build_tables.launches}
     launches_philox = {"alias_mh.resample": alias_ops.mh_resample.launches_philox}
     sync = client.sync_view(fit.handle_id, top_n=8, mass_coverage=0.9, max_topics=6)
     resync = client.sync_view(fit.handle_id, top_n=8, mass_coverage=0.9, max_topics=6)
@@ -1536,6 +1658,7 @@ def phase_large_fit(exact_ppx):
         sweep_ms.append((time.perf_counter() - t) * 1e3)
     med = statistics.median(sweep_ms)
     timing = alias_kernel_timing(cfg, corpus, state, mh_steps)
+    tables = alias_tables_timing(cfg, *alias_ops.sweep_counts(cfg, state)[2])
     out = {
         "phase": "large_fit", "tokens": n, "docs": cfg.num_docs, "vocab": cfg.vocab_size,
         "num_topics": cfg.num_topics, "mh_steps": mh_steps, "backend": fit.backend,
@@ -1547,13 +1670,13 @@ def phase_large_fit(exact_ppx):
         "sweep_ms_median": med, "sweep_ms_min": min(sweep_ms), "sweep_ms_max": max(sweep_ms),
         "tokens_per_s": n / (med / 1e3),
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "kernel": timing,
+        "kernel": timing, "tables_kernel": tables,
         "sweep_breakdown_ms": alias_sweep_breakdown(cfg, corpus, state, mh_steps),
     }
     out["profile_top_device_ms"], out["device_busy_ms_per_sweep"] = profile_sweeps(
         sampler, cfg, corpus, state)
     emit(out)
-    want = {"lda_gibbs.resample": 0, "alias_mh.resample": 100}
+    want = {"lda_gibbs.resample": 0, "alias_mh.resample": 100, "alias_tables.build": 100}
     if fit.backend != "alias" or launches != want \
             or launches_philox["alias_mh.resample"] != 100:
         raise SystemExit(f"auto resolved to {fit.backend!r} with launches {launches} "
@@ -1566,6 +1689,9 @@ def phase_large_fit(exact_ppx):
     if timing["mismatch"]:
         raise SystemExit(f"alias_mh kernel disagrees with its plain version at the "
                          f"large-fit shape: {timing['mismatch']} tokens")
+    if tables["mismatch"]:
+        raise SystemExit(f"the alias_tables kernel differs from the plain build at the "
+                         f"large-fit shape: {tables['mismatch']} entries")
     return out
 
 
@@ -1940,14 +2066,15 @@ def phase_zoo_alias(sets):
     import torch
 
     from repro_torch.api import VedaliaClient
-    from repro_torch.core import alias
+    from repro_torch.core import alias, codec
     from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.alias_tables import ops as table_ops
     from repro_torch.kernels.lda_gibbs import ops
 
     client = VedaliaClient(device="cuda", backend="auto")
     service = client.server.service
     counters = (ops.resample, ops.resample_many, alias_ops.mh_resample,
-                alias_ops.mh_resample_many)
+                alias_ops.mh_resample_many, table_ops.build_tables)
     for c in counters:
         c.launches = 0
     alias_ops.mh_resample_many.launches_philox = 0
@@ -1959,10 +2086,12 @@ def phase_zoo_alias(sets):
     launches = {"lda_gibbs.resample": ops.resample.launches,
                 "lda_gibbs.resample_many": ops.resample_many.launches,
                 "alias_mh.resample": alias_ops.mh_resample.launches,
-                "alias_mh.resample_many": alias_ops.mh_resample_many.launches}
+                "alias_mh.resample_many": alias_ops.mh_resample_many.launches,
+                "alias_tables.build": table_ops.build_tables.launches}
     launches_philox = {"alias_mh.resample_many": alias_ops.mh_resample_many.launches_philox}
     want = {"lda_gibbs.resample": 0, "lda_gibbs.resample_many": 0, "alias_mh.resample": 0,
-            "alias_mh.resample_many": 2 * ZOO_ALIAS_SWEEPS}
+            "alias_mh.resample_many": 2 * ZOO_ALIAS_SWEEPS,
+            "alias_tables.build": 2 * ZOO_ALIAS_SWEEPS}
     ids = [f.handle_id for f in fits]
     for h in ids:
         _check_invariants(service, h)
@@ -2000,6 +2129,10 @@ def phase_zoo_alias(sets):
     top, busy = profile_device(zoo_sweep)
     larger = max(buckets, key=lambda b: b["corpora"].docs.shape[1])
     timing = batched_alias_kernel_timing(larger, mh_steps)
+    sc = codec.codec_for(larger["cfg"])
+    tables = alias_tables_timing(larger["cfg"], sc.decode_array(larger["states"].n_dt),
+                                 sc.decode_array(larger["states"].n_wt))
+    tables["shape"] = f"{_bucket_shape(larger)}: {tables['shape']}"
     real_tokens = sum(sum(b["lengths"]) for b in buckets)
     out = {
         "phase": "zoo_alias", "products": ZOO_PRODUCTS, "mh_steps": mh_steps,
@@ -2014,7 +2147,7 @@ def phase_zoo_alias(sets):
         "real_tokens_per_s": real_tokens / (med / 1e3),
         "models_per_s": ZOO_PRODUCTS / (med / 1e3), "profile_top_device_ms": top,
         "device_busy_ms_per_sweep": busy, "device_idle_share": 1.0 - busy / med,
-        "kernel": timing,
+        "kernel": timing, "tables_kernel": tables,
     }
     emit(out)
     if launches != want or out["backends"] != ["alias"] \
@@ -2029,6 +2162,9 @@ def phase_zoo_alias(sets):
     if timing["mismatch"]:
         raise SystemExit(f"batched alias_mh kernel disagrees with its plain version at the "
                          f"larger bucket: {timing['mismatch']} tokens")
+    if tables["mismatch"]:
+        raise SystemExit(f"the alias_tables kernel differs from the plain build at the "
+                         f"larger bucket: {tables['mismatch']} entries")
     return out
 
 
@@ -2265,6 +2401,7 @@ def phase_packed():
     from repro_torch.core import perplexity
     from repro_torch.core.quant import QuantSpec
     from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.alias_tables import ops as table_ops
     from repro_torch.kernels.lda_gibbs import ops
 
     corp, _ = popular_reviews()
@@ -2280,7 +2417,7 @@ def phase_packed():
             run_cfg = cfg if mode == "exact" else dataclasses.replace(cfg, quant=specs[mode])
             ops.resample.launches = ops.resample_quant.launches = 0
             ops.resample.launches_philox = ops.resample_quant.launches_philox = 0
-            ops.pack_word_table.launches = 0
+            ops.pack_word_table.launches = table_ops.build_tables.launches = 0
             alias_ops.mh_resample.launches = alias_ops.mh_resample.launches_philox = 0
             state, secs = _timed_run(sampler, run_cfg, corpus, seed=0, sweeps=sweeps)
             runs[f"{backend}_{mode}"] = {
@@ -2288,7 +2425,8 @@ def phase_packed():
                 "launches": {"lda_gibbs.resample": ops.resample.launches,
                              "lda_gibbs.resample_quant": ops.resample_quant.launches,
                              "lda_gibbs.pack_word_table": ops.pack_word_table.launches,
-                             "alias_mh.resample": alias_ops.mh_resample.launches},
+                             "alias_mh.resample": alias_ops.mh_resample.launches,
+                             "alias_tables.build": table_ops.build_tables.launches},
                 "launches_philox": {
                     "lda_gibbs.resample": ops.resample.launches_philox,
                     "lda_gibbs.resample_quant": ops.resample_quant.launches_philox,
@@ -2301,14 +2439,14 @@ def phase_packed():
     # Every launch of a sweep in the Philox mode; a packed `cuda` sweep packs
     # its table once (the `alias` sweep fake-quantizes it for its tables).
     none = {"lda_gibbs.resample": 0, "lda_gibbs.resample_quant": 0,
-            "lda_gibbs.pack_word_table": 0, "alias_mh.resample": 0}
+            "lda_gibbs.pack_word_table": 0, "alias_mh.resample": 0, "alias_tables.build": 0}
     want = {"cuda_exact": {**none, "lda_gibbs.resample": 30},
             "cuda_int8": {**none, "lda_gibbs.resample_quant": 30,
                           "lda_gibbs.pack_word_table": 30},
             "cuda_int4": {**none, "lda_gibbs.resample_quant": 30,
                           "lda_gibbs.pack_word_table": 30},
-            "alias_exact": {**none, "alias_mh.resample": 100},
-            "alias_int8": {**none, "alias_mh.resample": 100}}
+            "alias_exact": {**none, "alias_mh.resample": 100, "alias_tables.build": 100},
+            "alias_int8": {**none, "alias_mh.resample": 100, "alias_tables.build": 100}}
     for name in ("cuda_int8", "cuda_int4", "alias_int8"):
         _check_state(runs[name]["cfg"], corpus, runs[name]["state"])
 
@@ -2336,6 +2474,8 @@ def phase_packed():
     ra = runs["alias_int8"]
     alias_timing = alias_kernel_timing(ra["cfg"], corpus, ra["state"],
                                        get_backend("alias").mh_steps)
+    # The int8 run's tables: the fake-quantized word table's float masses.
+    tables = alias_tables_timing(ra["cfg"], *alias_ops.sweep_counts(ra["cfg"], ra["state"])[2])
     r8 = runs["cuda_int8"]
     out = {
         "phase": "packed", "tokens": corpus.num_tokens, "docs": cfg.num_docs,
@@ -2345,6 +2485,7 @@ def phase_packed():
         "expected_launches": want,
         "sweep_ms_median": sweep_ms,
         "kernel": timing, "pack_kernel": packing, "alias_kernel": alias_timing,
+        "tables_kernel": tables,
         "sweep_breakdown_ms": packed_sweep_breakdown(r8["cfg"], corpus, r8["state"]),
     }
     out["profile_top_device_ms"], out["device_busy_ms_per_sweep"] = profile_sweeps(
@@ -2371,6 +2512,9 @@ def phase_packed():
     if alias_timing["mismatch"]:
         raise SystemExit(f"alias_mh disagrees with its plain version on the packed int8 "
                          f"tables: {alias_timing['mismatch']} tokens")
+    if tables["mismatch"]:
+        raise SystemExit(f"the alias_tables kernel differs from the plain build on the "
+                         f"packed int8 run's counts: {tables['mismatch']} entries")
     return out
 
 
@@ -2459,6 +2603,7 @@ def phase_stream():
 
     from repro_torch.api import VedaliaClient, VedaliaServer
     from repro_torch.kernels.alias_mh import ops as alias_ops
+    from repro_torch.kernels.alias_tables import ops as table_ops
     from repro_torch.kernels.lda_gibbs import ops
     from repro_torch.stream import (IncrementalScheduler, StreamRouter, StreamSpec, pump,
                                     restore_from_json, snapshot_to_json, synthetic_events)
@@ -2511,9 +2656,9 @@ def phase_stream():
                     restore_s=round(time.perf_counter() - k0, 4))
 
     names = ("lda_gibbs.resample", "lda_gibbs.resample_many", "lda_gibbs.resample_quant",
-             "alias_mh.resample", "alias_mh.resample_many")
+             "alias_mh.resample", "alias_mh.resample_many", "alias_tables.build")
     counters = (ops.resample, ops.resample_many, ops.resample_quant, alias_ops.mh_resample,
-                alias_ops.mh_resample_many)
+                alias_ops.mh_resample_many, table_ops.build_tables)
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -2568,6 +2713,7 @@ def phase_stream():
                          f"{st.events_held_out} held out of {len(events)} events")
     if sum(launches.values()) == 0 or st.fits == 0 or st.updates == 0:
         raise SystemExit(f"stream phase ran no device work: {launches}")
+    check_table_launches("stream phase", launches)
     return out
 
 
@@ -2676,6 +2822,7 @@ def offload_stream(device, case, events, executor=None):
 
     from repro_torch import obs
     from repro_torch.api import VedaliaClient, VedaliaServer
+    from repro_torch.kernels.alias_tables import ops as table_ops
     from repro_torch.kernels.lda_gibbs import ops
     from repro_torch.obs import trace
     from repro_torch.stream import IncrementalScheduler, StreamRouter, pump
@@ -2706,6 +2853,7 @@ def offload_stream(device, case, events, executor=None):
     counters = _offload_counters()
     for c in counters.values():
         c.launches = c.launches_philox = 0
+    table_ops.build_tables.launches = 0
     ops.resample.tokens = 0
     trace.reset()
     if device == "cuda":
@@ -2721,6 +2869,8 @@ def offload_stream(device, case, events, executor=None):
     if len(spans) >= trace.MAX_SPANS:
         raise SystemExit(f"offload replay: the span buffer filled ({len(spans)} spans)")
     launches = {name: c.launches for name, c in counters.items()}
+    launches["alias_tables.build"] = table_ops.build_tables.launches
+    check_table_launches(f"offload replay ({device})", launches)
     launches_philox = {name: c.launches_philox for name, c in counters.items()}
     heldout = {pid: float(clients[st.shard_id].perplexity(st.handle_id, reviews=st.heldout))
                for pid, st in sched.products.items() if st.heldout}
@@ -2915,6 +3065,8 @@ def mesh_counted(fn, tally, run):
     the wrappers' counts."""
     import torch
 
+    from repro_torch.kernels.alias_tables import ops as table_ops
+
     wrappers, launchers = _mesh_wrappers(), _mesh_launchers()
     shapes = tally["shapes"].setdefault(run, {})
 
@@ -2934,6 +3086,7 @@ def mesh_counted(fn, tally, run):
 
     for f in wrappers.values():
         f.launches = f.launches_philox = 0
+    table_ops.build_tables.launches = 0
     saved = {name: getattr(mod, attr) for name, (mod, attr) in launchers.items()}
     for name, (mod, attr) in launchers.items():
         setattr(mod, attr, keeping(name, saved[name]))
@@ -2949,7 +3102,11 @@ def mesh_counted(fn, tally, run):
                for i in (0, 1)]
         if got != want:
             raise SystemExit(f"mesh {run}: {name} counted {want}, its launches by shape {got}")
+    tables = table_ops.build_tables.launches
+    check_table_launches(f"mesh {run}", {"alias_tables.build": tables,
+                                         **{name: n for name, (n, _) in counts.items()}})
     tally["by_run"][run] = counts
+    tally["tables"][run] = tables
     for name, (n, n_philox) in counts.items():
         tally["total"][name][0] += n
         tally["total"][name][1] += n_philox
@@ -3356,7 +3513,8 @@ def phase_mesh(exact_ppx):
     just before each run of the tier and read just after; their sums by
     kernel are the phase's launches, and each run's launches are filed by
     shape and checked there (`mesh_launch_checks`)."""
-    tally = {"total": {name: [0, 0] for name in _mesh_wrappers()}, "by_run": {}, "shapes": {}}
+    tally = {"total": {name: [0, 0] for name in _mesh_wrappers()}, "by_run": {}, "shapes": {},
+             "tables": {}}
     exact = mesh_exactness(tally)
     scaling = mesh_bytes_and_scaling(tally)
     popular, servers = mesh_popular(exact_ppx, tally)
@@ -3365,6 +3523,7 @@ def phase_mesh(exact_ppx):
     checks = mesh_launch_checks(tally)
     out = {"phase": "mesh", "exactness": exact, **scaling, "popular": popular,
            "heldout": held, "launches": tally["total"], "launches_by_run": tally["by_run"],
+           "alias_tables_launches_by_run": tally["tables"],
            "kernels": {name: {key: r[key] for key in ("shape", "mismatch", "max_abs_err")}
                        | {mode: {key: r[mode][key] for key in
                                  ("mismatch", "near_tie_flips", "near_ties", "ms", "graph_ms",
@@ -5666,6 +5825,49 @@ def served_rows(runs, name, timings):
     return rows
 
 
+def alias_tables_row(prod, main_tables, alias_main, large, packed, zoo_alias, mesh) -> dict:
+    """The kernels line's `alias_tables.build` row, by shape: the production
+    sweep (`alias_tables`: one sweep; the row's headline shape), the case
+    study on `alias`, the popular product's int32 tables (`large_fit` and
+    `packed`'s exact `alias` run) and its fake-quantized int8 word rows
+    (`packed`), the zoo's larger bucket (`zoo_alias`, stacked), each
+    checked bit for bit and timed; the mesh `mh` engine's launches by run
+    (counted, not timed). One launch a card MH sweep everywhere."""
+    runs = packed["runs"]
+    tp = prod["kernel"]
+    rows = [
+        (tp, prod["launches"]["alias_tables.build"], "alias_tables"),
+        (main_tables, alias_main["launches"]["alias_tables.build"], "main_path_alias"),
+        (large["tables_kernel"], large["launches"]["alias_tables.build"]
+         + runs["alias_exact"]["launches"]["alias_tables.build"], "large_fit, packed"),
+        (packed["tables_kernel"], runs["alias_int8"]["launches"]["alias_tables.build"],
+         "packed (int8)"),
+        (zoo_alias["tables_kernel"], zoo_alias["launches"]["alias_tables.build"], "zoo_alias")]
+    by_shape = [{"shape": t["shape"], "phases": phases, "launches": n, "mismatch": t["mismatch"],
+                 **{key: t[key] for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                            "bound_by")}}
+                for t, n, phases in rows]
+    by_shape.append({"shape": "the mesh runs' worker tables", "phases": "mesh",
+                     "launches": sum(mesh["alias_tables_launches_by_run"].values()),
+                     "launches_by_run": mesh["alias_tables_launches_by_run"]})
+    mismatch = sum(t["mismatch"] for t, _, _ in rows)
+    return {
+        # Not a TPU kernel: the reference builds a sweep's Vose tables with
+        # jnp before its Pallas call.
+        "name": "alias_tables.build",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/alias_tables/csrc/alias_tables.cu",
+        "replaces": "src/repro/core/alias.py:91",
+        "launches": sum(row["launches"] for row in by_shape),
+        "mismatch": mismatch,
+        "max_abs_err": float(mismatch),
+        **{key: tp[key] for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": tp["shape"],
+        "by_shape": by_shape,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -5679,6 +5881,7 @@ def main() -> int:
     analysis = phase_analysis()
     kern = phase_kernels()
     alias_kern = phase_alias_kernel()
+    tables_prod = phase_alias_tables()
     batched_kern = phase_batched_kernels()
     quant_kern = phase_quant_kernel()
     scan_kern = phase_chunk_scan_kernel()
@@ -5697,6 +5900,13 @@ def main() -> int:
     alias_block["bodies"] = alias_bodies_at(ah.cfg, ah.model.corpus, ah.model.state,
                                             get_backend("alias").mh_steps)
     emit({"phase": "main_path_alias_kernel", "kernel": alias_block})
+    from repro_torch.kernels.alias_mh import ops as alias_ops
+
+    tables_main = alias_tables_timing(ah.cfg, *alias_ops.sweep_counts(ah.cfg, ah.model.state)[2])
+    emit({"phase": "main_path_alias_tables", "kernel": tables_main})
+    if tables_main["mismatch"]:
+        raise SystemExit(f"the alias_tables kernel differs from the plain build at the case "
+                         f"study: {tables_main['mismatch']} entries")
     if alias_block["bodies"]["injected_differ"] or alias_block["bodies"]["philox_differ"]:
         raise SystemExit(f"the alias_mh bodies disagree at the case study: "
                          f"{alias_block['bodies']}")
@@ -5959,7 +6169,7 @@ def main() -> int:
         "library_ms": None,
         "shape": pk["shape"],
         "by_shape": pack_by_shape,
-    }, {
+    }, alias_tables_row(tables_prod, tables_main, alias_main, large, packed, zoo_alias, mesh), {
         # The Mamba2 entry: the served zamba2 prefill runs it.
         "name": "chunk_scan",
         "route": "cuda",

@@ -11,11 +11,14 @@ sweep-stale counts.
 
 `build_alias_tables` is the reference's exact linearization of Vose's
 algorithm (sort into light/heavy buckets, prefix sums, read every
-threshold and alias off the cumulative deficit/excess curves). PyTorch's
-`cumsum` rounds differently from XLA's, so a threshold may differ from
-the reference's in its last bits and, at a near-tie between heavy
-buckets, an alias may differ; both tables encode the same distribution,
-which is what the tests hold them to.
+threshold and alias off the cumulative deficit/excess curves), in PyTorch
+operations: the plain version, which CPU and `meta` tensors run. On the
+card a sweep's tables come from the `alias_tables` kernel
+(`repro_torch.kernels.alias_tables`), which gives the same bits as this
+function does there. PyTorch's `cumsum` rounds differently from XLA's, so
+a threshold may differ from the reference's in its last bits and, at a
+near-tie between heavy buckets, an alias may differ; both tables encode
+the same distribution, which is what the tests hold them to.
 
 `mh_rounds` is the MH arithmetic in eager PyTorch: the plain version of
 the `alias_mh` kernel (`repro_torch.kernels.alias_mh.ops`) and the body of
@@ -113,12 +116,15 @@ def sweep_draws(gen: Optional[torch.Generator], n: int, k: int, mh_steps: int,
 def sweep_tables(cfg: LDAConfig, n_dt: torch.Tensor, n_wt: torch.Tensor):
     """The stale proposal tables of a sweep from real-unit counts:
     ``(thresh_w, alias_w, thresh_d, alias_d)`` with q_w ∝ n_wt + β over
-    (V, K) and q_d ∝ n_dt + α over (D, K). The `alias.tables` span,
-    device-timed into `vedalia_alias_tables_device_seconds_total`."""
+    (V, K) and q_d ∝ n_dt + α over (D, K), leading (M,) axes kept. On the
+    card one launch of the `alias_tables` kernel builds both, elsewhere
+    `build_alias_tables` (`kernels.alias_tables.ops.build_tables`). The
+    `alias.tables` span, device-timed into
+    `vedalia_alias_tables_device_seconds_total`."""
+    from repro_torch.kernels.alias_tables.ops import build_tables
+
     with trace.span("alias.tables", on=n_wt.device, counter=_TABLES_S):
-        thresh_w, alias_w = build_alias_tables(n_wt + cfg.beta)
-        thresh_d, alias_d = build_alias_tables(n_dt + cfg.alpha)
-    return thresh_w, alias_w, thresh_d, alias_d
+        return build_tables(n_wt, cfg.beta, n_dt, cfg.alpha)
 
 
 def mh_rounds(docs, words, z, weights, n_dt, n_wt, n_t, thresh_w, alias_w,

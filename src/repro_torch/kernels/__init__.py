@@ -9,6 +9,7 @@
 #
 #   lda_gibbs    fused collapsed-Gibbs score + Gumbel-max resample
 #   alias_mh     AliasLDA stale alias-table proposals + S Metropolis-Hastings rounds
+#   alias_tables a sweep's Vose alias tables, bit for bit PyTorch's build of them
 #   chunk_scan   chunked diagonal-decay recurrence (Mamba2 / RWKV6 prefill)
 #   decode_attn  one-token GQA flash-decode over a (ring) KV cache
 #

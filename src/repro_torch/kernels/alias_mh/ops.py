@@ -22,20 +22,22 @@ Unlike the TPU wrapper, nothing is padded or pre-gathered: both versions
 take the token ids, the full count tables and the full alias tables, and
 look up one entry per token and round.
 
-`mh_sweep` is the `alias` backend's sweep: the stale tables (built in
-PyTorch from the decoded counts, as the reference builds them outside its
-kernel), one `mh_resample` (Philox draws on the card, `sweep_draws` on the
-CPU), then the count rebuild.
+`mh_sweep` is the `alias` backend's sweep: the stale tables from the
+decoded counts, outside this kernel as the reference builds them (on the
+card one launch of the `alias_tables` kernel, elsewhere the plain
+`build_alias_tables`; `core.alias.sweep_tables`), one `mh_resample`
+(Philox draws on the card, `sweep_draws` on the CPU), then the count
+rebuild.
 Stored units go in and out. A packed `cfg.quant` spec scores and builds
 the word tables against the fake-quantized word-topic table.
 
 `mh_resample_many` / `mh_sweep_many` are the same for M stacked models (the
 `core.batch` layout: a leading (M,) axis on every token, count, table and
 draw tensor), one launch of the batched kernel for all M; the tables of
-all M×V and M×D rows build in one `build_alias_tables` call each. In the
-Philox mode the key is an (M, 2) table and model m draws what its
-single-model call would under its own key: the counter holds the token's
-index within its model.
+all M×V and M×D rows build together (one `alias_tables` launch on the
+card). In the Philox mode the key is an (M, 2) table and model m draws
+what its single-model call would under its own key: the counter holds the
+token's index within its model.
 """
 
 from __future__ import annotations

@@ -39,7 +39,14 @@ lda_gibbs at the production RLDA sweep's block (8192 tokens, K 256, `w_bits`
 `launch.dryrun_rlda.run_one` at 2^20 tokens of that config keeps its count
 invariants. At K 8,192, the most the entries admit, the K > 32 body's 64 KB
 of shared memory a block (past the default 48 KB) holds the near-tie rule
-in both noise modes, single and batched.
+in both noise modes, single and batched. The alias-table kernel's tables
+equal `core.alias.build_alias_tables` on the same card tensors bit for bit
+(`torch.equal` on the thresholds' bits and the aliases): at the production
+shapes, on both sides of each change of PyTorch's scan split and of where the
+kernel sums a row itself, at every team size, on special rows, stacked models
+and fake-quantized rows; a one-row table (which PyTorch scans with cub)
+encodes the plain build's distribution; a sweep on the kernel's tables
+equals the sweep on the plain build's.
 """
 
 import numpy as np
@@ -1651,3 +1658,221 @@ def test_production_sweep_at_2_20_tokens_on_card(card, tmp_path):
     assert rec["invariants"]["ok"], rec["invariants"]
     assert rec["launches_per_sweep"] == (1 << 20) // 8192
     assert rec["peak_bytes"] > 0 and rec["sweep_ms"] > 0
+
+
+# -- the alias-table kernel ----------------------------------------------------
+
+
+def _assert_tables_equal_plain(n_wt, beta, n_dt=None, alpha=None):
+    """The kernel's word and doc tables equal `build_alias_tables` of
+    counts + prior on the same card tensors, bit for bit, from one launch
+    (a single table is passed as both)."""
+    from repro_torch.kernels.alias_tables import ops as table_ops
+
+    if n_dt is None:
+        n_dt, alpha = n_wt, beta
+    before = table_ops.build_tables.launches
+    got = table_ops.build_tables(n_wt, beta, n_dt, alpha)
+    torch.cuda.synchronize()
+    assert table_ops.build_tables.launches == before + 1
+    for counts, prior, thresh, al in ((n_wt, beta, *got[:2]), (n_dt, alpha, *got[2:])):
+        want_t, want_a = alias.build_alias_tables(counts + prior)
+        bad = (al != want_a) | (thresh.view(torch.int32) != want_t.view(torch.int32))
+        assert not bool(bad.any()), (tuple(counts.shape), torch.nonzero(bad)[:5].tolist())
+
+
+def _special_rows(k, device):
+    """Rows of counts built to corner the build: all zero, one-hot, uniform,
+    masses on the binary grid (scans with exact ties, heavies of excess 0),
+    and drain chains (heavies just above the mean that the lights drain one
+    after another, a heavy's leftover aliasing to the next heavy)."""
+    rows = [torch.zeros(k), torch.eye(k)[0] * 5.0, torch.eye(k)[k - 1] * 0.25,
+            torch.full((k,), 0.3), torch.full((k,), 2.0 ** -20)]
+    for shift in (1, 3):
+        grid = 2.0 ** (torch.arange(k) % 5 - 2.0)
+        rows.append(torch.roll(grid, shift))
+    chain = torch.full((k,), 0.5)
+    chain[::max(1, k // 8)] = 1.0 + k / 16
+    rows += [chain, chain.flip(0), torch.where(torch.arange(k) % 2 == 0, 1.0, 0.0)]
+    rng = np.random.default_rng(k)
+    for _ in range(6):
+        heavy = torch.tensor(rng.random(k) < 0.2)
+        rows.append(torch.where(heavy, 1.0 + torch.tensor(rng.random(k)) * 1e-3,
+                                torch.tensor(rng.random(k))).float())
+    return torch.stack(rows).float().to(device)
+
+
+@pytest.mark.cuda
+def test_alias_tables_kernel_equals_plain_at_the_production_shapes(card):
+    """250,000 word rows and 200,000 doc rows of K 256, from the benchmark's
+    production corpus (`vbench/inputs/rlda_products`, 16.8 M tokens) with
+    random topics, then after one alias sweep; one launch builds both."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from vbench.inputs import rlda_products
+
+    config = json.loads((root / "vbench" / "configs" / "rlda-prod-k256.json").read_text())
+    product, = rlda_products.make(config, 2 ** 40 + 11, card)
+    cfg, corpus = product.cfg, product.corpus
+    gen = torch.Generator(device=card).manual_seed(31)
+    z = torch.randint(0, cfg.num_topics, (corpus.num_tokens,), generator=gen, device=card,
+                      dtype=torch.int32)
+    state = codec.rebuild_state(cfg, corpus, z)
+    for _ in range(2):
+        _, _, (n_dt, n_wt) = alias_ops.sweep_counts(cfg, state)
+        assert n_wt.shape == (250_000, 256) and n_dt.shape == (200_000, 256)
+        _assert_tables_equal_plain(n_wt, cfg.beta, n_dt, cfg.alpha)
+        state = alias_ops.mh_sweep(cfg, state, corpus, gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows,log_x", [(256, 128, 5), (256, 129, 4), (256, 131_072, 4),
+                                          (256, 131_073, 9), (12, 8, 5), (12, 9, 4),
+                                          (12, 8192, 4), (12, 8193, 9)])
+def test_alias_tables_kernel_equals_plain_across_the_scan_splits(card, k, rows, log_x):
+    """Row counts on both sides of each change of PyTorch's scan split: the
+    kernel's split is the rule's, and the tables are the plain build's."""
+    from repro_torch.kernels.alias_tables import kernel as table_kernel
+
+    assert table_kernel.scan_log_x(rows, k) == log_x
+    rng = np.random.default_rng(rows)
+    counts = rng.gamma(0.4, 2.0, (rows, k)).astype(np.float32)
+    counts[rng.random((rows, k)) < 0.3] = 0.0
+    _assert_tables_equal_plain(torch.tensor(counts, device=card), 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows", [(1, 3000), (4, 3000), (12, 3000), (16, 3000), (33, 3000),
+                                    (1000, 2000), (8192, 300), (12_000, 40)])
+def test_alias_tables_kernel_equals_plain_at_every_team_size(card, k, rows):
+    """Several rows a warp (K 1-16), a part of a warp (33), a warp a row,
+    a block a row (1,000, 8,192 in opted-in shared memory), and a block a
+    row in a global scratch (12,000); random rows and the special rows,
+    word and doc tables in one launch."""
+    rng = np.random.default_rng(k)
+    words = rng.gamma(0.4, 2.0, (rows, k)).astype(np.float32)
+    words[rng.random((rows, k)) < 0.3] = 0.0
+    docs = torch.cat([_special_rows(k, card),
+                      torch.tensor(rng.gamma(0.6, 4.0, (rows // 2, k)).astype(np.float32),
+                                   device=card)])
+    _assert_tables_equal_plain(torch.tensor(words, device=card), 0.01, docs, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows,offset,here", [
+    (128, 3000, 0, False), (132, 3000, 0, True), (256, 16, 0, True), (256, 15, 0, False),
+    (256, 3000, 1, False), (1000, 500, 0, True), (8160, 40, 0, True), (8164, 40, 0, False)])
+def test_alias_tables_kernel_sums_rows_where_pytorch_gives_a_row_a_warp(card, k, rows, offset,
+                                                                        here):
+    """The kernel sums a row itself exactly where PyTorch's row sum is one
+    warp's 4-wide loads (K a multiple of 4 in [132, 8160], 16 rows or more,
+    16-byte aligned rows), and the tables equal the plain build's on both
+    sides of each limit."""
+    from repro_torch.kernels.alias_tables import ops as table_ops
+
+    rng = np.random.default_rng(k + rows)
+    flat = torch.tensor(rng.gamma(0.4, 2.0, rows * k + offset).astype(np.float32), device=card)
+    counts = flat[offset:].view(rows, k)
+    assert table_ops.sums_in_kernel(counts) == here
+    _assert_tables_equal_plain(counts, 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [12, 256])
+def test_alias_tables_kernel_equals_plain_on_special_rows(card, k):
+    """The special rows alone, with no prior and with one, many times over
+    (so that the row count puts them under both scan splits)."""
+    rows = _special_rows(k, card)
+    _assert_tables_equal_plain(rows, 0.0, rows.repeat(3000, 1), 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(12, 4), (256, 3)])
+def test_alias_tables_kernel_equals_plain_on_stacked_models(card, k, m):
+    """The (M, V, K) / (M, D, K) layout of `mh_sweep_many`."""
+    rng = np.random.default_rng(m)
+    n_wt = torch.tensor(rng.gamma(0.4, 2.0, (m, 3000, k)).astype(np.float32), device=card)
+    n_dt = torch.tensor(rng.gamma(0.6, 4.0, (m, 700, k)).astype(np.float32), device=card)
+    _assert_tables_equal_plain(n_wt, 0.01, n_dt, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [12, 256])
+def test_alias_tables_kernel_equals_plain_on_fake_quantized_rows(card, k, bits):
+    """The packed branch's word rows: floats from `quant.fake_quantize_rows`."""
+    from repro_torch.core import quant
+
+    rng = np.random.default_rng(bits)
+    n_wt = quant.fake_quantize_rows(torch.tensor(
+        rng.gamma(0.4, 2.0, (5000, k)).astype(np.float32), device=card), bits)
+    n_dt = torch.tensor(rng.gamma(0.6, 4.0, (900, k)).astype(np.float32), device=card)
+    _assert_tables_equal_plain(n_wt.contiguous(), 0.01, n_dt, 0.1)
+
+
+def _table_mass(thresh, al):
+    """The distribution a row of alias tables encodes, in float64: bucket
+    j keeps thresh_j of its 1/K and passes 1 - thresh_j to alias_j."""
+    k = thresh.shape[-1]
+    t = thresh.double()
+    mass = t.clone().scatter_add_(-1, al.long(), 1.0 - t)
+    return mass / k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 12, 256, 1000])
+def test_alias_tables_of_one_row_encode_the_plain_builds_distribution_on_card(card, k):
+    """A one-row table is scanned by cub in PyTorch, whose order the kernel
+    does not copy: the kernel builds it all the same (one launch), and each
+    row's tables encode q / sum(q) as closely as the plain build's do."""
+    from repro_torch.kernels.alias_tables import ops as table_ops
+
+    rng = np.random.default_rng(k)
+    rows = torch.cat([_special_rows(k, card),
+                      torch.tensor(rng.gamma(0.4, 2.0, (8, k)).astype(np.float32), device=card)])
+    for i in range(rows.shape[0]):
+        for one in (rows[i], rows[i:i + 1].contiguous()):
+            before = table_ops.build_tables.launches
+            got = table_ops.build_tables(one, 0.01, one, 0.0)
+            assert table_ops.build_tables.launches == before + 1
+            for prior, thresh, al in ((0.01, *got[:2]), (0.0, *got[2:])):
+                q = (one + prior).double()
+                q = (q / q.sum(-1, keepdim=True) if float(q.sum()) > 0
+                     else torch.full_like(q, 1 / k))
+                want_t, want_a = alias.build_alias_tables(one + prior)
+                assert thresh.shape == one.shape and al.dtype == torch.int32
+                assert bool(((al >= 0) & (al < k)).all())
+                assert bool(((thresh >= 0) & (thresh <= 1)).all())
+                err = float((_table_mass(thresh, al) - q).abs().max())
+                plain_err = float((_table_mass(want_t, want_a) - q).abs().max())
+                assert err <= max(2 * plain_err, 1e-6), (i, prior, err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits", [None, 8])
+@pytest.mark.parametrize("k", [12, 256])
+def test_alias_sweep_with_kernel_tables_equals_sweep_on_plain_tables_on_card(card, k, w_bits):
+    """One `mh_sweep` on the card (tables from the kernel) gives the z of the
+    same sweep, from a cloned generator, with the plain build's tables
+    injected."""
+    rng = np.random.default_rng(k)
+    n, d, v = 60_000, 900, 4000
+    cfg = types.LDAConfig(num_topics=k, vocab_size=v, num_docs=d, w_bits=w_bits)
+    corpus = types.corpus_from_numpy(rng.integers(0, d, n), rng.integers(0, v, n),
+                                     rng.uniform(0.1, 1.0, n), device=card)
+    state = codec.rebuild_state(cfg, corpus, torch.as_tensor(rng.integers(0, k, n),
+                                                             dtype=torch.int32, device=card))
+    gen = torch.Generator(device=card).manual_seed(2 ** 62 + 5)
+    twin = torch.Generator(device=card)
+    twin.set_state(gen.get_state())
+    _, _, (n_dt, n_wt) = alias_ops.sweep_counts(cfg, state)
+    plain = (*alias.build_alias_tables(n_wt + cfg.beta), *alias.build_alias_tables(n_dt + cfg.alpha))
+    got = alias_ops.mh_sweep(cfg, state, corpus, gen, 4)
+    want = alias_ops.mh_sweep(cfg, state, corpus, twin, 4, tables=plain)
+    assert torch.equal(got.z, want.z)
+    assert int((got.z != state.z).sum()) > 0  # the chains move

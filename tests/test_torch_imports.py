@@ -41,7 +41,7 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 def test_port_package_has_no_top_level_init():
     # A namespace package, like src/repro.
     assert not (REPO / "src" / "repro_torch" / "__init__.py").exists()
-    for name in ("lda_gibbs", "alias_mh"):
+    for name in ("lda_gibbs", "alias_mh", "alias_tables"):
         assert (REPO / "src" / "repro_torch" / "kernels" / name / "csrc"
                 / f"{name}.cu").exists()
 
@@ -54,6 +54,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.gibbs, repro_torch.core.perplexity\n"
         "import repro_torch.kernels.lda_gibbs.ops, repro_torch.kernels.lda_gibbs.kernel\n"
         "import repro_torch.kernels.alias_mh.ops, repro_torch.kernels.alias_mh.kernel\n"
+        "import repro_torch.kernels.alias_tables.ops, repro_torch.kernels.alias_tables.kernel\n"
         "import repro_torch.core.alias, repro_torch.kernels._build\n"
         "import repro_torch.data.reviews, repro_torch.obs\n"
         "import repro_torch.core.batch, repro_torch.serving\n"
