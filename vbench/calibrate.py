@@ -4,10 +4,11 @@ control's on the same sweeps, seed after seed, in one process.
     python3 vbench/calibrate.py --workload prod.refine.cuda --seeds 1,2,3 --seconds 3
 
 Each seed is a whole run of the cell (set-up, a short window at the cell's
-own load, the check); the control is the reference in bfloat16 put in the
-program's place (`vbench.check`), judged by the cell's limits. One JSON line
-a seed; the benchmark's own runs never run the control. Exits 1 if the
-control came out correct on any seed, or the program not correct.
+own load, the check); each control is the cell's check's (`vbench/checks/`,
+its `CONTROLS`: the sweep check's is the reference in bfloat16 put in the
+program's place), judged by the cell's limits. One JSON line a seed; the
+benchmark's own runs never run a control. Exits 1 if a control came out
+correct on any seed, or the program not correct.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def main(argv=None) -> int:
             sys.path.insert(0, str(p))
     import torch
 
-    from vbench import check, harness
+    from vbench import harness
 
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -44,12 +45,13 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         res = harness.run_cell(cell, seed, args.seconds, False, control=True,
                                log=lambda m: print(m, file=sys.stderr, flush=True))
-        control_correct = check.verdict(res["control"], cell.limits)[0]
+        control_correct = {name: cell.check.verdict(numbers, cell.limits)[0]
+                           for name, numbers in res["control"].items()}
         print(json.dumps({"seed": seed, "correct": res["correct"],
                           "control_correct": control_correct,
                           "program": {k: v["value"] for k, v in res["checks"].items()},
                           "control": res["control"], "metrics": res["metrics"]}), flush=True)
-        if control_correct or not res["correct"]:
+        if any(control_correct.values()) or not res["correct"]:
             rc = 1
     return rc
 

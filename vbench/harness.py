@@ -7,7 +7,10 @@ else is found by name under the benchmark's folder (the first of `paths`):
                the input generator, inputs/<generator>.py (`make`)
   traffic      traffic/<mix>.json          (read by `vbench.loop`)
   verbs        verbs/<verb>.py             (each step of a mix names one)
-  cells        workloads/<cell>.json       (the check's `limits`)
+  cells        workloads/<cell>.json       (the check's `limits`, and its
+                                            name, `check`: "sweeps" if absent)
+  checks       checks/<check>.py           (its `Tap`, `check`, `verdict`,
+                                            `unread` and `context`)
   metrics      metrics/<metric>.py         (a `read(ctx)` function each)
 
 so a later change adds a configuration, a mix, a verb, a cell or a metric
@@ -29,10 +32,8 @@ from typing import Callable, Optional
 REPO = Path(__file__).resolve().parents[1]
 #: Requests made in set-up, before the window: every shape the window uses.
 WARMUP = 1
-#: The check's sample: CHECK_REQUESTS requests drawn from the seed among the
-#: window's first CHECK_FIRST.
-CHECK_REQUESTS = 1
-CHECK_FIRST = 8
+#: The check of a cell whose file names none.
+DEFAULT_CHECK = "sweeps"
 
 
 def sub_seed(seed: int, *tags) -> int:
@@ -50,6 +51,7 @@ class Cell:
     mix: dict
     verbs: dict  # step of the mix ("serve", "request") -> its verb's module
     limits: dict  # the check's limits
+    check: object  # the check's module, checks/<check>.py
     end_to_end: list  # metric entries (with "read": the reader)
     per_layer: list
 
@@ -108,9 +110,11 @@ def load_cell(name: str, root: Path = REPO) -> Cell:
     mix = _json(home / "traffic" / f"{w['traffic']}.json")
     verbs = {step: load_module(home / "verbs" / f"{mix[step]['verb']}.py")
              for step in ("serve", "request") if mix.get(step)}
+    spec = _json(home / "workloads" / f"{name}.json")
     return Cell(name=name, chips=w["chips"], config=config,
                 make_inputs=load_module(home / "inputs" / f"{config['inputs']}.py").make,
-                mix=mix, verbs=verbs, limits=_json(home / "workloads" / f"{name}.json")["limits"],
+                mix=mix, verbs=verbs, limits=spec["limits"],
+                check=load_module(home / "checks" / f"{spec.get('check', DEFAULT_CHECK)}.py"),
                 end_to_end=e2e, per_layer=per_layer)
 
 
@@ -122,16 +126,22 @@ def _counters() -> dict:
 
 
 def _set_up(cell: Cell, seed: int, dev):
-    """Inputs, the served models and the warm-up: the work `setup_s` counts."""
-    from repro_torch.api.service import VedaliaService
-
+    """Inputs, the served models or system and the warm-up: the work
+    `setup_s` counts. Corpora are served through a `VedaliaService`; other
+    inputs by what the mix's serve verb builds."""
     from vbench import loop
 
     inputs = cell.make_inputs(cell.config, sub_seed(seed, "inputs"), dev)
-    service = VedaliaService(device=dev, seed=sub_seed(seed, "service"))
-    session = loop.Session(service, inputs, cell.mix, cell.verbs)
+    corpora = loop.are_corpora(inputs)
+    service = None
+    if corpora:
+        from repro_torch.api.service import VedaliaService
+
+        service = VedaliaService(device=dev, seed=sub_seed(seed, "service"))
+    session = loop.Session(service, inputs, cell.mix, cell.verbs, device=dev)
     session.serve(sub_seed(seed, "serve"))
-    session.live_tokens  # noqa: B018 -- counted once, in set-up
+    if corpora:
+        session.live_tokens  # noqa: B018 -- counted once, in set-up
     for w in range(WARMUP):
         req, _ = session.issue(-1 - w, sub_seed(seed, "warmup", w))
         if req.error:
@@ -148,14 +158,13 @@ def _window(cell: Cell, session, seed: int, seconds: float, trace: bool, tap):
 
     from vbench import loop, traceview
 
-    tapped = set(random.Random(sub_seed(seed, "check")).sample(range(CHECK_FIRST),
-                                                               CHECK_REQUESTS))
+    tapped = tap.armed
     prof, before = None, {}
     if trace:
         obs.enable()
         before = _counters()
         acts = [torch.profiler.ProfilerActivity.CPU]
-        if session.service.device.type == "cuda":
+        if session.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.start()
@@ -181,28 +190,29 @@ def _log_latency(requests, window_s: float, log) -> None:
         log(f"window {window_s:.3f} s, {len(requests)} requests; latency ms: min {lat[0]:.3f} "
             f"q1 {q1:.3f} median {q2:.3f} q3 {q3:.3f} max {lat[-1]:.3f}; first "
             + " ".join(f"{(r.end - r.start) * 1e3:.1f}" for r in requests[:5]))
+    elif lat:
+        log(f"window {window_s:.3f} s, {len(requests)} requests; latency ms: "
+            + " ".join(f"{(r.end - r.start) * 1e3:.1f}" for r in requests))
     for r in requests:
         if r.error:
             log(f"request {r.index} failed: {r.error}")
 
 
-def _check(cell: Cell, tap, products, control: bool, log):
-    """The check's numbers (and with `control`, the control's) and whether
-    they keep their limits."""
-    from vbench import check
-
-    sweeps = cell.mix["request"]["sweeps"]
+def _check(cell: Cell, inputs, tap, products, control: bool, log):
+    """The check's numbers and whether they keep their limits, and with
+    `control` each of the check's controls' numbers, by name."""
+    chk = cell.check
     t_check = time.perf_counter()
     try:
-        numbers = check.check(tap.records, products, sweeps)
+        numbers = chk.check(cell, inputs, tap, products)
     except (RuntimeError, IndexError, ValueError) as exc:  # the output could not be read
         log(f"check failed: {type(exc).__name__}: {exc}")
-        numbers = dict.fromkeys(("count_dev",) + check.EXACT, 0.0)
-        numbers["unchecked"] = float(len(products))
-    log(f"check: {time.perf_counter() - t_check:.1f} s, {len(tap.records)} sweeps of "
+        numbers = chk.unread(products)
+    log(f"check: {time.perf_counter() - t_check:.1f} s, {len(tap.records)} tapped calls of "
         f"{len(products)} requests")
-    ok, table = check.verdict(numbers, cell.limits)
-    control_numbers = check.check(tap.records, products, sweeps, control=True) if control else None
+    ok, table = chk.verdict(numbers, cell.limits)
+    control_numbers = ({name: chk.check(cell, inputs, tap, products, control=name)
+                        for name in chk.CONTROLS} if control else None)
     return ok, table, control_numbers
 
 
@@ -210,18 +220,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: str 
              t0: Optional[float] = None, log=print, control: bool = False) -> dict:
     """One run of `cell`: set-up, the measured window, the check, the
     metrics; returns the result line's object. With `control`, the
-    control's numbers on the same sweeps too, under "control"
+    controls' numbers on the same output too, under "control", by name
     (`vbench.calibrate`)."""
     import torch
 
-    from vbench import readers, tap as tap_lib, traceview
+    from vbench import readers, traceview
 
     t0 = time.perf_counter() if t0 is None else t0
     dev = torch.device(device)
     inputs, session = _set_up(cell, seed, dev)
     setup_s = time.perf_counter() - t0
 
-    tap = tap_lib.SweepTap()
+    tap = cell.check.Tap(random.Random(sub_seed(seed, "check")))
     requests, products, window_s, prof, counters = _window(cell, session, seed, seconds, trace,
                                                            tap)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
@@ -231,8 +241,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: str 
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    ok, table, control_numbers = _check(cell, tap, products, control, log)
-    rounds = max((r.rounds for r in tap.records if r.entry == "alias"), default=0)
+    ok, table, control_numbers = _check(cell, inputs, tap, products, control, log)
+    extra = cell.check.context(tap)
     del tap, products
 
     view = None
@@ -243,7 +253,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: str 
             f"read in {time.perf_counter() - t_trace:.1f} s")
     ctx = readers.Context(device=dev.type, setup_s=setup_s, window_s=window_s,
                           requests=requests, config=cell.config, inputs=inputs,
-                          alias_rounds=rounds, trace=view, counters=counters)
+                          trace=view, counters=counters, **extra)
     metrics = {}
     for m in cell.metrics(trace):
         value = m["read"](ctx)

@@ -8,9 +8,13 @@ A traffic mix (`traffic/<mix>.json`) is data that this module reads:
 
 A verb is a file of its own, `verbs/<name>.py`, found by name. A serve
 verb defines `serve(session, spec, seed)`; a request verb defines
-`issue(session, spec, seed, keep) -> Done`, and with `keep` puts the
-models it served in `Done.kept` for the check (`check.Product`). The rest
-of each spec is the verb's own.
+`issue(session, spec, seed, keep) -> Done`, and with `keep` puts what it
+served in `Done.kept` for the cell's check (the sweep check's
+`check.Product` of each model; each served wave's prompts and tokens).
+The rest of each spec is the verb's own. A serve verb either serves
+models through the session's `VedaliaService` (cells whose inputs are
+corpora) or builds the system it serves and keeps it in `session.served`
+(an `Engine`, say).
 
 The client sends its next request when the last one has ended on the
 device (a synchronize), so a request's latency is its whole device time
@@ -22,11 +26,21 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from vbench import yardstick
+
+
+class Wave(NamedTuple):
+    """A served wave: its rows, each row's prompt and new tokens, and the
+    host-clock seconds from its submit to its first token."""
+
+    rows: int
+    prompt: int
+    new: int
+    first_token_s: float
 
 
 @dataclasses.dataclass
@@ -34,9 +48,10 @@ class Done:
     """What a request verb did."""
 
     sweeps: int  # sweeps of every served model
-    tokens: int  # tokens resampled
+    tokens: int  # tokens resampled; the served waves' prompt and output tokens
     models: int  # models fitted
-    kept: Optional[list] = None  # with `keep`: check.Product of each served model
+    kept: Optional[object] = None  # with `keep`: what the cell's check reads
+    waves: tuple = ()  # the served waves (`Wave`), in order
 
 
 @dataclasses.dataclass
@@ -48,15 +63,25 @@ class Request:
     tokens: int
     models: int
     error: Optional[str] = None
+    waves: tuple = ()
+
+
+def are_corpora(inputs) -> bool:
+    """Whether a generator's output is a list of corpora (RLDA products),
+    which the session serves through a `VedaliaService`."""
+    return isinstance(inputs, list) and all(hasattr(p, "corpus") for p in inputs)
 
 
 class Session:
-    """A cell's served state: the service, the inputs, the handles, and
-    the verbs (modules) of the mix's steps."""
+    """A cell's served state: the device, the service (None where the
+    inputs are no corpora), the inputs, the handles or the system a serve
+    verb built (`served`), and the verbs (modules) of the mix's steps."""
 
-    def __init__(self, service, inputs, mix: dict, verbs: dict):
+    def __init__(self, service, inputs, mix: dict, verbs: dict, *, device):
         self.service, self.inputs, self.mix, self.verbs = service, inputs, mix, verbs
+        self.device = torch.device(device)
         self.handles = []
+        self.served = None
 
     @functools.cached_property
     def live_tokens(self) -> int:
@@ -64,8 +89,8 @@ class Session:
         return yardstick.live_tokens(p.corpus for p in self.inputs)
 
     def _sync(self):
-        if self.service.device.type == "cuda":
-            torch.cuda.synchronize(self.service.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def serve(self, seed: int) -> None:
         if self.mix.get("serve"):
@@ -73,8 +98,8 @@ class Session:
             self._sync()
 
     def issue(self, index: int, seed: int, keep: bool = False):
-        """One request; returns it and, with `keep`, the models it served
-        (`check.Product`), else None."""
+        """One request; returns it and, with `keep`, what it served for
+        the check, else None."""
         t0 = time.perf_counter()
         try:
             done = self.verbs["request"].issue(self, self.mix["request"], seed, keep)
@@ -83,13 +108,16 @@ class Session:
         except RuntimeError as exc:  # a refused launch or a failed op: counted, not fatal
             done, error = Done(0, 0, 0), f"{type(exc).__name__}: {exc}"
         t1 = time.perf_counter()
-        return Request(index, t0, t1, done.sweeps, done.tokens, done.models, error), done.kept
+        return (Request(index, t0, t1, done.sweeps, done.tokens, done.models, error,
+                        done.waves), done.kept)
 
     def close(self) -> None:
-        """Release every served model."""
+        """Release every served model, and drop the system a serve verb
+        built."""
         for h in self.handles:
             self.service.release(h)
         self.handles = []
+        self.served = None
 
 
 def run(session: Session, seconds: float, seed_of, tap, tapped: set) -> tuple[list, dict, float]:

@@ -12,7 +12,7 @@ import sys
 from pathlib import Path
 
 import pytest
-from _tiny import add_cell, copy_benchmark, run_tiny
+from _tiny import TINY, TINY_MIX, add_cell, copy_benchmark, run_tiny
 
 from vbench import harness, readers, run
 
@@ -61,7 +61,66 @@ def test_every_piece_is_found_by_name(name):
     for m in cell.end_to_end + cell.per_layer:
         assert callable(m["read"])
         assert (ROOT / "vbench" / "metrics" / f"{m['name']}.py").is_file()
-    assert set(cell.limits) == {"count_dev"}
+    check = Path(cell.check.__file__).stem
+    for part in ("Tap", "check", "verdict", "unread", "context"):
+        assert callable(getattr(cell.check, part)), part
+    assert set(cell.limits) == LIMITS[check]
+
+
+#: The limits each check reads (its other numbers are exact, limit 0).
+LIMITS = {"sweeps": {"count_dev"},
+          "logits": {"logit_dev", "token_gap", "mixer_dev", "state_dev"}}
+#: What each RLDA cell reported before a cell could bring its own check:
+#: its metrics, in order, and their readers.
+RLDA_METRICS = {
+    "prod.refine.cuda": ["fit_tokens_per_s", "refine_p95_ms", "setup_s",
+                         "launches_per_sweep.prod", "gibbs_roofline.prod",
+                         "device_idle_share.prod", "sweep_mfu.prod", "rebuild_ms_per_sweep.prod",
+                         "service_idle_ms_per_request.prod"],
+    "prod.refine.alias": ["fit_tokens_per_s", "refine_p95_ms", "setup_s",
+                          "launches_per_sweep.prod", "alias_roofline.prod",
+                          "device_idle_share.prod", "sweep_mfu.prod", "rebuild_ms_per_sweep.prod",
+                          "alias_tables_ms_per_sweep.prod", "service_idle_ms_per_request.prod"],
+}
+RLDA_READERS = {"fit_tokens_per_s": readers.tokens_per_s, "refine_p95_ms": readers.request_p95_ms,
+                "setup_s": readers.setup_s, "launches_per_sweep.prod": readers.launches_per_sweep,
+                "gibbs_roofline.prod": readers.gibbs_roofline,
+                "alias_roofline.prod": readers.alias_roofline,
+                "device_idle_share.prod": readers.idle_share, "sweep_mfu.prod": readers.sweep_mfu}
+
+
+@pytest.mark.parametrize("name", sorted(RLDA_METRICS))
+def test_the_rlda_cells_keep_the_sweep_check_metrics_and_readers(name):
+    from vbench import check, tap
+
+    cell = harness.load_cell(name, ROOT)
+    assert Path(cell.check.__file__) == ROOT / "vbench" / "checks" / "sweeps.py"
+    assert issubclass(cell.check.Tap, tap.SweepTap) and cell.check.verdict is check.verdict
+    assert cell.limits == {"count_dev": 2.0}
+    assert [m["name"] for m in cell.end_to_end + cell.per_layer] == RLDA_METRICS[name]
+    for m in cell.end_to_end + cell.per_layer:
+        if m["name"] in RLDA_READERS:
+            assert m["read"] is RLDA_READERS[m["name"]], m["name"]
+    # the sweep check's sample: one request drawn among the first 8, as before
+    import random
+
+    seed = harness.sub_seed(2147483999, "check")
+    armed = cell.check.Tap(random.Random(seed)).armed
+    assert armed == set(random.Random(seed).sample(range(8), 1))
+
+
+def test_the_serving_config_holds_the_registered_widths():
+    """Every `ArchConfig` field the file gives is the port's registered
+    value: nothing is cut (`reduced` is empty)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = json.loads((ROOT / "vbench" / "configs" / "zamba2-2.7b.json").read_text())
+    reg = configs.get(cfg["arch"])
+    given = [f.name for f in dataclasses.fields(reg) if f.name in cfg]
+    assert len(given) >= 20 and cfg["reduced"] == []
+    assert {f: cfg[f] for f in given} == {f: getattr(reg, f) for f in given}
 
 
 #: A request verb that only a new file defines: waves of one fit a product,
@@ -110,6 +169,55 @@ def test_a_cell_of_new_files_loads_and_runs_without_an_edit(tmp_path):
     res = run_tiny("small.fit.each", tmp_path)
     assert res["correct"], res["checks"]
     assert res["attempted"] >= 1 and res["checks"]["sweeps_missing"]["value"] == 0
+    assert {p: p.read_bytes() for p in (ROOT / "vbench").rglob("*") if p.is_file()} == before
+
+
+#: A metric that only a new file defines: completed waves a second.
+WAVES_PER_S = """
+def read(ctx):
+    waves = [w for r in ctx.requests if r.error is None for w in r.waves]
+    return len(waves) / ctx.window_s if waves and ctx.window_s > 0 else None
+"""
+
+
+def test_a_serving_cell_of_new_files_loads_and_runs_without_an_edit(tmp_path):
+    """A cell that brings its own check and its own served system: a
+    configuration, an input generator, a serve verb that builds an
+    `Engine`, a request verb, a check module and a metric, each a new
+    file, run on the CPU at smoke-test widths."""
+    bench = copy_benchmark(tmp_path)
+    home = tmp_path / "vbench"
+    before = {p: p.read_bytes() for p in (ROOT / "vbench").rglob("*") if p.is_file()}
+    for kind, src, dst in (("inputs", "lm_weights", "lm_copy"), ("verbs", "serve_engine", "engine_copy"),
+                           ("verbs", "waves", "waves_copy"), ("checks", "logits", "logits_copy")):
+        shutil.copy(home / kind / f"{src}.py", home / kind / f"{dst}.py")
+    (home / "metrics" / "waves_per_s.py").write_text(WAVES_PER_S)
+    config = json.loads((home / "configs" / "zamba2-2.7b.json").read_text())
+    config.update(TINY["zamba2.serve.docqa"], name="hybrid-smoke", inputs="lm_copy")
+    mix = json.loads((home / "traffic" / "serve.docqa.json").read_text())
+    mix["serve"].update(TINY_MIX["zamba2.serve.docqa"]["serve"], verb="engine_copy")
+    mix["request"].update(verb="waves_copy", lengths=[19, 40])
+    cell = "smoke.serve.short"
+    bench["per_layer"].append({"name": "waves_per_s", "unit": "waves/s", "better": "higher",
+                               "source": "host_clock", "layer": "service",
+                               "moves": "serve_tokens_per_s", "workloads": [cell]})
+    for m in bench["end_to_end"]:
+        if m["name"] in ("serve_tokens_per_s", "ttft_mean_ms"):
+            m["workloads"].append(cell)
+    add_cell(tmp_path, bench, cell, config, "serve.short", mix,
+             {"logit_dev": 1.0, "token_gap": 1.0, "mixer_dev": 0.05, "state_dev": 0.05},
+             check="logits_copy")
+
+    loaded = harness.load_cell(cell, tmp_path)
+    assert Path(loaded.check.__file__).name == "logits_copy.py"
+    assert [m["name"] for m in loaded.end_to_end] == ["serve_tokens_per_s", "ttft_mean_ms",
+                                                      "setup_s"]
+    assert [m["name"] for m in loaded.per_layer] == ["waves_per_s"]
+    res = run_tiny(cell, tmp_path)
+    assert res["correct"], res["checks"]
+    assert res["attempted"] >= 1 and res["failed"] == 0
+    assert list(res["checks"]) == ["logit_dev", "token_gap", "mixer_dev", "state_dev",
+                                   "not_argmax", "steps_missing", "inputs_altered", "unchecked"]
     assert {p: p.read_bytes() for p in (ROOT / "vbench").rglob("*") if p.is_file()} == before
 
 
@@ -193,6 +301,23 @@ def test_the_run_path_loads_no_jax():
 
 
 _GLOBAL = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s*)?(?:void\s+)?(\w+)\s*\(")
+
+
+@pytest.mark.parametrize("source,names", [
+    ("chunk_scan/csrc/chunk_scan_mamba2.cu", readers.MAMBA2_SCAN_KERNELS),
+    ("decode_attn/csrc/decode_attn.cu", readers.DECODE_ATTN_KERNELS)])
+def test_every_serving_kernel_is_listed(source, names):
+    """The serving rooflines' kernel lists hold every `__global__` kernel
+    of their CUDA sources, and no name of one is part of another kernel's
+    name in the port."""
+    def kernels(path):
+        return set(_GLOBAL.findall(re.sub(r"//[^\n]*", "", path.read_text())))
+
+    found = kernels(ROOT / "src" / "repro_torch" / "kernels" / source)
+    assert found == set(names)
+    every = {n for cu in (ROOT / "src" / "repro_torch" / "kernels").rglob("*.cu")
+             for n in kernels(cu)}
+    assert not {(n, k) for n in names for k in every - found if n in k}
 
 
 @pytest.mark.parametrize("family,names", [("lda_gibbs", readers.GIBBS_KERNELS),

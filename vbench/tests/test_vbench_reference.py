@@ -122,3 +122,118 @@ def test_the_bfloat16_control_fails_the_alias_comparison():
     low, _ = ref_alias.resample(docs, words, z, w, n_dt, n_wt, n_t, draws,
                                 dtype=torch.bfloat16, **hp)
     assert int(((low != want) & (w > 0) & (margin >= TIE)).sum()) > 20
+
+
+# The hybrid language model (`reference.hybrid`) against the port's
+# serving path on the CPU, at zamba2-2.7b's smoke-test widths.
+
+
+def _hybrid(seed=5):
+    import json
+    from pathlib import Path
+
+    from _tiny import TINY
+
+    from vbench import harness
+
+    home = Path(harness.__file__).parent
+    cfg = json.loads((home / "configs" / "zamba2-2.7b.json").read_text())
+    cfg.update(TINY["zamba2.serve.docqa"])
+    lm = harness.load_module(home / "inputs" / "lm_weights.py").make(cfg, seed, "cpu")
+    return cfg, lm
+
+
+def _served_logits(lm, params, tokens, plen, cache_len=64):
+    """The port's prefill of tokens[:, :plen] and its decode steps through
+    the cache over the rest: the logits before each token from plen on."""
+    from repro_torch.models import model as lm_model
+
+    cache, logits = lm_model.prefill(params, lm.cfg, {"tokens": tokens[:, :plen].int()},
+                                     cache_len)
+    out = [logits]
+    for pos in range(plen, tokens.shape[1] - 1):
+        cache, logits = lm_model.decode_step(params, lm.cfg, cache, tokens[:, pos].int(), pos)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def _dev(got, want):
+    return float(((got - want).abs().max(-1).values / want.std(-1)).max())
+
+
+@pytest.mark.parametrize("plen", [30, 58])  # inside the 64-slot window, and past it at decode
+def test_hybrid_reference_matches_prefill_then_decode(plen):
+    """Float32 weights on both sides, so only the order of sums differs
+    (the chunked scans, the blocked attention, the ring): the logits agree
+    to 1e-4 of each row's standard deviation (5e-6 measured)."""
+    from vbench.reference import hybrid
+
+    from repro_torch.models import params as plib
+
+    cfg, lm = _hybrid()
+    params = plib.map_tree(lambda t: t.float(), lm.params)
+    tokens = torch.randint(0, cfg["vocab_size"], (3, plen + 8),
+                           generator=torch.Generator().manual_seed(3))
+    got = _served_logits(lm, params, tokens, plen)
+    want = hybrid.logits(params, cfg, tokens[:, :-1], got.shape[1])
+    assert _dev(got, want) < 1e-4
+
+
+def test_hybrid_mixer_matches_the_ports_mamba2_layer():
+    """One Mamba2 layer from a normed input, float32 on both sides: the
+    reference's mixer and the port's `ssm.mamba2_mix` (the plain scan at
+    chunk 20) give the same output and last state to 1e-5 of their norms;
+    the bfloat16-state control does not."""
+    from vbench.reference import hybrid
+
+    from repro_torch.models import params as plib
+    from repro_torch.models import ssm
+
+    cfg, lm = _hybrid()
+    params = plib.map_tree(lambda t: t.float(), lm.params)
+    p = hybrid.layer(params["blk"], 0, 1)
+    gen = torch.Generator().manual_seed(5)
+    h = torch.randn(2, 300, cfg["d_model"], generator=gen)
+    y, (state, _) = ssm.mamba2_mix(p, h, None, None, lm.cfg, chunk=20, use_kernel=False)
+    want_y, want_s = hybrid.mixer(p, h, cfg)
+    rel = lambda got, want: float((got - want).norm() / want.norm())  # noqa: E731
+    assert rel(y, want_y) < 1e-5 and rel(state, want_s) < 1e-5
+    low_y, low_s = hybrid.mixer(p, h, cfg, state_dtype=torch.bfloat16)
+    assert rel(low_s, want_s) > 1e-3
+
+
+def test_hybrid_control_is_far_from_the_reference():
+    """The fp8 control lies an order of magnitude further from the float32
+    reference than the port's bfloat16 path does."""
+    from vbench.reference import hybrid
+
+    cfg, lm = _hybrid()
+    tokens = torch.randint(0, cfg["vocab_size"], (3, 48), generator=torch.Generator().manual_seed(4))
+    want = hybrid.logits(lm.params, cfg, tokens[:, :-1], 8)
+    port = _dev(_served_logits(lm, lm.params, tokens, 40), want)
+    fp8 = _dev(hybrid.logits(lm.params, cfg, tokens[:, :-1], 8,
+                             matmul_dtype=torch.float8_e4m3fn), want)
+    assert 0 < port < 0.3 and fp8 > 5 * port
+
+
+def test_hybrid_scans_agree():
+    """The chunked scan, the token-by-token one and the port's plain Mamba2
+    scan evaluate one recurrence (float32: 1e-5 of the largest output)."""
+    from vbench.reference import hybrid
+
+    from repro_torch.kernels.chunk_scan import ops as scan_ops
+
+    gen = torch.Generator().manual_seed(6)
+    b, t, h, n, p = 2, 100, 3, 8, 5
+    a = torch.rand(b, t, h, generator=gen) * 0.5 + 0.5
+    k, q = torch.randn(b, t, n, generator=gen), torch.randn(b, t, n, generator=gen)
+    v = torch.randn(b, t, h, p, generator=gen)
+    chunked, last = hybrid.scan(a, k, q, v, chunk=16)
+    stepwise, step_last = hybrid.scan_stepwise(a, k, q, v)
+    port, _ = scan_ops.chunk_scan_mamba2_plain(a, k, q, v, chunk=20)
+    scale = float(stepwise.abs().max())
+    assert float((chunked - stepwise).abs().max()) < 1e-5 * scale
+    assert float((last - step_last).abs().max()) < 1e-5 * float(step_last.abs().max())
+    assert float((port - stepwise).abs().max()) < 1e-5 * scale
+    low, _ = hybrid.scan_stepwise(a, k, q, v, torch.bfloat16)
+    assert float((low - stepwise).abs().max()) > 1e-3 * scale

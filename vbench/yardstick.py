@@ -10,7 +10,12 @@ cannot move them:
     written once, `SCORE_OPS` float32 operations a token and topic;
   * `gibbs_kernel_bound`, the least time of the Gibbs resample from what
     its inputs need, whatever implements it or makes its noise (the
-    counting of `chip_smoke.lda_bound`, without its noise-mode terms).
+    counting of `chip_smoke.lda_bound`, without its noise-mode terms);
+  * `mamba2_scan_bound`, the arithmetic of `chip_smoke._scan_cost_mamba2`
+    (the Mamba2 scan entry's row), at a chunk of 32 whatever the length;
+  * `hybrid_flops`, a hybrid language model's matmul, attention, conv and
+    scan operations a served wave, and `decode_attn_bound`, the bytes of
+    one decode step's attention over its valid positions.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 
 #: float32 operations a second outside the tensor cores, one H100 SXM.
 PEAK_FLOPS_F32 = 67e12
+#: bfloat16 operations a second on the tensor cores, dense, one H100 SXM.
+PEAK_FLOPS_BF16 = 989.4e12
 #: HBM bytes a second, one H100 SXM.
 HBM_BYTES_PER_S = 3.35e12
 #: The power limit the peaks assume.
@@ -78,6 +85,63 @@ def alias_kernel_bound(live_tokens: int, rounds: int) -> dict:
     its new z written once (the table entries a round reads depend on the
     draws and are not counted); `MH_OPS` operations a token and round."""
     return _bound(5 * WORD * live_tokens, live_tokens * rounds * MH_OPS)
+
+
+def mamba2_scan_bound(b: int, s: int, h: int, dk: int, dv: int, itemsize: int,
+                      chunk: int = 32) -> dict:
+    """The least time of one Mamba2 scan from a zero state (a prompt's):
+    the decays w (B, S, H) float32, k and q (B, S, dk) and v (B, S, H, dv)
+    read once, y written once, the final state (B, H, dk, dv) float32
+    written once; q . k once a (b, chunk) pair, and a (b, h, chunk) the
+    decays of the pairs the mask keeps, y's two contractions, the state
+    update and the scan of the log decays, at `chunk` tokens a chunk
+    (S / chunk chunks, a fraction where it does not divide)."""
+    moved = (4 * b * s * h + itemsize * (2 * b * s * dk + 2 * b * s * h * dv)
+             + 4 * b * h * dk * dv)
+    pairs = chunk * (chunk + 1) // 2
+    exps = pairs + 2 * chunk + 1
+    per_chunk = (2 * pairs + 2 * chunk * dk * dv + 2 * pairs * dv + 2 * chunk * dv
+                 + chunk * dk + 2 * chunk * dk * dv + 2 * dk * dv + 4 * chunk + exps)
+    chunks = s / chunk
+    return _bound(moved, b * h * chunks * per_chunk + b * chunks * 2 * pairs * dk)
+
+
+def decode_attn_bound(b: int, valid: int, hkv: int, g: int, hd: int, itemsize: int) -> dict:
+    """The least time of one decode step's attention over `valid` cached
+    positions: their keys and values read once, the queries read and the
+    output written once; 4 operations a (query head, position, dim)."""
+    moved = itemsize * (2 * b * valid * hkv * hd + 2 * b * hkv * g * hd)
+    return _bound(moved, 4 * b * hkv * g * hd * valid)
+
+
+def hybrid_flops(cfg: dict, rows: int, prompt: int, new: int) -> tuple[float, float]:
+    """Operations of one served wave of a hybrid model (`cfg`, the
+    configuration file): (the prefill of `rows` prompts of `prompt` tokens
+    with the first token's logits, the `new - 1` decode steps with theirs).
+    A token costs 2 a weight of every matrix it passes (in and out
+    projections of each Mamba2 layer; q, k, v, o and the MLP of each
+    shared block's call), 2 a conv tap and channel, 5 a Mamba2 state entry
+    (decay, update, readout) and 4 a (query head, dim) of each position it
+    attends to (causal, within the window); a position whose logits are
+    taken costs 2 a weight of the tied vocabulary."""
+    d, layers, groups = cfg["d_model"], cfg["num_layers"], cfg["num_layers"] // cfg["hybrid_attn_every"]
+    h, hd, ns = cfg["ssm_heads"], cfg["ssm_head_dim"], cfg["ssm_state"]
+    inner = h * hd
+    q, kv = cfg["num_heads"] * cfg["head_dim"], cfg["num_kv_heads"] * cfg["head_dim"]
+    mamba = d * (2 * inner + 2 * ns + h) + inner * d
+    shared = d * q + 2 * d * kv + q * d + 3 * d * cfg["d_ff"]
+    per_token = (2 * (layers * mamba + groups * shared)
+                 + layers * (2 * cfg["conv_width"] * (inner + 2 * ns) + 5 * ns * inner))
+    window = cfg["sliding_window"] or prompt + new
+
+    def attended(lo: int, hi: int) -> int:  # sum over positions lo..hi-1 of min(p + 1, window)
+        return sum(min(p + 1, window) for p in range(lo, hi))
+
+    per_pos = groups * 4 * q
+    logits = 2 * d * cfg["vocab_size"]
+    prefill = rows * (prompt * per_token + per_pos * attended(0, prompt) + logits)
+    decode = rows * ((new - 1) * (per_token + logits) + per_pos * attended(prompt, prompt + new - 1))
+    return float(prefill), float(decode)
 
 
 def live_tokens(corpora) -> int:
