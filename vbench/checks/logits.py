@@ -69,6 +69,8 @@ CHECKED = 4
 LAYERS = 4
 CONTROLS = {"fp8_gemms": {"matmul_dtype": torch.float8_e4m3fn},
             "bf16_states": {"state_dtype": torch.bfloat16}}
+#: The numbers held to the cell's limits; the others (EXACT) take 0.
+LIMITS = frozenset({"logit_dev", "token_gap", "mixer_dev", "state_dev"})
 EXACT = ("not_argmax", "steps_missing", "inputs_altered", "unchecked")
 
 

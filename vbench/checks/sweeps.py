@@ -12,6 +12,10 @@ A check module gives the harness:
                            the numbers (with `control`, one of `CONTROLS`,
                            the control's)
   CONTROLS                 the names of its controls
+  LIMITS                   the names of the numbers a cell's file gives
+                           a limit (`harness.load_cell` refuses a cell
+                           whose `limits` name others); the rest are
+                           exact, limit 0
   verdict(numbers, limits) (every number within its limit, the table)
   unread(products)         the numbers when the output could not be read
   context(tap)             what the readers' `Context` takes from the tap
@@ -30,6 +34,7 @@ verdict = sweep_check.verdict
 FIRST = 8
 REQUESTS = 1
 CONTROLS = ("bfloat16",)
+LIMITS = frozenset({"count_dev"})
 
 
 class Tap(SweepTap):

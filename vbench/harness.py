@@ -10,7 +10,9 @@ else is found by name under the benchmark's folder (the first of `paths`):
   cells        workloads/<cell>.json       (the check's `limits`, and its
                                             name, `check`: "sweeps" if absent)
   checks       checks/<check>.py           (its `Tap`, `check`, `verdict`,
-                                            `unread` and `context`)
+                                            `unread`, `context` and
+                                            `LIMITS`, the names a cell's
+                                            `limits` has to give)
   metrics      metrics/<metric>.py         (a `read(ctx)` function each)
 
 so a later change adds a configuration, a mix, a verb, a cell or a metric
@@ -84,10 +86,23 @@ def load_reader(path: Path) -> Callable:
     return load_module(path).read
 
 
+def _check_limits(cell: str, check: str, module, limits: dict) -> dict:
+    """`limits`, the cell file's, once they name exactly what its check
+    declares in `LIMITS`; a `ValueError` that names the difference if not."""
+    declared = getattr(module, "LIMITS", None)
+    if declared is None:
+        raise ValueError(f"cell {cell!r}: check {check!r} declares no LIMITS")
+    missing, undeclared = set(declared) - set(limits), set(limits) - set(declared)
+    if missing or undeclared:
+        raise ValueError(f"cell {cell!r}: its limits differ from check {check!r}'s LIMITS: "
+                         f"missing {sorted(missing)}, undeclared {sorted(undeclared)}")
+    return limits
+
+
 def load_cell(name: str, root: Path = REPO) -> Cell:
     """The cell `name` with its configuration and input generator, its mix
-    and the mix's verbs, the check's limits, and the readers of the metrics
-    it reports."""
+    and the mix's verbs, the check and its limits, and the readers of the
+    metrics it reports. Limits other than the check's `LIMITS` are refused."""
     root = Path(root)
     bench = load_benchmark(root)
     home = root / bench["paths"][0]
@@ -111,11 +126,13 @@ def load_cell(name: str, root: Path = REPO) -> Cell:
     verbs = {step: load_module(home / "verbs" / f"{mix[step]['verb']}.py")
              for step in ("serve", "request") if mix.get(step)}
     spec = _json(home / "workloads" / f"{name}.json")
+    check_name = spec.get("check", DEFAULT_CHECK)
+    check = load_module(home / "checks" / f"{check_name}.py")
+    limits = _check_limits(name, check_name, check, spec["limits"])
     return Cell(name=name, chips=w["chips"], config=config,
                 make_inputs=load_module(home / "inputs" / f"{config['inputs']}.py").make,
-                mix=mix, verbs=verbs, limits=spec["limits"],
-                check=load_module(home / "checks" / f"{spec.get('check', DEFAULT_CHECK)}.py"),
-                end_to_end=e2e, per_layer=per_layer)
+                mix=mix, verbs=verbs, limits=limits, check=check, end_to_end=e2e,
+                per_layer=per_layer)
 
 
 def _counters() -> dict:

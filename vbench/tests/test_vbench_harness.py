@@ -47,9 +47,8 @@ def test_benchmark_json_keeps_the_contract():
         assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
 
 
-@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
-def test_every_piece_is_found_by_name(name):
-    cell = harness.load_cell(name, ROOT)
+def assert_pieces(cell: harness.Cell, root: Path) -> None:
+    """What every cell needs of its pieces, found by name under `root`."""
     assert cell.verbs["request"].__file__.endswith(f"verbs/{cell.mix['request']['verb']}.py")
     assert callable(cell.verbs["request"].issue)
     if cell.mix.get("serve"):
@@ -60,16 +59,35 @@ def test_every_piece_is_found_by_name(name):
     assert "setup_s" in {m["name"] for m in cell.end_to_end}
     for m in cell.end_to_end + cell.per_layer:
         assert callable(m["read"])
-        assert (ROOT / "vbench" / "metrics" / f"{m['name']}.py").is_file()
-    check = Path(cell.check.__file__).stem
+        assert (root / "vbench" / "metrics" / f"{m['name']}.py").is_file()
     for part in ("Tap", "check", "verdict", "unread", "context"):
         assert callable(getattr(cell.check, part)), part
-    assert set(cell.limits) == LIMITS[check]
+    assert isinstance(cell.check.LIMITS, frozenset)
+    assert set(cell.limits) == cell.check.LIMITS
 
 
-#: The limits each check reads (its other numbers are exact, limit 0).
-LIMITS = {"sweeps": {"count_dev"},
-          "logits": {"logit_dev", "token_gap", "mixer_dev", "state_dev"}}
+@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
+def test_every_piece_is_found_by_name(name):
+    assert_pieces(harness.load_cell(name, ROOT), ROOT)
+
+
+#: The limits each check of the repository declares (its other numbers are
+#: exact, limit 0).
+CHECK_LIMITS = {"sweeps": {"count_dev"},
+                "logits": {"logit_dev", "token_gap", "mixer_dev", "state_dev"}}
+
+
+@pytest.mark.parametrize("check", sorted(CHECK_LIMITS))
+def test_each_check_declares_the_limits_it_reads(check):
+    """A check's `LIMITS` are exactly the numbers its verdict holds to a
+    cell's limits: the rest keep the limit 0."""
+    mod = harness.load_module(ROOT / "vbench" / "checks" / f"{check}.py")
+    assert mod.LIMITS == CHECK_LIMITS[check]
+    _, table = mod.verdict(mod.unread({}), dict.fromkeys(mod.LIMITS, 1.0))
+    assert {name for name, row in table.items() if row["limit"] == 1.0} == mod.LIMITS
+    assert all(row["limit"] == 0.0 for name, row in table.items() if name not in mod.LIMITS)
+
+
 #: What each RLDA cell reported before a cell could bring its own check:
 #: its metrics, in order, and their readers.
 RLDA_METRICS = {
@@ -142,10 +160,16 @@ def issue(session, spec, seed, keep):
 """
 
 
+def _snapshot() -> dict:
+    """The bytes of every file of the benchmark in the repository."""
+    return {p: p.read_bytes() for p in [ROOT / "BENCHMARK.json", *(ROOT / "vbench").rglob("*")]
+            if p.is_file()}
+
+
 def test_a_cell_of_new_files_loads_and_runs_without_an_edit(tmp_path):
     bench = copy_benchmark(tmp_path)
     home = tmp_path / "vbench"
-    before = {p: p.read_bytes() for p in (ROOT / "vbench").rglob("*") if p.is_file()}
+    before = _snapshot()
     (home / "verbs" / "fit_each.py").write_text(FIT_EACH)
     shutil.copy(home / "inputs" / "rlda_products.py", home / "inputs" / "products_copy.py")
     (home / "metrics" / "models_per_wave.py").write_text(
@@ -169,7 +193,7 @@ def test_a_cell_of_new_files_loads_and_runs_without_an_edit(tmp_path):
     res = run_tiny("small.fit.each", tmp_path)
     assert res["correct"], res["checks"]
     assert res["attempted"] >= 1 and res["checks"]["sweeps_missing"]["value"] == 0
-    assert {p: p.read_bytes() for p in (ROOT / "vbench").rglob("*") if p.is_file()} == before
+    assert _snapshot() == before
 
 
 #: A metric that only a new file defines: completed waves a second.
@@ -180,45 +204,93 @@ def read(ctx):
 """
 
 
-def test_a_serving_cell_of_new_files_loads_and_runs_without_an_edit(tmp_path):
-    """A cell that brings its own check and its own served system: a
-    configuration, an input generator, a serve verb that builds an
-    `Engine`, a request verb, a check module and a metric, each a new
-    file, run on the CPU at smoke-test widths."""
-    bench = copy_benchmark(tmp_path)
-    home = tmp_path / "vbench"
-    before = {p: p.read_bytes() for p in (ROOT / "vbench").rglob("*") if p.is_file()}
+#: What a copy of the `logits` check adds: a limit that no check of the
+#: repository declares, and a number that it holds to it.
+COPY_DEV = """
+
+LIMITS = LIMITS | {"copy_dev"}
+_logits_numbers = check
+
+
+def check(cell, inputs, tap, products, control=None):
+    return {**_logits_numbers(cell, inputs, tap, products, control), "copy_dev": 0.0}
+"""
+SERVE_CELL = "smoke.serve.short"
+SERVE_LIMITS = {"logit_dev": 1.0, "token_gap": 1.0, "mixer_dev": 0.05, "state_dev": 0.05,
+                "copy_dev": 0.05}
+
+
+def serving_checkout(root: Path, limits: dict = SERVE_LIMITS, check_tail: str = COPY_DEV) -> None:
+    """A checkout under `root` whose benchmark also has `SERVE_CELL`: a
+    served model at smoke-test widths with its own configuration, input
+    generator, verbs, metric and check (`logits_copy`: the `logits` check
+    and `check_tail`), each a new file, and new entries."""
+    bench = copy_benchmark(root)
+    home = root / "vbench"
     for kind, src, dst in (("inputs", "lm_weights", "lm_copy"), ("verbs", "serve_engine", "engine_copy"),
-                           ("verbs", "waves", "waves_copy"), ("checks", "logits", "logits_copy")):
+                           ("verbs", "waves", "waves_copy")):
         shutil.copy(home / kind / f"{src}.py", home / kind / f"{dst}.py")
+    (home / "checks" / "logits_copy.py").write_text(
+        (home / "checks" / "logits.py").read_text() + check_tail)
     (home / "metrics" / "waves_per_s.py").write_text(WAVES_PER_S)
     config = json.loads((home / "configs" / "zamba2-2.7b.json").read_text())
     config.update(TINY["zamba2.serve.docqa"], name="hybrid-smoke", inputs="lm_copy")
     mix = json.loads((home / "traffic" / "serve.docqa.json").read_text())
     mix["serve"].update(TINY_MIX["zamba2.serve.docqa"]["serve"], verb="engine_copy")
     mix["request"].update(verb="waves_copy", lengths=[19, 40])
-    cell = "smoke.serve.short"
     bench["per_layer"].append({"name": "waves_per_s", "unit": "waves/s", "better": "higher",
                                "source": "host_clock", "layer": "service",
-                               "moves": "serve_tokens_per_s", "workloads": [cell]})
+                               "moves": "serve_tokens_per_s", "workloads": [SERVE_CELL]})
     for m in bench["end_to_end"]:
         if m["name"] in ("serve_tokens_per_s", "ttft_mean_ms"):
-            m["workloads"].append(cell)
-    add_cell(tmp_path, bench, cell, config, "serve.short", mix,
-             {"logit_dev": 1.0, "token_gap": 1.0, "mixer_dev": 0.05, "state_dev": 0.05},
-             check="logits_copy")
+            m["workloads"].append(SERVE_CELL)
+    add_cell(root, bench, SERVE_CELL, config, "serve.short", mix, limits, check="logits_copy")
 
-    loaded = harness.load_cell(cell, tmp_path)
+
+def test_a_serving_cell_of_new_files_loads_and_runs_without_an_edit(tmp_path):
+    """A cell that brings its own check, with a limit that no check of the
+    repository declares, and its own served system: a configuration, an
+    input generator, a serve verb that builds an `Engine`, a request verb,
+    a check module and a metric, each a new file, run on the CPU at
+    smoke-test widths."""
+    before = _snapshot()
+    serving_checkout(tmp_path)
+    repo_limits = set().union(*(harness.load_module(p).LIMITS
+                                for p in (ROOT / "vbench" / "checks").glob("*.py")))
+    assert "copy_dev" not in repo_limits
+
+    loaded = harness.load_cell(SERVE_CELL, tmp_path)
+    assert_pieces(loaded, tmp_path)
     assert Path(loaded.check.__file__).name == "logits_copy.py"
+    assert loaded.check.LIMITS == CHECK_LIMITS["logits"] | {"copy_dev"}
     assert [m["name"] for m in loaded.end_to_end] == ["serve_tokens_per_s", "ttft_mean_ms",
                                                       "setup_s"]
     assert [m["name"] for m in loaded.per_layer] == ["waves_per_s"]
-    res = run_tiny(cell, tmp_path)
+    res = run_tiny(SERVE_CELL, tmp_path)
     assert res["correct"], res["checks"]
     assert res["attempted"] >= 1 and res["failed"] == 0
     assert list(res["checks"]) == ["logit_dev", "token_gap", "mixer_dev", "state_dev",
-                                   "not_argmax", "steps_missing", "inputs_altered", "unchecked"]
-    assert {p: p.read_bytes() for p in (ROOT / "vbench").rglob("*") if p.is_file()} == before
+                                   "not_argmax", "steps_missing", "inputs_altered", "unchecked",
+                                   "copy_dev"]
+    assert res["checks"]["copy_dev"] == {"value": 0.0, "limit": 0.05}
+    assert _snapshot() == before
+
+
+@pytest.mark.parametrize("limits,check_tail,message", [
+    ({**SERVE_LIMITS, "expert_dev": 0.1}, COPY_DEV, r"undeclared \['expert_dev'\]"),
+    ({k: v for k, v in SERVE_LIMITS.items() if k != "copy_dev"}, COPY_DEV,
+     r"missing \['copy_dev'\], undeclared \[\]"),
+    (SERVE_LIMITS, COPY_DEV + "\ndel LIMITS\n", "declares no LIMITS"),
+], ids=["undeclared", "missing", "no-LIMITS"])
+def test_a_cell_whose_limits_differ_from_its_check_is_refused(tmp_path, limits, check_tail,
+                                                               message):
+    """`load_cell` refuses the new serving cell when its file gives a limit
+    that its check does not declare, or leaves one out, or when the check
+    declares none; the error names the cell and the check."""
+    serving_checkout(tmp_path, limits, check_tail)
+    with pytest.raises(ValueError, match=message) as err:
+        harness.load_cell(SERVE_CELL, tmp_path)
+    assert f"cell {SERVE_CELL!r}" in str(err.value) and "'logits_copy'" in str(err.value)
 
 
 def test_a_missing_verb_is_named(tmp_path):
